@@ -1,0 +1,73 @@
+"""The port's flash_attention against the JAX package's flash_attention,
+whose Pallas kernel runs in interpret mode on the CPU, at the shapes of
+tests/test_ops.py plus a key length of 0 and a causal sequence that is not a
+multiple of the 128 block. On a CPU tensor the port runs the kernel's plain
+version; the kernel itself is held against it on the card (chip_smoke.py,
+tests/test_torch_gpu.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vision_compression_project_tpu.ops.attention import flash_attention as jflash
+from vision_compression_project_tpu_torch import kernels
+from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
+
+# f32 on both sides; the Pallas kernel's online softmax sums in another order.
+ATOL = 2e-3
+
+
+def _qkv(seed, b, h, hkv, s, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, h, s, d)).astype(np.float32)
+    k = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    v = rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+    return q, k, v
+
+
+CASES = [
+    # (b, h, hkv, s, d, kv_len, causal)
+    (2, 4, 4, 256, 64, None, False),
+    (2, 4, 4, 256, 64, None, True),
+    (2, 8, 2, 128, 32, [128, 57], False),
+    (2, 4, 2, 128, 32, [0, 100], False),
+    (2, 6, 2, 200, 64, [200, 131], True),
+]
+
+
+@pytest.mark.parametrize("case", CASES, ids=[str(i) for i in range(len(CASES))])
+def test_flash_attention_matches_jax_kernel(case):
+    b, h, hkv, s, d, kv_len, causal = case
+    q, k, v = _qkv(4, b, h, hkv, s, d)
+    jkv = None if kv_len is None else jnp.asarray(kv_len, jnp.int32)
+    tkv = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32)
+    want = np.asarray(jflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len=jkv, causal=causal))
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), kv_len=tkv, causal=causal)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    if kv_len is not None and 0 in kv_len:
+        assert not got[kv_len.index(0)].any()  # an empty key range gives 0
+
+
+def test_plain_version_bf16_in_bf16_out():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in _qkv(5, 1, 6, 2, 64, 32))
+    out = mha_reference(q, k, v, kv_len=torch.tensor([40]), causal=True)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    want = mha_reference(q.float(), k.float(), v.float(), kv_len=torch.tensor([40]), causal=True)
+    np.testing.assert_allclose(out.float().numpy(), want.numpy(), atol=2e-2)  # bf16 output rounding
+
+
+@pytest.mark.parametrize(
+    "d,dtype,device,match",
+    [(48, torch.float32, "cpu", "head_dim"), (64, torch.float16, "cpu", "dtypes"),
+     (64, torch.float32, "cpu", "CUDA")],
+)
+def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(d, dtype, device, match):
+    """The launcher checks its operands before it builds or launches."""
+    q = torch.zeros((1, 2, 128, d), dtype=dtype, device=device)
+    kv_len = torch.full((1,), 128, dtype=torch.int32)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match=match):
+        kernels.flash_attention_fwd(q, q, q, kv_len, causal=False, scale=1.0)
+    assert kernels.launches == before

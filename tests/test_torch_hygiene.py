@@ -1,0 +1,72 @@
+"""The PyTorch port stands alone: importing every module of it, and what
+chip_smoke.py imports, loads nothing of JAX, flax, safetensors, triton or
+the JAX package; and asking for the card where there is none raises instead
+of running on the CPU."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+sys.path.insert(0, sys.argv[1])
+import vision_compression_project_tpu_torch as port
+for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(info.name)
+import chip_smoke
+print(json.dumps(sorted(sys.modules)))
+"""
+
+BANNED_PREFIXES = ("jax", "flax", "safetensors", "triton")
+JAX_PACKAGE = "vision_compression_project_tpu"
+
+
+def _banned(name):
+    # Exact package match: the port's own name starts with the JAX package's.
+    return name.startswith(BANNED_PREFIXES) or name == JAX_PACKAGE or name.startswith(JAX_PACKAGE + ".")
+
+
+def test_port_and_chip_smoke_import_nothing_of_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _PROBE, str(REPO)], capture_output=True, text=True, timeout=120,
+        cwd=REPO,
+    )
+    assert proc.returncode == 0, proc.stderr
+    modules = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "vision_compression_project_tpu_torch.kernels" in modules
+    assert "vision_compression_project_tpu_torch.models.vlm" in modules
+    assert [m for m in modules if _banned(m)] == []
+
+
+def test_banned_name_matching_is_exact():
+    assert _banned("jaxlib.xla_client") and _banned("flax.linen")
+    assert _banned("vision_compression_project_tpu") and _banned("vision_compression_project_tpu.ops")
+    assert not _banned("vision_compression_project_tpu_torch.ops")
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from vision_compression_project_tpu_torch import VLMRunner, get_preset
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        VLMRunner(get_preset("tiny"))  # the default device is the card
+    with pytest.raises(RuntimeError, match="cuda"):
+        VLMRunner(get_preset("tiny"), device="cuda")
+
+
+def test_chip_smoke_refuses_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "chip_smoke.py")], capture_output=True, text=True,
+        timeout=120, cwd=REPO,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout

@@ -1,0 +1,65 @@
+"""Shared helpers of the PyTorch-port parity tests (tests/test_torch_*.py):
+the mini ocr_real configuration in both packages, and flax parameter trees
+made with numpy, so no test pays for an eager flax init."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+from flax.core import meta
+
+from vision_compression_project_tpu.models import configs as jconfigs
+from vision_compression_project_tpu.models import vlm as jvlm
+from vision_compression_project_tpu_torch.models import configs as tconfigs
+
+# ocr_real's structure: 4 windows of 8x8 patches, 2x downsample, GQA 6:2,
+# real-text BPE vocab 4096; widths and depths cut to run in seconds.
+MINI_VISION = dict(
+    image_size=256, patch=16, dim_local=48, dim_global=96, depth_local=1,
+    depth_global=1, heads_local=6, heads_global=6, window=8, downsample=2,
+)
+MINI_DECODER = dict(
+    vocab=4096, tokenizer="bpe:bpe_merges_real.json", dim=96, depth=2, heads=6,
+    kv_heads=2, head_dim=16, max_seq=512,
+)
+
+
+def mini_configs(dtype):
+    """(JAX VLMConfig, port VLMConfig) of the mini ocr_real in `dtype`."""
+    v = dict(MINI_VISION, dtype=dtype)
+    d = dict(MINI_DECODER, dtype=dtype)
+    jcfg = jconfigs.VLMConfig(vision=jconfigs.VisionConfig(**v), decoder=jconfigs.DecoderConfig(**d))
+    tcfg = tconfigs.VLMConfig(vision=tconfigs.VisionConfig(**v), decoder=tconfigs.DecoderConfig(**d))
+    return jcfg, tcfg
+
+
+def param_shapes(jcfg):
+    """The flax parameter tree of OpticalVLM(jcfg), as shapes only."""
+    model = jvlm.OpticalVLM(jcfg)
+    grid, patch = jcfg.vision.grid, jcfg.vision.patch
+    shapes = jax.eval_shape(
+        lambda: model.init(
+            jax.random.PRNGKey(0),
+            jnp.zeros((1, grid * grid, patch * patch * 3), jnp.bfloat16),
+            jnp.zeros((1, 8), jnp.int32),
+        )
+    )["params"]
+    return meta.unbox(shapes)
+
+
+def numpy_params(jcfg, seed):
+    """Random f32 flax params for OpticalVLM(jcfg) at the scales of its
+    initializers (kernels ~ 1/sqrt(fan_in), embeddings 0.02), with norm
+    scales and biases perturbed off their init so their mapping is tested."""
+    rng = np.random.default_rng(seed)
+
+    def make(path, s):
+        name = path[-1].key
+        if name == "kernel":
+            parent = path[-2].key
+            fan_in = s.shape[0] if parent in ("wq", "wk", "wv") else int(np.prod(s.shape[:-1]))
+            return (rng.standard_normal(s.shape) / np.sqrt(fan_in)).astype(np.float32)
+        if name == "scale":
+            return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+        return (0.02 * rng.standard_normal(s.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(make, param_shapes(jcfg))

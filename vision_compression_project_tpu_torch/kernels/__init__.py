@@ -1,0 +1,133 @@
+"""Hand-written CUDA kernels: build from the sources in this directory, bind
+with ctypes, launch on PyTorch's current stream.
+
+Each kernel is compiled on first use with `nvcc` alone (no PyTorch headers, no
+ninja) into a shared library with a plain C interface, under `_build/` in the
+package, keyed by a hash of its source and flags. Nothing here runs at import
+time, so the CPU-only test suite can import the package.
+
+`launches` counts, per kernel, the launches made since the last
+`reset_launch_counts()`: a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_HERE = Path(__file__).resolve().parent
+BUILD_DIR = _HERE.parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+launches = {"flash_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
+    return str(path)
+
+
+def build(name: str) -> Path:
+    """Compile `<name>.cu` into `_build/<name>-<hash>.so` unless it is there.
+
+    The library is written under a temporary name and moved into place with
+    `os.replace`, so a concurrent build never loads a half-written file. The
+    compiler's report (registers, shared memory, spills) is kept beside it as
+    `<name>-<hash>.log`.
+    """
+    src = _HERE / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    lib = BUILD_DIR / f"{name}-{digest}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f".{name}-{digest}.{os.getpid()}.so"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        capture_output=True, text=True, check=False,
+    )
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_lib() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build("flash_attention")))
+    fn = lib.vcp_flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    lib.vcp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.vcp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+FLASH_HEAD_DIMS = (32, 64)
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor,
+    causal: bool, scale: float,
+) -> torch.Tensor:
+    """Launch the flash-attention kernel: q (B, H, Sq, D), k/v (B, Hkv, Sk, D),
+    kv_len (B,) int32, all contiguous CUDA tensors on one device; returns O
+    shaped like q. Raises on anything the kernel does not take and on a
+    launch that CUDA refuses."""
+    b, h, sq, d = q.shape
+    if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"bad k/v shapes {tuple(k.shape)} {tuple(v.shape)} for q {tuple(q.shape)}")
+    hkv, sk = k.shape[1], k.shape[2]
+    if h % hkv:
+        raise ValueError(f"kv heads {hkv} do not divide heads {h}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not supported by the kernel (have {FLASH_HEAD_DIMS})")
+    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of float32, bfloat16")
+    if kv_len.dtype != torch.int32 or kv_len.shape != (b,):
+        raise ValueError(f"kv_len must be int32 of shape ({b},)")
+    for t in (q, k, v, kv_len):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError("all operands must be CUDA tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    lib = _flash_lib()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        err = lib.vcp_flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+            b, h, hkv, sq, sk, d, float(scale), int(causal), _FLASH_DTYPES[q.dtype], stream,
+        )
+    if err:
+        raise RuntimeError(
+            f"flash_attention launch failed: {lib.vcp_cuda_error_string(err).decode()} ({err})"
+        )
+    launches["flash_attention"] += 1
+    return out

@@ -1,0 +1,103 @@
+"""Causal LM decoder (RMSNorm + RoPE + GQA + SwiGLU) with a KV cache. The
+port of vision_compression_project_tpu/models/decoder.py; the unembed runs in
+f32. Switch-MoE blocks are not ported yet: a config with experts is
+refused."""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .configs import DecoderConfig
+from .layers import Attention, Cache, Dense, RMSNorm, SwiGLU, torch_dtype
+
+
+class DecoderBlock(nn.Module):
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        self.norm1 = RMSNorm(cfg.dim)
+        self.attn = Attention(
+            cfg.dim, cfg.heads, cfg.kv_heads, cfg.head_dim, causal=True, rope=True,
+            rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype,
+        )
+        self.norm2 = RMSNorm(cfg.dim)
+        self.mlp = SwiGLU(cfg.dim, cfg.mlp_dim, dtype=cfg.dtype)
+
+    def forward(self, x, kv_len=None):
+        x = x + self.attn(self.norm1(x), kv_len=kv_len)
+        return x + self.mlp(self.norm2(x))
+
+    def prefill(self, x, kv_len=None, cache_len=None):
+        h, cache = self.attn.prefill(self.norm1(x), kv_len=kv_len, cache_len=cache_len)
+        x = x + h
+        return x + self.mlp(self.norm2(x)), cache
+
+    def decode(self, x, cache, pos):
+        h, cache = self.attn.decode(self.norm1(x), cache, pos)
+        x = x + h
+        return x + self.mlp(self.norm2(x)), cache
+
+
+class Decoder(nn.Module):
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__()
+        if cfg.num_experts > 0:
+            raise NotImplementedError("Switch-MoE decoder blocks are not ported yet")
+        self.cfg = cfg
+        self.dt = torch_dtype(cfg.dtype)
+        self.embed = nn.Embedding(cfg.vocab, cfg.dim)
+        self.blocks = nn.ModuleList(DecoderBlock(cfg) for _ in range(cfg.depth))
+        self.norm_f = RMSNorm(cfg.dim)
+        self.unembed = Dense(cfg.dim, cfg.vocab, False, torch.float32)
+
+    def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
+        return F.embedding(ids, self.embed.weight).to(self.dt)
+
+    def hidden_to_logits(self, h: torch.Tensor) -> torch.Tensor:
+        return self.unembed(self.norm_f(h).to(torch.float32))
+
+    def forward(self, x_emb: torch.Tensor, kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Full-sequence forward: (B, S, dim) embeddings -> (B, S, vocab)."""
+        h = x_emb
+        for block in self.blocks:
+            h = block(h, kv_len=kv_len)
+        return self.hidden_to_logits(h)
+
+    def prefill(
+        self, x_emb: torch.Tensor, kv_len: Optional[torch.Tensor] = None, cache_len: Optional[int] = None
+    ) -> Tuple[torch.Tensor, List[Cache]]:
+        """Returns (hidden states (B, S, dim), caches padded to cache_len).
+
+        The hidden states, not the logits: generation needs the logits of one
+        position per row, which `hidden_to_logits` gives from a gathered row."""
+        h = x_emb
+        caches = []
+        for block in self.blocks:
+            h, cache = block.prefill(h, kv_len=kv_len, cache_len=cache_len)
+            caches.append(cache)
+        return h, caches
+
+    def decode_step(
+        self, x_emb: torch.Tensor, caches: List[Cache], pos: Union[int, torch.Tensor]
+    ) -> Tuple[torch.Tensor, List[Cache]]:
+        """x_emb: (B, 1, dim); pos: int or (B,). Returns (logits (B, vocab),
+        caches), the caches updated in place."""
+        h = x_emb
+        for i, block in enumerate(self.blocks):
+            h, caches[i] = block.decode(h, caches[i], pos)
+        return self.hidden_to_logits(h)[:, 0], caches
+
+
+def init_cache(
+    cfg: DecoderConfig, batch: int, dtype: torch.dtype = torch.bfloat16, device="cuda"
+) -> List[Cache]:
+    """Zero KV caches for `batch` sequences (used when skipping prefill)."""
+    shape = (batch, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
+    return [
+        {"k": torch.zeros(shape, dtype=dtype, device=device),
+         "v": torch.zeros(shape, dtype=dtype, device=device)}
+        for _ in range(cfg.depth)
+    ]

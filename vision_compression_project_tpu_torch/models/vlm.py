@@ -1,0 +1,266 @@
+"""The page reader: vision encoder + projector + LM decoder, and the runner
+that turns page rasters into page-JSON dicts by greedy decoding. The port of
+vision_compression_project_tpu/models/vlm.py (OpticalVLM, _task_logit_mask,
+VLMRunner's extraction path).
+
+The decoder emits `markdown <SEP> summary <SEP> entity (<US> entity)* <EOS>`;
+the host splits the tokens into {page_number, markdown, entities, summary}.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.preprocess import preprocess_pages
+from .configs import VLMConfig
+from .decoder import Decoder
+from .layers import Dense, RMSNorm, torch_dtype
+from .tokenizer import BOS_ID, EOS_ID, PAD_ID, SEP_ID, TASK_EXTRACT_ID, get_tokenizer
+from .vit import VisionEncoder
+
+UNIT_SEP = 0x1F  # byte separating entity list items inside the entities field
+
+PROMPT_BUCKET = 64   # prompt lengths are padded up to a multiple of this
+CACHE_BUCKET = 128   # KV cache lengths are padded up to a multiple of this
+MAX_NEW = 256        # tokens decoded per page unless the caller asks for fewer
+
+
+def _task_logit_mask(tok) -> np.ndarray:
+    """Additive (vocab,) f32 mask constraining extraction to its output grammar.
+
+    Text tokens are allowed when their byte expansion holds only printable or
+    whitespace bytes; SEP, US and EOS are allowed too."""
+    allowed_bytes = set(range(0x20, 0x7F)) | set(range(0x80, 0x100)) | {0x09, 0x0A}
+    mask = np.full((tok.vocab_size,), -1e30, np.float32)
+    for tid, exp in tok.expansions().items():
+        if exp and all(b in allowed_bytes for b in exp):
+            mask[tid] = 0.0
+    mask[np.asarray([SEP_ID, EOS_ID, UNIT_SEP])] = 0.0
+    return mask
+
+
+class OpticalVLM(nn.Module):
+    def __init__(self, cfg: VLMConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vision = VisionEncoder(cfg.vision)
+        self.proj = Dense(cfg.vision.dim_global, cfg.decoder.dim, False, torch_dtype(cfg.decoder.dtype))
+        self.decoder = Decoder(cfg.decoder)
+
+    def encode_pages(self, patch_tokens: torch.Tensor) -> torch.Tensor:
+        return self.proj(self.vision(patch_tokens))
+
+    def forward(
+        self, patch_tokens: torch.Tensor, token_ids: torch.Tensor, kv_len: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """Training/eval forward: logits over the [vision ; text] sequence."""
+        vis = self.encode_pages(patch_tokens)
+        txt = self.decoder.embed_tokens(token_ids)
+        x = torch.cat([vis, txt.to(vis.dtype)], dim=1)
+        total_len = None if kv_len is None else kv_len + vis.shape[1]
+        return self.decoder(x, kv_len=total_len)
+
+    def prefill_mixed(
+        self,
+        vision_emb: Optional[torch.Tensor],
+        prompt_ids: torch.Tensor,
+        kv_len: torch.Tensor,
+        cache_len: Optional[int] = None,
+    ):
+        """Prefill over [vision ; prompt]: (hidden states, caches)."""
+        txt = self.decoder.embed_tokens(prompt_ids)
+        x = txt if vision_emb is None else torch.cat([vision_emb, txt.to(vision_emb.dtype)], dim=1)
+        return self.decoder.prefill(x, kv_len=kv_len, cache_len=cache_len)
+
+    def decode_ids(self, ids: torch.Tensor, caches, pos):
+        return self.decoder.decode_step(self.decoder.embed_tokens(ids[:, None]), caches, pos)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    # flax's lecun_normal: truncated normal at two std, std corrected for the truncation.
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+
+
+@torch.no_grad()
+def init_params(model: OpticalVLM, seed: int) -> None:
+    """Fill `model` with seeded random weights, with the initializers the JAX
+    package uses: lecun-normal kernels, zero biases, unit norm scales, N(0,
+    0.02) position and token embeddings. Same seed, same weights on any
+    device when the model lies on the CPU (the generator's device)."""
+    g = torch.Generator().manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, RMSNorm):
+            module.scale.fill_(1.0)
+        elif isinstance(module, nn.Linear):
+            _lecun_normal_(module.weight, module.in_features, g)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.Conv2d):
+            w = module.weight
+            _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], g)
+            module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            module.weight.normal_(0.0, 0.02, generator=g)
+    model.vision.pos_embed.normal_(0.0, 0.02, generator=g)
+
+
+class VLMRunner:
+    """Owns the model and presents batched page extraction.
+
+    Weights are seeded random unless `params` (a state_dict, e.g. from
+    `weights.params_from_jax`) is given. Runs on `device`, "cuda" unless the
+    caller asks for "cpu"."""
+
+    def __init__(
+        self,
+        cfg: VLMConfig,
+        params: Optional[Dict[str, torch.Tensor]] = None,
+        seed: int = 0,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("VLMRunner: device 'cuda' asked for, but no CUDA device is available")
+        self.cfg = cfg
+        self.tok = get_tokenizer(cfg)
+        model = OpticalVLM(cfg)
+        if params is None:
+            init_params(model, seed)
+        else:
+            model.load_state_dict(params)
+        self.model = model.to(self.device).eval()
+        self._mask = torch.from_numpy(_task_logit_mask(self.tok)).to(self.device)
+
+    @torch.inference_mode()
+    def preprocess_patches(self, pages_u8: np.ndarray) -> torch.Tensor:
+        """uint8 pages -> bf16 patch tokens (bf16 whatever the model dtype, as
+        in the reference)."""
+        cfg = self.cfg.vision
+        pages = torch.as_tensor(np.ascontiguousarray(pages_u8)).to(self.device)
+        return preprocess_pages(
+            pages, target_h=cfg.image_size, target_w=cfg.image_size, patch=cfg.patch
+        )
+
+    @torch.inference_mode()
+    def encode(self, patches: torch.Tensor) -> torch.Tensor:
+        return self.model.encode_pages(patches)
+
+    def pad_prompts(self, prompts: Sequence[Sequence[int]]) -> Tuple[torch.Tensor, List[int]]:
+        """(B, plen) ids, plen bucketed up to PROMPT_BUCKET, and true lengths."""
+        plen = max(8, -(-max(len(p) for p in prompts) // PROMPT_BUCKET) * PROMPT_BUCKET)
+        ids = np.full((len(prompts), plen), PAD_ID, np.int64)
+        lens = []
+        for i, p in enumerate(prompts):
+            p = list(p)[:plen]
+            ids[i, : len(p)] = p
+            lens.append(len(p))
+        return torch.as_tensor(ids, device=self.device), lens
+
+    @torch.inference_mode()
+    def first_logits(
+        self, ids: torch.Tensor, lens: List[int], vision_emb: Optional[torch.Tensor], cache_len: int,
+    ) -> Tuple[torch.Tensor, list, torch.Tensor]:
+        """Prefill over [vision ; prompt ids]: (logits (B, vocab) at each
+        row's last real position, caches padded to cache_len, kv_len (B,))."""
+        vis_len = 0 if vision_emb is None else vision_emb.shape[1]
+        kv_len = torch.as_tensor(lens, dtype=torch.int32, device=self.device) + vis_len
+        h, caches = self.model.prefill_mixed(vision_emb, ids, kv_len, cache_len)
+        last = h[torch.arange(h.shape[0], device=self.device), kv_len.long() - 1]
+        return self.model.decoder.hidden_to_logits(last), caches, kv_len
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        prompts: Sequence[Sequence[int]],
+        vision_emb: Optional[torch.Tensor],
+        max_new: int,
+    ) -> torch.Tensor:
+        """Greedy decoding under the extraction logit mask: (B, max_new) token ids,
+        PAD after a row's EOS. Stops early once every row has emitted EOS."""
+        b = len(prompts)
+        ids, lens = self.pad_prompts(prompts)
+        plen = ids.shape[1]
+        vis_len = 0 if vision_emb is None else vision_emb.shape[1]
+        max_seq = self.cfg.decoder.max_seq
+        # The decode position must stay inside the model context.
+        max_new = max(1, min(max_new, max_seq - vis_len - plen))
+        cache_len = min(max_seq, -(-(vis_len + plen + max_new) // CACHE_BUCKET) * CACHE_BUCKET)
+        mask = self._mask[None, :]
+
+        logits, caches, kv_len = self.first_logits(ids, lens, vision_emb, cache_len)
+        # Lockstep batch (one prompt length): decode writes the cache at one
+        # host-side position; otherwise each row carries its own position.
+        pos: Union[int, torch.Tensor] = (
+            lens[0] + vis_len if all(n == lens[0] for n in lens) else kv_len.long()
+        )
+        first = torch.argmax(logits + mask, dim=-1)
+        out = torch.full((b, max_new), PAD_ID, dtype=torch.long, device=self.device)
+        done = first == EOS_ID
+        out[:, 0] = first
+        last_tok = first
+        for i in range(1, max_new):
+            if bool(done.all()):
+                break
+            step_logits, caches = self.model.decode_ids(last_tok, caches, pos)
+            tok = torch.argmax(step_logits + mask, dim=-1)
+            tok = torch.where(done, torch.full_like(tok, PAD_ID), tok)
+            out[:, i] = tok
+            done = done | (tok == EOS_ID)
+            last_tok = tok
+            pos = pos + 1
+        return out
+
+    @staticmethod
+    def _collect_tokens(toks: torch.Tensor) -> List[List[int]]:
+        """Token rows, cut at EOS, without PAD."""
+        result = []
+        for row in toks.cpu().tolist():
+            if EOS_ID in row:
+                row = row[: row.index(EOS_ID)]
+            result.append([t for t in row if t != PAD_ID])
+        return result
+
+    def extract_batch(
+        self, pages_u8: np.ndarray, page_numbers: List[int], max_new: int = MAX_NEW
+    ) -> List[Dict]:
+        """(B, H, W), (B, H, W, 1) or (B, H, W, 3) uint8 pages -> one
+        {page_number, markdown, entities, summary} dict per page number."""
+        vis = self.encode(self.preprocess_patches(pages_u8))
+        prompts = [[BOS_ID, TASK_EXTRACT_ID]] * int(pages_u8.shape[0])
+        sequences = self._collect_tokens(self.generate(prompts, vis, max_new))
+        out = []
+        for page_no, seq in zip(page_numbers, sequences):
+            markdown, summary, entities = self._split_fields(seq)
+            out.append(
+                {"page_number": page_no, "markdown": markdown, "entities": entities, "summary": summary}
+            )
+        return out
+
+    def _split_fields(self, seq: List[int]) -> Tuple[str, str, List[str]]:
+        parts: List[List[int]] = [[]]
+        for t in seq:
+            if t == SEP_ID:
+                parts.append([])
+            else:
+                parts[-1].append(t)
+        markdown = self.tok.decode(parts[0]) if parts else ""
+        summary = self.tok.decode(parts[1]) if len(parts) > 1 else ""
+        entities: List[str] = []
+        if len(parts) > 2:
+            current: List[int] = []
+            for t in parts[2]:
+                if t == UNIT_SEP:
+                    if current:
+                        entities.append(self.tok.decode(current))
+                    current = []
+                else:
+                    current.append(t)
+            if current:
+                entities.append(self.tok.decode(current))
+        return markdown, summary, entities
