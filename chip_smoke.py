@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's page-extraction path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's two paths on one NVIDIA GPU and check them:
+page extraction with ocr_real, and /chat (retrieval and a cited answer) with
+the hash embedder and ocr_bpe.
 
     python3 chip_smoke.py [--seed N]
 
@@ -8,17 +10,28 @@ needs torch, numpy and the standard library; it reads no checkpoint (weights
 are random, made from the seed). One flushed line per phase, with seconds:
 
   device   the card's name and power limit;
-  build    compile the hand-written kernels from the sources in the repo;
+  build    compile the hand-written kernels from the sources in the repo, one
+           nvcc per kernel, all started together, and print each -Xptxas -v log;
   kernel   hold each kernel against its plain PyTorch version on the card at
-           every shape the ocr_real path gives it (and a ragged key length),
-           and time the kernel, the plain version, a one-call PyTorch
-           yardstick and the card's bound for the same work;
+           the shapes its paths give it (and a ragged case), and time the
+           kernel, the plain version, a one-call PyTorch yardstick and the
+           card's bound for the same work; one `kernel {...}` line per case;
   slice    VLMRunner(ocr_real, seed).extract_batch on 4 gray 1023x791 pages
            (US Letter at dpi 93) with max_new=256, launch counts zeroed just
            before and read just after; then the same path timed by stage,
            five times, printing each stage's median, min and max;
   logits   first-step logits of the kernel path on the card against the
-           plain path on the CPU, in f32, on one page.
+           plain path on the CPU, in f32, on one page;
+  chat     an index of 128,064 rows on the card (128,000 seeded random unit
+           rows for 1,000 other documents of 128 pages, and a 64-page target
+           document of seeded prose ingested from page JSON), then four
+           questions with engine "lm" (VLMRunner(ocr_bpe, seed)) and one with
+           "extractive", launch counts zeroed before and read after each;
+           retrieval is checked against the same search with the plain
+           version on a CPU copy of the rows; then each stage (embed,
+           retrieve, answer prefill, answer decode) timed five times;
+  answer_logits  first-step answer logits of the kernel path on the card
+           against the plain path on the CPU, in f32, for one question.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -31,19 +44,34 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from vision_compression_project_tpu_torch import kernels
+from vision_compression_project_tpu_torch.index import VectorIndex
 from vision_compression_project_tpu_torch.models import VLMRunner, get_preset
+from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
+from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedder
+from vision_compression_project_tpu_torch.models.layers import use_flash
 from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, TASK_EXTRACT_ID
-from vision_compression_project_tpu_torch.models.vlm import CACHE_BUCKET, PROMPT_BUCKET
+from vision_compression_project_tpu_torch.models.vlm import (
+    ANSWER_DECODE_RESERVE, CACHE_BUCKET, PROMPT_BUCKET,
+)
 from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
+from vision_compression_project_tpu_torch.ops.topk import (
+    NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference,
+)
+from vision_compression_project_tpu_torch.pipeline.ingest import ingest_pages_dir
+from vision_compression_project_tpu_torch.pipeline.qa import _build_evidence_pack, answer_question
 
 PRESET = "ocr_real"
 N_PAGES = 4
@@ -58,6 +86,24 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-3}
 # First-step logits (scale ~1), kernel path on the card vs plain path on the
 # CPU, both f32 with TF32 off: the same arithmetic summed in another order.
 LOGITS_ATOL = 1e-3
+
+# /chat: the answer model, the index (1,000 other documents of 128 pages as
+# seeded random unit rows, added in chunks, plus one target document of 64
+# pages of seeded prose ingested from page JSON) and the questions.
+CHAT_PRESET = "ocr_bpe"
+OTHER_DOCS, OTHER_PAGES, ADD_CHUNK = 1000, 128, 8192
+TARGET_DOC, TARGET_PAGES = "target-report", 64
+TOP_K, MAX_CHARS_PER_PAGE = 8, 1500
+LM_QUESTIONS = (
+    "How many invoices did the billing service process?",
+    "What did the audit team review in section 12?",
+    "Which plant shipped the most units?",
+    "How many pages did the cache module store?",
+)
+EXTRACTIVE_QUESTION = "What did the night shift reject?"
+# K2 against its plain version (and the card's search against the CPU's):
+# scores of unit vectors, the same f32 products summed in another order.
+SIM_ATOL = 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by input type.
 HBM_BYTES_PER_S = 3.35e12
@@ -96,26 +142,54 @@ class AttnShape:
     d: int
     causal: bool
     kv_len: list           # per batch row
-    launches: int          # launches per page batch on the main path (0: extra check)
+    launches: int          # per page batch (extract) or on the first question (chat); 0: extra check
+    path: str = "extract"
 
 
-def path_shapes(cfg) -> list:
-    """Every flash-attention call of one ocr_real page batch, from the config."""
-    v, dec = cfg.vision, cfg.decoder
+def encoder_shapes(v, batch: int, path: str) -> list:
+    """The encoder's attention calls that take K1 (the reference's routing
+    rule), for `batch` pages."""
     win = min(v.window, v.grid)
     nwin = (v.grid // win) ** 2
     vis = v.tokens_out
+    d_local, d_global = v.dim_local // v.heads_local, v.dim_global // v.heads_global
+    shapes = []
+    if use_flash(win * win, d_local):
+        shapes.append(AttnShape(f"{path}_encoder_local", batch * nwin, v.heads_local, v.heads_local,
+                                win * win, d_local, False, [win * win] * (batch * nwin),
+                                v.depth_local, path))
+    if use_flash(vis, d_global):
+        shapes.append(AttnShape(f"{path}_encoder_global", batch, v.heads_global, v.heads_global, vis,
+                                d_global, False, [vis] * batch, v.depth_global, path))
+    return shapes
+
+
+def path_shapes(cfg, chat_cfg) -> list:
+    """Every flash-attention call of one ocr_real page batch, and of the
+    first ocr_bpe answer whose evidence fills its budget, from the configs.
+    The answer's blank page is encoded on the first question only; later
+    questions launch the prefill calls alone."""
+    v, dec = cfg.vision, cfg.decoder
+    vis = v.tokens_out
     s_dec = vis + PROMPT_BUCKET  # the 2-token prompt pads to one bucket
-    return [
-        AttnShape("encoder_local", N_PAGES * nwin, v.heads_local, v.heads_local, win * win,
-                  v.dim_local // v.heads_local, False, [win * win] * (N_PAGES * nwin), v.depth_local),
-        AttnShape("encoder_global", N_PAGES, v.heads_global, v.heads_global, vis,
-                  v.dim_global // v.heads_global, False, [vis] * N_PAGES, v.depth_global),
-        AttnShape("decoder_prefill", N_PAGES, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
+    cv, cdec = chat_cfg.vision, chat_cfg.decoder
+    s_ans = cv.tokens_out + chat_prompt_len(chat_cfg)
+    return encoder_shapes(v, N_PAGES, "extract") + [
+        AttnShape("extract_decoder_prefill", N_PAGES, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
                   [vis + 2] * N_PAGES, dec.depth),
-        AttnShape("decoder_prefill_ragged", 2, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
+        AttnShape("extract_decoder_prefill_ragged", 2, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
                   [vis + 2, s_dec - 1], 0),
+    ] + encoder_shapes(cv, 1, "chat") + [
+        AttnShape("chat_answer_prefill", 1, cdec.heads, cdec.kv_heads, s_ans, cdec.head_dim, True,
+                  [s_ans], cdec.depth, "chat"),
     ]
+
+
+def chat_prompt_len(chat_cfg) -> int:
+    """The answer prompt's length when the evidence fills its budget
+    (VLMRunner.answer_prompt): the longest prompt the path pads to."""
+    max_seq, vis = chat_cfg.decoder.max_seq, chat_cfg.vision.tokens_out
+    return (max_seq - vis - ANSWER_DECODE_RESERVE) // PROMPT_BUCKET * PROMPT_BUCKET
 
 
 def bound_ms(sh: AttnShape, dtype: torch.dtype):
@@ -147,10 +221,10 @@ def library_call(q, k, v, sh: AttnShape):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=gqa)
 
 
-def kernel_phase(cfg, seed: int):
+def kernel_phase(cfg, chat_cfg, seed: int):
     rows, record = [], {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for sh in path_shapes(cfg):
+    for sh in path_shapes(cfg, chat_cfg):
         for dtype in (torch.bfloat16, torch.float32):
             def rnd(heads):
                 return torch.randn((sh.b, heads, sh.s, sh.d), generator=gen, device="cuda").to(dtype)
@@ -161,7 +235,7 @@ def kernel_phase(cfg, seed: int):
             want = mha_reference(q, k, v, kv_len=kv_len, causal=sh.causal)
             err = (out.float() - want.float()).abs().max().item()
             ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
-            row = dict(shape=sh.name, dtype=str(dtype).replace("torch.", ""),
+            row = dict(kernel="flash_attention", shape=sh.name, dtype=str(dtype).replace("torch.", ""),
                        q=[sh.b, sh.h, sh.s, sh.d], kv=[sh.b, sh.hkv, sh.s, sh.d],
                        causal=sh.causal, max_abs_err=err, tol=TOL[dtype], ok=ok)
             if dtype == torch.bfloat16:
@@ -170,7 +244,7 @@ def kernel_phase(cfg, seed: int):
                     lambda: mha_reference(q, k, v, kv_len=kv_len, causal=sh.causal), 5, warmup=1)
                 row["library_ms"] = cuda_ms(library_call(q, k, v, sh), 20)
                 row["bound_ms"], row["bound_by"] = bound_ms(sh, dtype)
-                row["launches_per_batch"] = sh.launches
+                row["launches_per_batch" if sh.path == "extract" else "launches_first_question"] = sh.launches
             print("kernel " + json.dumps(row), flush=True)
             rows.append(row)
             if not ok:
@@ -185,7 +259,275 @@ def kernel_phase(cfg, seed: int):
     ops_ms = sum(r["bound_ms"] * r["launches_per_batch"] for r in main if r["bound_by"] == "operations")
     record["bound_by"] = "operations" if ops_ms >= record["bound_ms"] / 2 else "bytes"
     record["max_abs_err"] = max(r["max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+    # The first /chat question's worth of K1 (later questions: the prefill rows alone).
+    chat = [r for r in rows if r.get("launches_first_question")]
+    record["chat_first_question"] = {
+        key: sum(r[key] * r["launches_first_question"] for r in chat)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+    }
     return record
+
+
+@dataclasses.dataclass
+class SimCase:
+    name: str
+    n: int
+    b: int
+    emb_dtype: torch.dtype
+    timed: bool  # on the retrieval path: time it and give its bound
+
+
+def similarity_cases(n_path: int) -> list:
+    """K2's calls: the path's (capacity, 512) rows against one f32 query (the
+    kernels record's case), the same with bf16 rows (VectorIndex's dtype
+    option), and a ragged case."""
+    return [
+        SimCase("chat_retrieve", n_path, 1, torch.float32, True),
+        SimCase("chat_retrieve_bf16_rows", n_path, 1, torch.bfloat16, True),
+        SimCase("ragged", 1000, 3, torch.float32, False),
+    ]
+
+
+def similarity_bound_ms(n: int, d: int, b: int, emb_dtype: torch.dtype):
+    """(least time in ms, "bytes" or "operations") for one call: emb,
+    queries and mask read once, scores written once; 2*D operations per
+    (query, row) pair, in f32."""
+    item = torch.tensor([], dtype=emb_dtype).element_size()
+    nbytes = n * d * item + b * d * 4 + n * 4 + b * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * b * n * d / PEAK_FLOPS[torch.float32] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def similarity_phase(seed: int, dim: int, n_path: int):
+    """K2 against its plain version at each case: max abs error over the
+    unmasked scores, masked scores exactly -1e30; times on the path's shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    record = {}
+    for case in similarity_cases(n_path):
+        emb = torch.randn((case.n, dim), generator=gen, device="cuda")
+        emb = (emb / emb.norm(dim=1, keepdim=True)).to(case.emb_dtype)
+        q = torch.randn((case.b, dim), generator=gen, device="cuda")
+        q = q / q.norm(dim=1, keepdim=True)
+        mask = (torch.rand((case.n,), generator=gen, device="cuda") > 0.5).float()
+        out = masked_similarity(emb, q, mask)
+        torch.cuda.synchronize()
+        want = masked_similarity_reference(emb, q, mask)
+        off = mask <= 0
+        masked_exact = bool((out[:, off] == NEG_INF).all())
+        err = (out[:, ~off] - want[:, ~off]).abs().max().item()
+        ok = masked_exact and err <= SIM_ATOL and out.shape == (case.b, case.n)
+        row = dict(kernel="masked_similarity", shape=case.name, emb=[case.n, dim],
+                   emb_dtype=str(case.emb_dtype).replace("torch.", ""), queries=case.b,
+                   max_abs_err=err, tol=SIM_ATOL, masked_exact=masked_exact, ok=ok)
+        if case.timed:
+            row["ms"] = cuda_ms(lambda: masked_similarity(emb, q, mask), 50, warmup=5)
+            row["plain_ms"] = cuda_ms(lambda: masked_similarity_reference(emb, q, mask), 50, warmup=5)
+            # Yardstick: one cuBLAS matrix-vector product in the rows' type,
+            # without the mask's torch.where.
+            q_lib = q.to(case.emb_dtype)
+            row["library_ms"] = cuda_ms(lambda: torch.matmul(q_lib, emb.T), 50, warmup=5)
+            row["bound_ms"], row["bound_by"] = similarity_bound_ms(case.n, dim, case.b, case.emb_dtype)
+            if not record:
+                record.update({k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        print("kernel " + json.dumps(row), flush=True)
+        if not ok:
+            fail(f"masked_similarity {case.name}: max abs err {err} (tol {SIM_ATOL}), "
+                 f"masked entries exact: {masked_exact}")
+        record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+        del emb, q, mask, out, want
+    torch.cuda.empty_cache()
+    return record
+
+
+_SUBJECTS = ("The cache module", "The billing service", "Plant delta", "The audit team",
+             "The retrieval index", "The vision encoder", "Cluster theta", "The night shift")
+_VERBS = ("stored", "reported", "processed", "rejected", "shipped", "reviewed")
+_OBJECTS = ("invoices", "pages", "units", "defect reports", "requests", "samples")
+
+
+def prose_pages(seed: int, n_pages: int, sentences: int = 20) -> list:
+    """Seeded synthetic prose, one string per page (about 1,300 characters);
+    every sentence carries its page and sentence numbers."""
+    rng = np.random.default_rng(seed)
+    pages = []
+    for p in range(1, n_pages + 1):
+        out = []
+        for s in range(1, sentences + 1):
+            subj = _SUBJECTS[rng.integers(len(_SUBJECTS))]
+            verb = _VERBS[rng.integers(len(_VERBS))]
+            obj = _OBJECTS[rng.integers(len(_OBJECTS))]
+            out.append(f"{subj} {verb} {int(rng.integers(2, 999))} {obj} in section {p}.{s}.")
+        pages.append(" ".join(out))
+    return pages
+
+
+def build_index(seed: int, embedder, workdir: Path):
+    """The /chat index on the card: random unit rows for the other
+    documents, then the target document's page JSON through ingest."""
+    rng = np.random.default_rng(seed)
+    index = VectorIndex(embedder.dim, device="cuda")
+    n_other = OTHER_DOCS * OTHER_PAGES
+    for start in range(0, n_other, ADD_CHUNK):
+        n = min(ADD_CHUNK, n_other - start)
+        rows = rng.standard_normal((n, embedder.dim), dtype=np.float32)
+        rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+        rows_ids = range(start, start + n)
+        records = [{"doc_id": f"other-{i // OTHER_PAGES:04d}", "page": i % OTHER_PAGES + 1,
+                    "content": f"Filler page {i % OTHER_PAGES + 1} of document {i // OTHER_PAGES}."}
+                   for i in rows_ids]
+        index.add(rows, records, memory_ids=[f"other{i:07d}" for i in rows_ids])
+    pages_dir = workdir / "pages"
+    pages_dir.mkdir()
+    for p, text in enumerate(prose_pages(seed, TARGET_PAGES), 1):
+        page = {"page_number": p, "markdown": text, "entities": [], "summary": text[:80]}
+        (pages_dir / f"page_{p:03d}.json").write_text(json.dumps(page))
+    manifest = ingest_pages_dir(pages_dir, workdir / "target.pdf", TARGET_DOC, workdir / "manifest.json",
+                                embedder=embedder, store=index)
+    return index, manifest
+
+
+def expected_chat_launches(shapes: list) -> tuple:
+    """K1 launches on the first lm question and on each later one."""
+    chat = [sh for sh in shapes if sh.path == "chat" and sh.launches]
+    first = sum(sh.launches for sh in chat)
+    later = sum(sh.launches for sh in chat if "encoder" not in sh.name)
+    return first, later
+
+
+def check_retrieval(index, embedder, question: str, retrieved: list, rows_cpu: torch.Tensor) -> float:
+    """The answer's retrieved pages equal the same search done with the plain
+    version on a CPU copy of the rows: same memory ids in the same order,
+    scores within SIM_ATOL. Returns the largest score difference."""
+    q = embedder.embed([question])
+    card = index.search(q, top_k=TOP_K, doc_id=TARGET_DOC)[0]
+    vals, idx = cosine_topk(rows_cpu, torch.from_numpy(q), index._mask_for(TARGET_DOC).cpu(), TOP_K)
+    plain = index._results_from(vals.numpy(), idx.numpy())[0]
+    ids = [r["id"] for r in plain]
+    if [r["id"] for r in card] != ids or [r["memory_id"] for r in retrieved] != ids:
+        fail(f"retrieval on the card {[r['id'] for r in card]} (answer: "
+             f"{[r['memory_id'] for r in retrieved]}) != plain search on the CPU {ids}")
+    diff = max(abs(a["score"] - b["score"]) for a, b in zip(card, plain))
+    if not diff <= SIM_ATOL:
+        fail(f"retrieval scores differ by {diff} > {SIM_ATOL}")
+    return diff
+
+
+def chat_phase(chat_cfg, seed: int, shapes: list):
+    """/chat on the card: the index, five questions with exact launch counts,
+    then the stages timed."""
+    t0 = time.perf_counter()
+    embedder = HashNGramEmbedder(EmbedderConfig(), seed=seed, device="cuda")
+    embedder.projection()
+    log("chat.embedder", sync_s(t0), dim=embedder.dim, buckets=embedder.cfg.ngram_buckets)
+    runner = VLMRunner(chat_cfg, seed=seed, device="cuda")
+    first_k1, later_k1 = expected_chat_launches(shapes)
+    launches = {name: 0 for name in kernels.launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        t0 = time.perf_counter()
+        index, manifest = build_index(seed, embedder, workdir)
+        build_s = sync_s(t0)
+        log("chat.index", build_s, rows=index.count, capacity=index.capacity,
+            row_mib=index.capacity * index.dim * 4 / 2**20, target_pages=len(manifest["pages"]))
+        if index.count != OTHER_DOCS * OTHER_PAGES + TARGET_PAGES or manifest["failed_pages"]:
+            fail(f"index holds {index.count} rows; failed pages {manifest['failed_pages']}")
+        target_ids = {p["memory_id"] for p in manifest["pages"]}
+        rows_cpu = index._rows.cpu()
+        questions = [(q, "lm") for q in LM_QUESTIONS] + [(EXTRACTIVE_QUESTION, "extractive")]
+        for i, (question, engine) in enumerate(questions):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            result = answer_question(TARGET_DOC, question, top_k=TOP_K, max_chars_per_page=MAX_CHARS_PER_PAGE,
+                                     manifest_path=workdir / "manifest.json", store=index,
+                                     embedder=embedder, runner=runner, engine=engine)
+            seconds = sync_s(t0)
+            got = dict(kernels.launches)
+            for name, n in got.items():
+                launches[name] += n
+            want = {"masked_similarity": 1,
+                    "flash_attention": 0 if engine != "lm" else (first_k1 if i == 0 else later_k1)}
+            log("chat.question", seconds, engine=engine, launches=json.dumps(got),
+                answer=json.dumps(result["answer_md"][:80]))
+            if got != want:
+                fail(f"question {i} ({engine}): launches {got}, expected {want}")
+            retrieved = result["retrieved"]
+            if len(retrieved) != TOP_K or not {r["memory_id"] for r in retrieved} <= target_ids:
+                fail(f"question {i}: retrieved {retrieved} is not {TOP_K} pages of the target document")
+            if not isinstance(result["answer_md"], str) or not result["answer_md"]:
+                fail(f"question {i}: empty answer")
+            if engine == "extractive":
+                pages = {r["page"] for r in retrieved}
+                cited = {int(m) for m in re.findall(rf"\({TARGET_DOC} p\.(\d+)\)", result["answer_md"])}
+                if not cited or not cited <= pages:
+                    fail(f"extractive answer cites pages {cited}, retrieved {pages}")
+            diff = check_retrieval(index, embedder, question, retrieved, rows_cpu)
+            log("chat.retrieval_check", 0.0, question=i, max_score_diff=diff)
+        timing = time_chat_stages(runner, index, embedder, manifest, workdir)
+    timing["index_build_s"] = build_s
+    log("chat.timed", 0.0, **timing)
+    return launches, timing
+
+
+def time_chat_stages(runner, index, embedder, manifest, workdir: Path) -> dict:
+    """Each /chat stage of the first lm question, warm, TIMED_REPEATS times."""
+    question = LM_QUESTIONS[0]
+    results = index.search(embedder.embed([question]), top_k=TOP_K, doc_id=TARGET_DOC)[0]
+    pack = _build_evidence_pack(results, manifest, TARGET_DOC, MAX_CHARS_PER_PAGE)
+    prompt, bound = runner.answer_prompt(question, pack)
+    vis = runner._blank_vision()
+    samples = {"embed_s": [], "retrieve_s": [], "prefill_s": [], "decode_s": []}
+    steps = 0
+    for _ in range(TIMED_REPEATS):
+        t0 = time.perf_counter()
+        q = embedder.embed([question])
+        samples["embed_s"].append(sync_s(t0))
+        t0 = time.perf_counter()
+        index.search(q, top_k=TOP_K, doc_id=TARGET_DOC)
+        samples["retrieve_s"].append(sync_s(t0))
+        ids, lens = runner.pad_prompts([prompt])
+        cache_len = min(runner.cfg.decoder.max_seq,
+                        -(-(vis.shape[1] + ids.shape[1] + bound) // CACHE_BUCKET) * CACHE_BUCKET)
+        t0 = time.perf_counter()
+        logits, _, _ = runner.first_logits(ids, lens, vis, cache_len)
+        prefill_s = sync_s(t0)
+        samples["prefill_s"].append(prefill_s)
+        if not bool(torch.isfinite(logits).all()):
+            fail("non-finite first-step answer logits")
+        t0 = time.perf_counter()
+        toks = runner.generate([prompt], vis, bound, task="answer")
+        samples["decode_s"].append(max(sync_s(t0) - prefill_s, 1e-9))
+        row = toks[0].cpu().numpy()
+        steps = int(np.argmax(row == EOS_ID)) if (row == EOS_ID).any() else bound - 1
+    timing = {"repeats": TIMED_REPEATS, "prompt_tokens": len(prompt), "decode_steps": steps}
+    for key, vals in samples.items():
+        timing[key] = float(np.median(vals))
+        timing[f"{key[:-2]}_min_s"] = min(vals)
+        timing[f"{key[:-2]}_max_s"] = max(vals)
+    timing["decode_row_steps_per_s"] = steps / timing["decode_s"]
+    return timing
+
+
+def answer_logits_phase(chat_cfg, seed: int):
+    """First-step answer logits, kernel path (card) against plain path (CPU),
+    f32, over a full evidence budget behind the blank page."""
+    cfg32 = dataclasses.replace(
+        chat_cfg,
+        vision=dataclasses.replace(chat_cfg.vision, dtype="float32"),
+        decoder=dataclasses.replace(chat_cfg.decoder, dtype="float32"),
+    )
+    pack = "\n\n---\n\n".join(prose_pages(seed + 1, TOP_K))
+    out = {}
+    for device in ("cuda", "cpu"):
+        runner = VLMRunner(cfg32, seed=seed, device=device)
+        prompt, _ = runner.answer_prompt(LM_QUESTIONS[0], pack)
+        ids, lens = runner.pad_prompts([prompt])
+        vis = runner._blank_vision()
+        logits, _, _ = runner.first_logits(ids, lens, vis, vis.shape[1] + ids.shape[1])
+        out[device] = logits.float().cpu()
+        del runner
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    return err, float(out["cpu"].abs().max()), len(prompt)
 
 
 def make_pages(seed: int) -> np.ndarray:
@@ -299,6 +641,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_preset(PRESET)
+    chat_cfg = get_preset(CHAT_PRESET)
 
     t0 = time.perf_counter()
     smi = subprocess.run(
@@ -310,18 +653,30 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    lib = kernels.build("flash_attention")
-    log("build", time.perf_counter() - t0, flash_attention=lib.name)
-    print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    names = sorted(kernels.launches)
+    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per kernel, all at once
+        libs = dict(zip(names, pool.map(kernels.build, names)))
+    log("build", time.perf_counter() - t0, **{name: lib.name for name, lib in libs.items()})
+    for name, lib in libs.items():
+        print(f"-- {name}: nvcc -Xptxas -v\n" + lib.with_suffix(".log").read_text().strip(), flush=True)
 
+    shapes = path_shapes(cfg, chat_cfg)
     t0 = time.perf_counter()
-    record = kernel_phase(cfg, args.seed)
-    log("kernel", sync_s(t0), **{k: record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")})
+    record = kernel_phase(cfg, chat_cfg, args.seed)
+    log("kernel.flash_attention", sync_s(t0), **{k: record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        chat_first_question=json.dumps(record["chat_first_question"]))
+    capacity = 1024  # VectorIndex's first capacity, doubled until the chat index fits
+    while capacity < OTHER_DOCS * OTHER_PAGES + TARGET_PAGES:
+        capacity *= 2
+    t0 = time.perf_counter()
+    sim_record = similarity_phase(args.seed, EmbedderConfig().dim, capacity)
+    log("kernel.masked_similarity", sync_s(t0),
+        **{k: sim_record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
 
-    expected = cfg.vision.depth_local + cfg.vision.depth_global + cfg.decoder.depth
+    expected = sum(sh.launches for sh in shapes if sh.path == "extract")
     t0 = time.perf_counter()
     launches, _ = slice_phase(cfg, args.seed, expected)
-    log("slice", sync_s(t0))
+    log("slice", sync_s(t0), expected_flash_launches=expected)
 
     t0 = time.perf_counter()
     err, scale = logits_phase(cfg, args.seed)
@@ -329,19 +684,31 @@ def main() -> int:
     if not err <= LOGITS_ATOL:
         fail(f"first-step logits differ by {err} > {LOGITS_ATOL}")
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "vision_compression_project_tpu_torch/kernels/flash_attention.cu",
-        "replaces": "vision_compression_project_tpu/ops/attention.py:30",
-        "launches": launches["flash_attention"],
-        "max_abs_err": record["max_abs_err"],
-        "ms": record["ms"],
-        "plain_ms": record["plain_ms"],
-        "bound_ms": record["bound_ms"],
-        "bound_by": record["bound_by"],
-        "library_ms": record["library_ms"],
-    }]}), flush=True)
+    t0 = time.perf_counter()
+    chat_launches, _ = chat_phase(chat_cfg, args.seed, shapes)
+    log("chat", sync_s(t0), launches=json.dumps(chat_launches))
+
+    t0 = time.perf_counter()
+    err, scale, prompt_len = answer_logits_phase(chat_cfg, args.seed)
+    log("answer_logits", time.perf_counter() - t0, max_abs_err=err, logits_absmax=scale,
+        prompt_tokens=prompt_len, atol=LOGITS_ATOL)
+    if not err <= LOGITS_ATOL:
+        fail(f"first-step answer logits differ by {err} > {LOGITS_ATOL}")
+
+    def entry(name, source, replaces, rec):
+        by_path = {"extract": launches[name], "chat": chat_launches[name]}
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        }
+
+    print(json.dumps({"kernels": [
+        entry("flash_attention", "vision_compression_project_tpu_torch/kernels/flash_attention.cu",
+              "vision_compression_project_tpu/ops/attention.py:30", record),
+        entry("masked_similarity", "vision_compression_project_tpu_torch/kernels/masked_similarity.cu",
+              "vision_compression_project_tpu/ops/topk.py:26", sim_record),
+    ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

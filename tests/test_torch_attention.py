@@ -71,3 +71,15 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(d, dtype, device, 
     with pytest.raises(ValueError, match=match):
         kernels.flash_attention_fwd(q, q, q, kv_len, causal=False, scale=1.0)
     assert kernels.launches == before
+
+
+def test_flash_routing_rule_matches_jax(monkeypatch):
+    """Whole-sequence attention takes the kernel exactly where the JAX
+    package takes its Pallas kernel (models/layers.py::_use_flash)."""
+    from vision_compression_project_tpu.models import layers as jlayers
+    from vision_compression_project_tpu_torch.models import layers as tlayers
+
+    monkeypatch.delenv("VCP_FORCE_XLA_ATTENTION", raising=False)
+    for s in (1, 8, 64, 127, 128, 129, 256, 768, 1088):
+        for d in (4, 8, 12, 16, 30, 32, 64, 128):
+            assert tlayers.use_flash(s, d) == jlayers._use_flash(s, d), (s, d)

@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the hand-written kernels against
-their plain versions on CUDA tensors. They skip without a CUDA device.
+their plain versions on CUDA tensors, and the vector index's search on the
+card against the same search on the CPU. They skip without a CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed. On the GPU machine, from the repository root:
@@ -9,13 +10,18 @@ installed. On the GPU machine, from the repository root:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
 from vision_compression_project_tpu_torch import kernels
 from vision_compression_project_tpu_torch.models import VLMRunner, get_preset
 from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, TASK_EXTRACT_ID
+from vision_compression_project_tpu_torch.index.vector_index import VectorIndex
 from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
+from vision_compression_project_tpu_torch.ops.topk import (
+    NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -82,3 +88,68 @@ def test_runner_first_logits_card_vs_cpu(cuda):
         logits, _, _ = runner.first_logits(ids, lens, vis, 128)
         out.append(logits.cpu())
     assert (out[0] - out[1]).abs().max().item() <= 1e-3
+
+
+# Masked similarity of unit vectors: the same f32 products summed in another
+# order (a warp's shuffle tree against cuBLAS's or the CPU's order).
+SIM_ATOL = 1e-5
+
+
+def _similarity_inputs(device, n, d, b, emb_dtype, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    emb = torch.randn((n, d), generator=g, device=device)
+    emb = (emb / emb.norm(dim=1, keepdim=True)).to(emb_dtype)
+    q = torch.randn((b, d), generator=g, device=device)
+    q = q / q.norm(dim=1, keepdim=True)
+    mask = (torch.rand((n,), generator=g, device=device) > 0.5).float()
+    return emb, q, mask
+
+
+@pytest.mark.parametrize("emb_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,d,b", [(131072, 512, 1), (1000, 512, 3), (4099, 64, 8)])
+def test_similarity_kernel_matches_plain(cuda, emb_dtype, n, d, b):
+    emb, q, mask = _similarity_inputs(cuda, n, d, b, emb_dtype)
+    before = kernels.launches["masked_similarity"]
+    got = masked_similarity(emb, q, mask)
+    torch.cuda.synchronize()
+    assert kernels.launches["masked_similarity"] == before + 1
+    want = masked_similarity_reference(emb, q, mask)
+    assert got.dtype == torch.float32 and got.shape == (b, n)
+    off = mask <= 0
+    assert bool((got[:, off] == NEG_INF).all())
+    assert (got - want).abs().max().item() <= SIM_ATOL
+
+
+def test_similarity_kernel_refuses(cuda):
+    emb, q, mask = _similarity_inputs(cuda, 256, 512, 2, torch.float32)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.masked_similarity(emb, q.cpu(), mask)
+    with pytest.raises(ValueError, match="D ="):
+        masked_similarity(emb[:, :510].contiguous(), q[:, :510].contiguous(), mask)
+    with pytest.raises(ValueError, match="queries"):
+        masked_similarity(emb, q.repeat(5, 1), mask)
+    assert kernels.launches == before
+
+
+def test_index_search_card_equals_cpu(cuda):
+    rng = np.random.default_rng(0)
+    rows = rng.standard_normal((3000, 512)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    records = [{"doc_id": "ab"[i % 2], "page": i, "content": f"p{i}"} for i in range(3000)]
+    ids = [f"m{i}" for i in range(3000)]
+    queries = rng.standard_normal((2, 512)).astype(np.float32)
+    on_card, on_cpu = VectorIndex(512, device=cuda), VectorIndex(512, device="cpu")
+    for index in (on_card, on_cpu):
+        index.add(rows[:1000], records[:1000], ids[:1000])
+        index.add(rows[1000:], records[1000:], ids[1000:])  # grows 1024 -> 4096
+    for doc in (None, "b"):
+        before = kernels.launches["masked_similarity"]
+        got = on_card.search(queries, top_k=8, doc_id=doc)
+        assert kernels.launches["masked_similarity"] == before + 1
+        want = on_cpu.search(queries, top_k=8, doc_id=doc)
+        assert [[r["id"] for r in res] for res in got] == [[r["id"] for r in res] for res in want]
+        for g, w in zip(got, want):
+            assert max(abs(a["score"] - b["score"]) for a, b in zip(g, w)) <= SIM_ATOL
+    vals, idx = cosine_topk(on_card._rows, torch.from_numpy(queries).to(cuda), on_card._mask_for("a"), 8)
+    assert vals.shape == idx.shape == (2, 8)

@@ -14,7 +14,17 @@ import torch
 REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
-import importlib, json, pkgutil, sys
+import importlib, importlib.abc, json, pkgutil, sys
+
+class Blocked(importlib.abc.MetaPathFinder):
+    # Importing JAX, flax, safetensors, triton or the JAX package fails here.
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "flax", "safetensors", "triton", "vision_compression_project_tpu"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Blocked())
 sys.path.insert(0, sys.argv[1])
 import vision_compression_project_tpu_torch as port
 for info in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
@@ -40,7 +50,12 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     assert proc.returncode == 0, proc.stderr
     modules = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "vision_compression_project_tpu_torch.kernels" in modules
-    assert "vision_compression_project_tpu_torch.models.vlm" in modules
+    for name in (
+        "models.vlm", "models.embedder", "ops.topk", "index.vector_index", "index.store",
+        "pipeline.ingest", "pipeline.aggregate", "pipeline.qa", "config", "utils.metrics",
+        "utils.json_utils",
+    ):
+        assert f"vision_compression_project_tpu_torch.{name}" in modules
     assert [m for m in modules if _banned(m)] == []
 
 
@@ -59,6 +74,13 @@ def test_cuda_without_a_card_raises():
         VLMRunner(get_preset("tiny"))  # the default device is the card
     with pytest.raises(RuntimeError, match="cuda"):
         VLMRunner(get_preset("tiny"), device="cuda")
+    from vision_compression_project_tpu_torch.index import VectorIndex
+    from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedder
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        VectorIndex(8)
+    with pytest.raises(RuntimeError, match="cuda"):
+        HashNGramEmbedder()
 
 
 def test_chip_smoke_refuses_without_a_card():

@@ -76,7 +76,7 @@ def test_tokenizer_equal(kind):
 @pytest.mark.parametrize("kind", ["byte", "bpe:bpe_merges_real.json"])
 def test_extract_logit_mask_equal(kind):
     """The extraction grammar mask, exactly equal."""
-    got = tvlm._task_logit_mask(ttok.get_tokenizer(kind))
+    got = tvlm._task_logit_mask(ttok.get_tokenizer(kind), "extract")
     want = jvlm._task_logit_mask(jtok.get_tokenizer(kind), "extract")
     np.testing.assert_array_equal(got, want)
 

@@ -63,3 +63,48 @@ def numpy_params(jcfg, seed):
         return (0.02 * rng.standard_normal(s.shape)).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(make, param_shapes(jcfg))
+
+
+# ocr_bpe's structure: windows of 8x8 patches, 2x downsample, GQA 8:4 at
+# head_dim 32 in the full model, max_seq 1024 and the BPE vocab 4096;
+# widths and depths cut to run in seconds. The one 64-token window takes the
+# plain attention path, as ocr_bpe's windows do.
+MINI_BPE_VISION = dict(
+    image_size=128, patch=16, dim_local=32, dim_global=64, depth_local=1,
+    depth_global=1, heads_local=4, heads_global=4, window=8, downsample=2,
+)
+MINI_BPE_DECODER = dict(
+    vocab=4096, tokenizer="bpe", dim=64, depth=2, heads=4, kv_heads=2, head_dim=16,
+    max_seq=1024,
+)
+
+
+def mini_bpe_configs(dtype):
+    """(JAX VLMConfig, port VLMConfig) of the mini ocr_bpe in `dtype`."""
+    v = dict(MINI_BPE_VISION, dtype=dtype)
+    d = dict(MINI_BPE_DECODER, dtype=dtype)
+    jcfg = jconfigs.VLMConfig(vision=jconfigs.VisionConfig(**v), decoder=jconfigs.DecoderConfig(**d))
+    tcfg = tconfigs.VLMConfig(vision=tconfigs.VisionConfig(**v), decoder=tconfigs.DecoderConfig(**d))
+    return jcfg, tcfg
+
+
+_SUBJECTS = ("The cache module", "The billing service", "Plant delta", "The audit team",
+             "The retrieval index", "The vision encoder", "Cluster theta", "The night shift")
+_VERBS = ("stored", "reported", "processed", "rejected", "shipped", "reviewed")
+_OBJECTS = ("invoices", "pages", "units", "defect reports", "requests", "samples")
+
+
+def prose_pages(seed, n_pages, sentences=6):
+    """Seeded synthetic prose, one string per page; every sentence carries
+    its page and sentence numbers, so no sentence repeats."""
+    rng = np.random.default_rng(seed)
+    pages = []
+    for p in range(1, n_pages + 1):
+        out = []
+        for s in range(1, sentences + 1):
+            subj = _SUBJECTS[rng.integers(len(_SUBJECTS))]
+            verb = _VERBS[rng.integers(len(_VERBS))]
+            obj = _OBJECTS[rng.integers(len(_OBJECTS))]
+            out.append(f"{subj} {verb} {int(rng.integers(2, 999))} {obj} in section {p}.{s}.")
+        pages.append(" ".join(out))
+    return pages

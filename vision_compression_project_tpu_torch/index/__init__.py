@@ -1,0 +1,4 @@
+from .store import IndexStore, get_default_store
+from .vector_index import VectorIndex
+
+__all__ = ["IndexStore", "VectorIndex", "get_default_store"]

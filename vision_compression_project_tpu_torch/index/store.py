@@ -1,0 +1,63 @@
+"""Process-wide index store: load-or-create, save after every add, one lock
+for writers. The port of vision_compression_project_tpu/index/store.py in
+single mode; multi-vector mode and the sharded search are not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from pathlib import Path
+from typing import Optional, Union
+
+import torch
+
+from ..config import RUNTIME
+from .vector_index import VectorIndex
+
+_lock = threading.Lock()
+_default_store: Optional["IndexStore"] = None
+
+
+class IndexStore:
+    def __init__(
+        self, root, dim: int, mode: Optional[str] = None, device: Union[str, torch.device] = "cuda"
+    ):
+        self.root = Path(root)
+        self.dim = dim
+        self.mode = mode or RUNTIME.retrieval_mode
+        if self.mode == "multi":
+            raise NotImplementedError(
+                "retrieval mode 'multi' is not ported yet (ROADMAP.md, queue 1: multivector MaxSim)"
+            )
+        if self.mode != "single":
+            raise ValueError(f"unknown retrieval mode {self.mode!r}")
+        self._lock = threading.Lock()
+        self.index = None
+        if (self.root / "metadata.json").exists():
+            self.index = VectorIndex.load(self.root, device=device)
+        if self.index is None or self.index.dim != dim:
+            # A new store, or the embedder's dim changed: start fresh rather than mix spaces.
+            self.index = VectorIndex(dim=dim, device=device)
+
+    def add(self, embeddings, records, memory_ids=None):
+        """(B, dim) pooled vectors with their records; the index is saved after."""
+        with self._lock:
+            ids = self.index.add(embeddings, records, memory_ids)
+            self.index.save(self.root)
+            return ids
+
+    def search(self, query_embeddings, top_k=8, doc_id=None):
+        """Per-query result lists for (B, dim) queries."""
+        return self.index.search(query_embeddings, top_k=top_k, doc_id=doc_id)
+
+
+def get_default_store(dim: Optional[int] = None, root=None) -> IndexStore:
+    """The process's shared store on the card at `root` (RUNTIME.index_root
+    by default), made anew when the root or the dim changes."""
+    global _default_store
+    dim = dim or RUNTIME.embed_dim
+    root = Path(root or RUNTIME.index_root)
+    with _lock:
+        if _default_store is None or _default_store.root != root or _default_store.dim != dim:
+            _default_store = IndexStore(root, dim)
+        return _default_store

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"flash_attention": 0}
+launches = {"flash_attention": 0, "masked_similarity": 0}
 
 
 def reset_launch_counts() -> None:
@@ -75,16 +75,35 @@ def build(name: str) -> Path:
     return lib
 
 
+def _load(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build(name)))
+    lib.vcp_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.vcp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _raise_on(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: {lib.vcp_cuda_error_string(err).decode()} ({err})")
+
+
 @functools.lru_cache(maxsize=None)
 def _flash_lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build("flash_attention")))
+    lib = _load("flash_attention")
     fn = lib.vcp_flash_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
         ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
-    lib.vcp_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.vcp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _similarity_lib() -> ctypes.CDLL:
+    lib = _load("masked_similarity")
+    fn = lib.vcp_masked_similarity
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -125,9 +144,51 @@ def flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
             b, h, hkv, sq, sk, d, float(scale), int(causal), _FLASH_DTYPES[q.dtype], stream,
         )
-    if err:
-        raise RuntimeError(
-            f"flash_attention launch failed: {lib.vcp_cuda_error_string(err).decode()} ({err})"
-        )
+    _raise_on(lib, "flash_attention", err)
     launches["flash_attention"] += 1
+    return out
+
+
+_SIMILARITY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SIMILARITY_MAX_QUERIES = 8
+_SIMILARITY_SMEM_BYTES = 48 * 1024  # the queries, staged in dynamic shared memory under the default limit
+
+
+def masked_similarity(emb: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Launch the masked-similarity kernel: emb (N, D) float32 or bfloat16,
+    queries (B, D) float32, mask (N,) float32, all contiguous CUDA tensors on
+    one device; returns scores (B, N) float32, -1e30 where mask <= 0. Raises
+    on anything the kernel does not take and on a launch that CUDA refuses."""
+    if emb.dim() != 2 or queries.dim() != 2 or queries.shape[1] != emb.shape[1]:
+        raise ValueError(f"bad shapes emb {tuple(emb.shape)}, queries {tuple(queries.shape)}")
+    n, d = emb.shape
+    b = queries.shape[0]
+    if mask.shape != (n,):
+        raise ValueError(f"mask shape {tuple(mask.shape)}, expected ({n},)")
+    if not 1 <= b <= SIMILARITY_MAX_QUERIES:
+        raise ValueError(f"{b} queries: the kernel takes 1 to {SIMILARITY_MAX_QUERIES}")
+    if d % 4 or b * d * 4 > _SIMILARITY_SMEM_BYTES:
+        raise ValueError(f"D = {d} not supported: need D % 4 == 0 and B * D * 4 <= 48 KiB")
+    if emb.dtype not in _SIMILARITY_DTYPES or queries.dtype != torch.float32 or mask.dtype != torch.float32:
+        raise ValueError(f"dtypes emb {emb.dtype}, queries {queries.dtype}, mask {mask.dtype}: "
+                         "need emb float32 or bfloat16, queries and mask float32")
+    for t in (emb, queries, mask):
+        if t.device.type != "cuda" or t.device != emb.device:
+            raise ValueError("all operands must be CUDA tensors on one device")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if emb.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError("emb and queries must be 16-byte aligned")
+    out = torch.empty((b, n), dtype=torch.float32, device=emb.device)
+    if n == 0:
+        return out
+    lib = _similarity_lib()
+    stream = torch.cuda.current_stream(emb.device).cuda_stream
+    with torch.cuda.device(emb.device):
+        err = lib.vcp_masked_similarity(
+            emb.data_ptr(), queries.data_ptr(), mask.data_ptr(), out.data_ptr(),
+            n, d, b, _SIMILARITY_DTYPES[emb.dtype], stream,
+        )
+    _raise_on(lib, "masked_similarity", err)
+    launches["masked_similarity"] += 1
     return out

@@ -4,8 +4,10 @@ cache, SwiGLU. The port of vision_compression_project_tpu/models/layers.py.
 Numeric contract, as in the reference: parameters are stored in f32 and cast
 to the compute dtype at use (flax's `Dense(dtype=...)`), RMSNorm computes in
 f32, attention keeps scores and softmax in f32. Whole-sequence attention goes
-through `ops.attention.flash_attention` (the kernel on a CUDA tensor);
-single-token decode attends to the cache with plain tensor code.
+through `ops.attention.flash_attention` (the kernel on a CUDA tensor) where
+the reference runs its Pallas kernel (`use_flash`), and through the plain
+version where the reference runs XLA; single-token decode attends to the
+cache with plain tensor code.
 """
 
 from __future__ import annotations
@@ -16,13 +18,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import NEG_INF, flash_attention
+from ..ops.attention import NEG_INF, flash_attention, mha_reference
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def torch_dtype(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+def use_flash(s: int, head_dim: int) -> bool:
+    """Whether a whole-sequence attention call takes the kernel: the rule of
+    vision_compression_project_tpu/models/layers.py::_use_flash. Shorter
+    sequences (ocr_bpe's 64-token windows) take the plain version there as
+    here."""
+    return s >= 128 and head_dim % 8 == 0
+
+
+def _attend(q, k, v, kv_len, causal: bool) -> torch.Tensor:
+    attend = flash_attention if use_flash(q.shape[2], q.shape[3]) else mha_reference
+    return attend(q, k, v, kv_len=kv_len, causal=causal)
 
 
 class Dense(nn.Linear):
@@ -120,7 +135,7 @@ class Attention(nn.Module):
         if self.rope:
             cos, sin = self.rope_cos[:s], self.rope_sin[:s]
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        return self._out(flash_attention(q, k, v, kv_len=kv_len, causal=self.causal))
+        return self._out(_attend(q, k, v, kv_len, self.causal))
 
     def prefill(
         self, x: torch.Tensor, kv_len: Optional[torch.Tensor] = None, cache_len: Optional[int] = None
@@ -133,7 +148,7 @@ class Attention(nn.Module):
         if self.rope:
             cos, sin = self.rope_cos[:s], self.rope_sin[:s]
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        o = flash_attention(q, k, v, kv_len=kv_len, causal=self.causal)
+        o = _attend(q, k, v, kv_len, self.causal)
         pad = cache_len - s
         cache = {"k": F.pad(k, (0, 0, 0, pad)), "v": F.pad(v, (0, 0, 0, pad))}
         return self._out(o), cache

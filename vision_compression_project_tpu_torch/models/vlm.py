@@ -1,10 +1,13 @@
 """The page reader: vision encoder + projector + LM decoder, and the runner
 that turns page rasters into page-JSON dicts by greedy decoding. The port of
 vision_compression_project_tpu/models/vlm.py (OpticalVLM, _task_logit_mask,
-VLMRunner's extraction path).
+VLMRunner's extraction and answer paths).
 
-The decoder emits `markdown <SEP> summary <SEP> entity (<US> entity)* <EOS>`;
-the host splits the tokens into {page_number, markdown, entities, summary}.
+Extraction: the decoder emits `markdown <SEP> summary <SEP> entity (<US>
+entity)* <EOS>`; the host splits the tokens into {page_number, markdown,
+entities, summary}. Answering: the decoder reads `BOS TASK_ANSWER question
+SEP evidence SEP` behind a blank page's vision tokens and emits the answer's
+text up to EOS.
 """
 
 from __future__ import annotations
@@ -20,27 +23,45 @@ from ..ops.preprocess import preprocess_pages
 from .configs import VLMConfig
 from .decoder import Decoder
 from .layers import Dense, RMSNorm, torch_dtype
-from .tokenizer import BOS_ID, EOS_ID, PAD_ID, SEP_ID, TASK_EXTRACT_ID, get_tokenizer
+from .tokenizer import BOS_ID, EOS_ID, PAD_ID, SEP_ID, TASK_ANSWER_ID, TASK_EXTRACT_ID, get_tokenizer
 from .vit import VisionEncoder
 
 UNIT_SEP = 0x1F  # byte separating entity list items inside the entities field
 
 PROMPT_BUCKET = 64   # prompt lengths are padded up to a multiple of this
 CACHE_BUCKET = 128   # KV cache lengths are padded up to a multiple of this
-MAX_NEW = 256        # tokens decoded per page unless the caller asks for fewer
+MAX_NEW = 256        # tokens decoded per page or answer unless the caller asks for fewer
+# Evidence-vs-decode split for answer(): trained answers fit in ~256 tokens
+# and end with EOS, so evidence packing reserves this much; a larger max_new
+# extends the decode bound into whatever context the real prompt leaves.
+ANSWER_DECODE_RESERVE = 256
+
+_MASK_CACHE: Dict[Tuple[str, str], np.ndarray] = {}
 
 
-def _task_logit_mask(tok) -> np.ndarray:
-    """Additive (vocab,) f32 mask constraining extraction to its output grammar.
+def _task_logit_mask(tok, kind: str) -> np.ndarray:
+    """Additive (vocab,) f32 mask constraining a task to its output grammar,
+    built once per (tokenizer, kind).
 
     Text tokens are allowed when their byte expansion holds only printable or
-    whitespace bytes; SEP, US and EOS are allowed too."""
+    whitespace bytes. 'extract' also allows SEP, US and EOS; 'answer' allows
+    EOS only."""
+    key = (tok.cache_key, kind)
+    cached = _MASK_CACHE.get(key)
+    if cached is not None:
+        return cached
     allowed_bytes = set(range(0x20, 0x7F)) | set(range(0x80, 0x100)) | {0x09, 0x0A}
     mask = np.full((tok.vocab_size,), -1e30, np.float32)
     for tid, exp in tok.expansions().items():
         if exp and all(b in allowed_bytes for b in exp):
             mask[tid] = 0.0
-    mask[np.asarray([SEP_ID, EOS_ID, UNIT_SEP])] = 0.0
+    if kind == "extract":
+        mask[np.asarray([SEP_ID, EOS_ID, UNIT_SEP])] = 0.0
+    elif kind == "answer":
+        mask[EOS_ID] = 0.0
+    else:
+        raise ValueError(f"unknown task {kind!r}")
+    _MASK_CACHE[key] = mask
     return mask
 
 
@@ -111,7 +132,7 @@ def init_params(model: OpticalVLM, seed: int) -> None:
 
 
 class VLMRunner:
-    """Owns the model and presents batched page extraction.
+    """Owns the model and presents batched page extraction and answering.
 
     Weights are seeded random unless `params` (a state_dict, e.g. from
     `weights.params_from_jax`) is given. Runs on `device`, "cuda" unless the
@@ -135,7 +156,14 @@ class VLMRunner:
         else:
             model.load_state_dict(params)
         self.model = model.to(self.device).eval()
-        self._mask = torch.from_numpy(_task_logit_mask(self.tok)).to(self.device)
+        self._masks: Dict[str, torch.Tensor] = {}
+        self._blank_vis: Optional[torch.Tensor] = None
+
+    def logit_mask(self, task: str) -> torch.Tensor:
+        """The task's (vocab,) logit mask on the device."""
+        if task not in self._masks:
+            self._masks[task] = torch.from_numpy(_task_logit_mask(self.tok, task)).to(self.device)
+        return self._masks[task]
 
     @torch.inference_mode()
     def preprocess_patches(self, pages_u8: np.ndarray) -> torch.Tensor:
@@ -180,8 +208,9 @@ class VLMRunner:
         prompts: Sequence[Sequence[int]],
         vision_emb: Optional[torch.Tensor],
         max_new: int,
+        task: str = "extract",
     ) -> torch.Tensor:
-        """Greedy decoding under the extraction logit mask: (B, max_new) token ids,
+        """Greedy decoding under the task's logit mask: (B, max_new) token ids,
         PAD after a row's EOS. Stops early once every row has emitted EOS."""
         b = len(prompts)
         ids, lens = self.pad_prompts(prompts)
@@ -191,7 +220,7 @@ class VLMRunner:
         # The decode position must stay inside the model context.
         max_new = max(1, min(max_new, max_seq - vis_len - plen))
         cache_len = min(max_seq, -(-(vis_len + plen + max_new) // CACHE_BUCKET) * CACHE_BUCKET)
-        mask = self._mask[None, :]
+        mask = self.logit_mask(task)[None, :]
 
         logits, caches, kv_len = self.first_logits(ids, lens, vision_emb, cache_len)
         # Lockstep batch (one prompt length): decode writes the cache at one
@@ -264,3 +293,39 @@ class VLMRunner:
             if current:
                 entities.append(self.tok.decode(current))
         return markdown, summary, entities
+
+    def _blank_vision(self) -> torch.Tensor:
+        """Vision tokens of a blank 64x64 white page, encoded once. The answer
+        task is trained with a blank page riding the vision tower, so
+        generation presents the same prefix."""
+        if self._blank_vis is None:
+            blank = np.full((1, 64, 64, 3), 255, np.uint8)
+            self._blank_vis = self.encode(self.preprocess_patches(blank))
+        return self._blank_vis
+
+    def answer_prompt(
+        self, question: str, evidence_pack: str, max_new: int = MAX_NEW
+    ) -> Tuple[List[int], int]:
+        """(prompt ids, decode bound) of one answer, as the reference packs it.
+
+        Evidence budget: the context minus the vision prefix, the question
+        head, the trailing SEP and a decode reserve, rounded down to the
+        prompt bucket first because the prompt is padded up to it. The decode
+        bound then takes every position the real prompt leaves, up to max_new."""
+        vis_len = self.cfg.vision.tokens_out
+        max_seq = self.cfg.decoder.max_seq
+        head = [BOS_ID, TASK_ANSWER_ID] + self.tok.encode(question) + [SEP_ID]
+        reserve = min(max_new, ANSWER_DECODE_RESERVE)
+        allowed_plen = (max_seq - vis_len - reserve) // PROMPT_BUCKET * PROMPT_BUCKET
+        budget = allowed_plen - len(head) - 1
+        ev_ids = self.tok.encode(evidence_pack)[: max(0, budget)]
+        prompt = head + ev_ids + [SEP_ID]
+        plen_bucketed = -(-len(prompt) // PROMPT_BUCKET) * PROMPT_BUCKET
+        return prompt, min(max_new, max_seq - vis_len - plen_bucketed)
+
+    def answer(self, question: str, evidence_pack: str, max_new: int = MAX_NEW) -> str:
+        """Greedy answer text for a question over an evidence pack."""
+        prompt, bound = self.answer_prompt(question, evidence_pack, max_new)
+        toks = self.generate([prompt], self._blank_vision(), bound, task="answer")
+        # decode() skips ids with no byte expansion (specials).
+        return self.tok.decode(self._collect_tokens(toks)[0])
