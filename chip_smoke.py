@@ -13,9 +13,13 @@ are random, made from the seed). One flushed line per phase, with seconds:
   build    compile the hand-written kernels from the sources in the repo, one
            nvcc per kernel, all started together, and print each -Xptxas -v log;
   kernel   hold each kernel against its plain PyTorch version on the card at
-           the shapes its paths give it (and a ragged case), and time the
-           kernel, the plain version, a one-call PyTorch yardstick and the
-           card's bound for the same work; one `kernel {...}` line per case;
+           the shapes its paths give it (and ragged cases: K1 with key
+           lengths 0 and 1, K2 with 32 queries, scored in chunks), and time
+           the kernel, the plain version, a one-call PyTorch yardstick and
+           the card's bound for the same work; K1 and its yardstick also as
+           20 launches replayed from a CUDA graph, which leaves out the
+           host's per-call cost; one `kernel {...}` line per case, K1's
+           naming the route (tensor-core bf16 or scalar f32) that ran;
   slice    VLMRunner(ocr_real, seed).extract_batch on 4 gray 1023x791 pages
            (US Letter at dpi 93) with max_new=256, launch counts zeroed just
            before and read just after; then the same path timed by stage,
@@ -120,6 +124,43 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Per-launch time of `iters` calls of `fn` captured in one CUDA graph
+    and replayed: the device's time without the host's per-call cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
+
+
+def host_us(fn, iters: int = 20) -> float:
+    """Host microseconds to enqueue one call of `fn` (the card idle at the
+    start, no synchronisation inside): the wrapper's per-call cost."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
@@ -179,6 +220,8 @@ def path_shapes(cfg, chat_cfg) -> list:
                   [vis + 2] * N_PAGES, dec.depth),
         AttnShape("extract_decoder_prefill_ragged", 2, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
                   [vis + 2, s_dec - 1], 0),
+        # Sq not a multiple of any block, key lengths 0 and 1, GQA 3:1.
+        AttnShape("ragged_empty_rows", 3, dec.heads, dec.kv_heads, 333, dec.head_dim, True, [0, 1, 333], 0),
     ] + encoder_shapes(cv, 1, "chat") + [
         AttnShape("chat_answer_prefill", 1, cdec.heads, cdec.kv_heads, s_ans, cdec.head_dim, True,
                   [s_ans], cdec.depth, "chat"),
@@ -236,13 +279,22 @@ def kernel_phase(cfg, chat_cfg, seed: int):
             err = (out.float() - want.float()).abs().max().item()
             ok = bool(torch.isfinite(out).all()) and err <= TOL[dtype]
             row = dict(kernel="flash_attention", shape=sh.name, dtype=str(dtype).replace("torch.", ""),
+                       route=kernels.FLASH_ROUTES[dtype],
                        q=[sh.b, sh.h, sh.s, sh.d], kv=[sh.b, sh.hkv, sh.s, sh.d],
-                       causal=sh.causal, max_abs_err=err, tol=TOL[dtype], ok=ok)
+                       causal=sh.causal, kv_len=sh.kv_len if len(set(sh.kv_len)) > 1 else sh.kv_len[0],
+                       max_abs_err=err, tol=TOL[dtype], ok=ok)
             if dtype == torch.bfloat16:
-                row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal), 20)
+                def k1():
+                    return flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal)
+                lib = library_call(q, k, v, sh)
+                row["ms"] = cuda_ms(k1, 20)
+                row["host_us"] = host_us(k1)
+                row["graph_ms"] = graph_ms(k1)
                 row["plain_ms"] = cuda_ms(
                     lambda: mha_reference(q, k, v, kv_len=kv_len, causal=sh.causal), 5, warmup=1)
-                row["library_ms"] = cuda_ms(library_call(q, k, v, sh), 20)
+                row["library_ms"] = cuda_ms(lib, 20)
+                row["library_host_us"] = host_us(lib)
+                row["library_graph_ms"] = graph_ms(lib)
                 row["bound_ms"], row["bound_by"] = bound_ms(sh, dtype)
                 row["launches_per_batch" if sh.path == "extract" else "launches_first_question"] = sh.launches
             print("kernel " + json.dumps(row), flush=True)
@@ -254,7 +306,7 @@ def kernel_phase(cfg, chat_cfg, seed: int):
     # One page batch's worth of K1 on the main path: per-shape numbers
     # weighted by that shape's launches per batch.
     main = [r for r in rows if r.get("launches_per_batch")]
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+    for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms"):
         record[key] = sum(r[key] * r["launches_per_batch"] for r in main)
     ops_ms = sum(r["bound_ms"] * r["launches_per_batch"] for r in main if r["bound_by"] == "operations")
     record["bound_by"] = "operations" if ops_ms >= record["bound_ms"] / 2 else "bytes"
@@ -263,7 +315,7 @@ def kernel_phase(cfg, chat_cfg, seed: int):
     chat = [r for r in rows if r.get("launches_first_question")]
     record["chat_first_question"] = {
         key: sum(r[key] * r["launches_first_question"] for r in chat)
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms")
+        for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
     }
     return record
 
@@ -280,10 +332,12 @@ class SimCase:
 def similarity_cases(n_path: int) -> list:
     """K2's calls: the path's (capacity, 512) rows against one f32 query (the
     kernels record's case), the same with bf16 rows (VectorIndex's dtype
-    option), and a ragged case."""
+    option), a batch of 32 queries (scored in chunks of the kernel's limit)
+    and a ragged case."""
     return [
         SimCase("chat_retrieve", n_path, 1, torch.float32, True),
         SimCase("chat_retrieve_bf16_rows", n_path, 1, torch.bfloat16, True),
+        SimCase("chat_retrieve_32_queries", n_path, 32, torch.float32, False),
         SimCase("ragged", 1000, 3, torch.float32, False),
     ]
 
@@ -301,7 +355,8 @@ def similarity_bound_ms(n: int, d: int, b: int, emb_dtype: torch.dtype):
 
 def similarity_phase(seed: int, dim: int, n_path: int):
     """K2 against its plain version at each case: max abs error over the
-    unmasked scores, masked scores exactly -1e30; times on the path's shape."""
+    unmasked scores, masked scores exactly -1e30, one launch per chunk of at
+    most kernels.SIMILARITY_MAX_QUERIES queries; times on the path's shape."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     record = {}
     for case in similarity_cases(n_path):
@@ -310,30 +365,36 @@ def similarity_phase(seed: int, dim: int, n_path: int):
         q = torch.randn((case.b, dim), generator=gen, device="cuda")
         q = q / q.norm(dim=1, keepdim=True)
         mask = (torch.rand((case.n,), generator=gen, device="cuda") > 0.5).float()
+        before = kernels.launches["masked_similarity"]
         out = masked_similarity(emb, q, mask)
         torch.cuda.synchronize()
+        n_launch = kernels.launches["masked_similarity"] - before
+        want_launch = -(-case.b // kernels.SIMILARITY_MAX_QUERIES)
         want = masked_similarity_reference(emb, q, mask)
         off = mask <= 0
         masked_exact = bool((out[:, off] == NEG_INF).all())
         err = (out[:, ~off] - want[:, ~off]).abs().max().item()
-        ok = masked_exact and err <= SIM_ATOL and out.shape == (case.b, case.n)
+        ok = masked_exact and err <= SIM_ATOL and out.shape == (case.b, case.n) and n_launch == want_launch
         row = dict(kernel="masked_similarity", shape=case.name, emb=[case.n, dim],
-                   emb_dtype=str(case.emb_dtype).replace("torch.", ""), queries=case.b,
+                   emb_dtype=str(case.emb_dtype).replace("torch.", ""), queries=case.b, launches=n_launch,
                    max_abs_err=err, tol=SIM_ATOL, masked_exact=masked_exact, ok=ok)
         if case.timed:
             row["ms"] = cuda_ms(lambda: masked_similarity(emb, q, mask), 50, warmup=5)
             row["plain_ms"] = cuda_ms(lambda: masked_similarity_reference(emb, q, mask), 50, warmup=5)
-            # Yardstick: one cuBLAS matrix-vector product in the rows' type,
-            # without the mask's torch.where.
+            # No one PyTorch call computes the masked scores, so there is no
+            # library time; beside it, one cuBLAS matrix-vector product in the
+            # rows' type, which leaves the mask out (a lower yardstick).
+            row["library_ms"] = None
             q_lib = q.to(case.emb_dtype)
-            row["library_ms"] = cuda_ms(lambda: torch.matmul(q_lib, emb.T), 50, warmup=5)
+            row["gemv_no_mask_ms"] = cuda_ms(lambda: torch.matmul(q_lib, emb.T), 50, warmup=5)
             row["bound_ms"], row["bound_by"] = similarity_bound_ms(case.n, dim, case.b, case.emb_dtype)
             if not record:
-                record.update({k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+                record.update({k: row[k] for k in ("ms", "plain_ms", "library_ms", "gemv_no_mask_ms",
+                                                   "bound_ms", "bound_by")})
         print("kernel " + json.dumps(row), flush=True)
         if not ok:
             fail(f"masked_similarity {case.name}: max abs err {err} (tol {SIM_ATOL}), "
-                 f"masked entries exact: {masked_exact}")
+                 f"masked entries exact: {masked_exact}, launches {n_launch} (expected {want_launch})")
         record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
         del emb, q, mask, out, want
     torch.cuda.empty_cache()
@@ -663,7 +724,9 @@ def main() -> int:
     shapes = path_shapes(cfg, chat_cfg)
     t0 = time.perf_counter()
     record = kernel_phase(cfg, chat_cfg, args.seed)
-    log("kernel.flash_attention", sync_s(t0), **{k: record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+    log("kernel.flash_attention", sync_s(t0),
+        **{k: record[k]
+           for k in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")},
         chat_first_question=json.dumps(record["chat_first_question"]))
     capacity = 1024  # VectorIndex's first capacity, doubled until the chat index fits
     while capacity < OTHER_DOCS * OTHER_PAGES + TARGET_PAGES:
@@ -671,7 +734,7 @@ def main() -> int:
     t0 = time.perf_counter()
     sim_record = similarity_phase(args.seed, EmbedderConfig().dim, capacity)
     log("kernel.masked_similarity", sync_s(t0),
-        **{k: sim_record[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+        **{k: sim_record[k] for k in ("ms", "plain_ms", "gemv_no_mask_ms", "bound_ms", "bound_by")})
 
     expected = sum(sh.launches for sh in shapes if sh.path == "extract")
     t0 = time.perf_counter()
@@ -695,19 +758,23 @@ def main() -> int:
     if not err <= LOGITS_ATOL:
         fail(f"first-step answer logits differ by {err} > {LOGITS_ATOL}")
 
-    def entry(name, source, replaces, rec):
+    def entry(name, source, replaces, rec, **extra):
         by_path = {"extract": launches[name], "chat": chat_launches[name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **extra,
         }
 
     print(json.dumps({"kernels": [
         entry("flash_attention", "vision_compression_project_tpu_torch/kernels/flash_attention.cu",
-              "vision_compression_project_tpu/ops/attention.py:30", record),
+              "vision_compression_project_tpu/ops/attention.py:30", record,
+              kernel_route=kernels.FLASH_ROUTES[torch.bfloat16], graph_ms=record["graph_ms"],
+              library_graph_ms=record["library_graph_ms"]),
         entry("masked_similarity", "vision_compression_project_tpu_torch/kernels/masked_similarity.cu",
-              "vision_compression_project_tpu/ops/topk.py:26", sim_record),
+              "vision_compression_project_tpu/ops/topk.py:26", sim_record,
+              gemv_no_mask_ms=sim_record["gemv_no_mask_ms"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -73,6 +73,22 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(d, dtype, device, 
     assert kernels.launches == before
 
 
+def test_flash_layout_rule():
+    """The layout the kernel reads without a copy: the attention layer's
+    head-split views of a (B, S, H * D) projection and contiguous tensors
+    qualify; a strided last dimension, a stride that is not a multiple of 8
+    elements or a base off 16 bytes does not (ops.attention copies those)."""
+    proj = torch.zeros((2, 300, 10 * 64), dtype=torch.bfloat16)
+    q = proj[..., : 6 * 64].view(2, 300, 6, 64).transpose(1, 2)
+    v = proj[..., 8 * 64 :].view(2, 300, 2, 64).transpose(1, 2)
+    assert kernels.flash_layout_ok(q) and kernels.flash_layout_ok(v)
+    assert kernels.flash_layout_ok(torch.zeros((2, 6, 77, 32)))
+    assert not kernels.flash_layout_ok(torch.zeros((2, 6, 64, 77)).transpose(2, 3))
+    padded_rows = torch.zeros((2, 77, 6 * 32 + 4))[..., : 6 * 32]
+    assert not kernels.flash_layout_ok(padded_rows.view(2, 77, 6, 32).transpose(1, 2))
+    assert not kernels.flash_layout_ok(torch.zeros(2 * 6 * 64 * 32 + 1)[1:].view(2, 6, 64, 32))
+
+
 def test_flash_routing_rule_matches_jax(monkeypatch):
     """Whole-sequence attention takes the kernel exactly where the JAX
     package takes its Pallas kernel (models/layers.py::_use_flash)."""

@@ -47,6 +47,18 @@ def cuda():
         (3, 6, 2, 200, 64, [200, 0, 37], True),
         (2, 6, 2, 1088, 64, [1026, 1087], True),
         (1, 2, 1, 5, 32, [3], True),
+        # The shapes of the main paths: ocr_real's encoder local and global
+        # calls and decoder prefill, ocr_bpe's blank-page global call and
+        # answer prefill.
+        (64, 6, 6, 256, 32, None, False),
+        (4, 6, 6, 1024, 64, None, False),
+        (4, 6, 2, 1088, 64, [1026] * 4, True),
+        (1, 4, 4, 256, 64, None, False),
+        (1, 8, 4, 768, 32, None, True),
+        # Ragged S (not a multiple of 64 or 16), key lengths 0 and 1, GQA 3:1.
+        (2, 6, 2, 77, 64, [77, 1], False),
+        (3, 3, 1, 333, 32, [0, 1, 250], True),
+        (2, 6, 2, 130, 64, [1, 0], True),
     ],
 )
 def test_kernel_matches_plain(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
@@ -62,6 +74,27 @@ def test_kernel_matches_plain(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
     want = mha_reference(q, k, v, kv_len=kv, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_reads_head_split_views_in_place(cuda, dtype):
+    """q/k/v as the attention layer makes them (head-split views of a
+    (B, S, H * D) projection) give the result of contiguous copies, and the
+    output is a (B, H, S, D) view of a contiguous (B, S, H, D) tensor."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    b, s, h, hkv, d = 2, 300, 6, 2, 64
+    proj = torch.randn((b, s, (h + 2 * hkv) * d), generator=g, device=cuda).to(dtype)
+    q = proj[..., : h * d].view(b, s, h, d).transpose(1, 2)
+    k = proj[..., h * d : (h + hkv) * d].view(b, s, hkv, d).transpose(1, 2)
+    v = proj[..., (h + hkv) * d :].view(b, s, hkv, d).transpose(1, 2)
+    kv = torch.tensor([300, 211], dtype=torch.int32, device=cuda)
+    got = flash_attention(q, k, v, kv_len=kv, causal=True)
+    want = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), kv_len=kv, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert got.transpose(1, 2).is_contiguous()
+    plain = mha_reference(q, k, v, kv_len=kv, causal=True)
+    assert (got.float() - plain.float()).abs().max().item() <= TOL[dtype]
 
 
 def test_kernel_refuses_unsupported_head_dim(cuda):
@@ -128,8 +161,24 @@ def test_similarity_kernel_refuses(cuda):
     with pytest.raises(ValueError, match="D ="):
         masked_similarity(emb[:, :510].contiguous(), q[:, :510].contiguous(), mask)
     with pytest.raises(ValueError, match="queries"):
-        masked_similarity(emb, q.repeat(5, 1), mask)
+        kernels.masked_similarity(emb, q.repeat(5, 1), mask)
     assert kernels.launches == before
+
+
+def test_similarity_any_number_of_queries(cuda):
+    """ops.topk.masked_similarity scores any batch: in chunks of the kernel's
+    limit, one launch per chunk, one launch for a batch within it."""
+    emb, q, mask = _similarity_inputs(cuda, 131072, 512, 32, torch.float32)
+    limit = kernels.SIMILARITY_MAX_QUERIES
+    for b in (1, limit, limit + 1, 32):
+        before = kernels.launches["masked_similarity"]
+        got = masked_similarity(emb, q[:b], mask)
+        torch.cuda.synchronize()
+        assert kernels.launches["masked_similarity"] == before + -(-b // limit)
+        want = masked_similarity_reference(emb, q[:b], mask)
+        assert got.shape == (b, 131072)
+        assert bool((got[:, mask <= 0] == NEG_INF).all())
+        assert (got - want).abs().max().item() <= SIM_ATOL
 
 
 def test_index_search_card_equals_cpu(cuda):
@@ -153,3 +202,26 @@ def test_index_search_card_equals_cpu(cuda):
             assert max(abs(a["score"] - b["score"]) for a, b in zip(g, w)) <= SIM_ATOL
     vals, idx = cosine_topk(on_card._rows, torch.from_numpy(queries).to(cuda), on_card._mask_for("a"), 8)
     assert vals.shape == idx.shape == (2, 8)
+
+
+def test_index_search_32_queries_card_equals_cpu(cuda):
+    """A batch of 32 queries (scripts/bench_index.py's default) on the card:
+    the same ids in the same order as the CPU search, scores within SIM_ATOL."""
+    rng = np.random.default_rng(1)
+    n = 5000
+    rows = rng.standard_normal((n, 512)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    records = [{"doc_id": "abc"[i % 3], "page": i, "content": f"p{i}"} for i in range(n)]
+    ids = [f"m{i}" for i in range(n)]
+    queries = rng.standard_normal((32, 512)).astype(np.float32)
+    queries /= np.linalg.norm(queries, axis=1, keepdims=True)
+    on_card, on_cpu = VectorIndex(512, device=cuda), VectorIndex(512, device="cpu")
+    for index in (on_card, on_cpu):
+        index.add(rows, records, ids)
+    for doc in (None, "c"):
+        got = on_card.search(queries, top_k=10, doc_id=doc)
+        want = on_cpu.search(queries, top_k=10, doc_id=doc)
+        assert len(got) == 32
+        assert [[r["id"] for r in res] for res in got] == [[r["id"] for r in res] for res in want]
+        for g, w in zip(got, want):
+            assert max(abs(a["score"] - b["score"]) for a, b in zip(g, w)) <= SIM_ATOL

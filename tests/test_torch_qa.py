@@ -9,6 +9,7 @@ Pallas scoring kernel in interpret mode; the port runs on the CPU, where both
 kernels take their plain versions.
 """
 
+import inspect
 import itertools
 import json
 import re
@@ -112,6 +113,45 @@ def test_ingest_manifests_equal(tmp_path, embedders):
     # The indexed records agree, apart from memory ids.
     strip = [{k: v for k, v in r.items() if k != "memory_id"} for r in tst.index.metadata]
     assert strip == [{k: v for k, v in r.items() if k != "memory_id"} for r in jst.index.metadata]
+
+
+def test_ingest_deeply_nested_page_fails_alone(tmp_path, embedders):
+    """A page JSON nested past the recursion limit is recorded in
+    failed_pages with the reference's fields; the other pages are ingested."""
+    pages = tmp_path / "pages"
+    _write_pages(pages, prose_pages(6, 3))
+    (pages / "page_002.json").write_text("[" * 200_000 + "]" * 200_000)
+    jx, tx = embedders
+    jst = jstore.IndexStore(tmp_path / "jidx", jx.dim, mode="single")
+    tst = tstore.IndexStore(tmp_path / "tidx", tx.dim, mode="single", device="cpu")
+    jman = jingest.ingest_pages_dir(pages, "doc.pdf", DOC, tmp_path / "j.json", embedder=jx, store=jst)
+    tman = tingest.ingest_pages_dir(pages, "doc.pdf", DOC, tmp_path / "t.json", embedder=tx, store=tst)
+    assert _without_ids(tman) == _without_ids(jman)
+    assert [p["page"] for p in tman["pages"]] == [1, 3] and tst.index.count == 2
+    assert [sorted(f) for f in tman["failed_pages"]] == [["error", "page"]]
+    assert tman["failed_pages"][0]["page"] == 2
+    assert tman["failed_pages"][0]["error"].startswith("Failed to parse JSON: ")
+
+
+def test_answer_question_signature_equal():
+    """The same parameters in the same order with the same defaults, so a
+    caller of either package (the HTTP layer passes model=None) calls both."""
+    def params(fn):
+        return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(tqa.answer_question) == params(jqa.answer_question)
+    assert [name for name, *_ in params(tqa.answer_question)][4] == "model"
+
+
+def test_answer_accepts_model_keyword(tmp_path, embedders, same_memory_ids):
+    both = _ingest_both(tmp_path, prose_pages(7, 6), embedders)
+    question = "What did the night shift reject?"
+    got, want = _answers(both, embedders, question, engine="extractive", model=None)
+    assert got == want and got["retrieved"]
+    (jst, _), (tst, _) = both
+    positional = tqa.answer_question(DOC, question, 8, 1500, None, None, tst, embedders[1], None,
+                                     "extractive")
+    assert positional == got
 
 
 def test_answer_extractive_identical(tmp_path, embedders, same_memory_ids):

@@ -12,6 +12,7 @@ time, so the CPU-only test suite can import the package.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import functools
 import hashlib
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -82,6 +84,13 @@ def _load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def _raw_stream(device_index: int) -> int:
+    """PyTorch's current stream on a device as the raw cudaStream_t: what
+    torch.cuda.current_stream(device).cuda_stream gives, without making a
+    Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
+
+
 def _raise_on(lib: ctypes.CDLL, name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed: {lib.vcp_cuda_error_string(err).decode()} ({err})")
@@ -91,9 +100,7 @@ def _raise_on(lib: ctypes.CDLL, name: str, err: int) -> None:
 def _flash_lib() -> ctypes.CDLL:
     lib = _load("flash_attention")
     fn = lib.vcp_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float]  # 24 packed int64 (see the source), scale
     fn.restype = ctypes.c_int
     return lib
 
@@ -109,16 +116,28 @@ def _similarity_lib() -> ctypes.CDLL:
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_HEAD_DIMS = (32, 64)
+# Which kernel each input type takes (kernels/flash_attention.cu).
+FLASH_ROUTES = {torch.bfloat16: "tensor-core bf16 (mma.sync)", torch.float32: "scalar f32"}
+
+
+def flash_layout_ok(t: torch.Tensor) -> bool:
+    """Whether the kernel reads `t` (B, H, S, D) in place: last dimension
+    contiguous, the other strides multiples of 8 elements, the base 16-byte
+    aligned (the bf16 route copies 16-byte rows with cp.async). A head-split
+    view of a (B, S, H * D) projection qualifies."""
+    st = t.stride()
+    return st[3] == 1 and not (st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16)
 
 
 def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: torch.Tensor,
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: Optional[torch.Tensor],
     causal: bool, scale: float,
 ) -> torch.Tensor:
-    """Launch the flash-attention kernel: q (B, H, Sq, D), k/v (B, Hkv, Sk, D),
-    kv_len (B,) int32, all contiguous CUDA tensors on one device; returns O
-    shaped like q. Raises on anything the kernel does not take and on a
-    launch that CUDA refuses."""
+    """Launch the flash-attention kernel: q (B, H, Sq, D), k/v (B, Hkv, Sk, D)
+    CUDA tensors on one device in a layout `flash_layout_ok` accepts, kv_len
+    (B,) int32 or None (every key valid). Returns O shaped like q, a
+    (B, H, Sq, D) view of a contiguous (B, Sq, H, D) tensor. Raises on
+    anything the kernel does not take and on a launch that CUDA refuses."""
     b, h, sq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad k/v shapes {tuple(k.shape)} {tuple(v.shape)} for q {tuple(q.shape)}")
@@ -127,26 +146,33 @@ def flash_attention_fwd(
         raise ValueError(f"kv heads {hkv} do not divide heads {h}")
     if d not in FLASH_HEAD_DIMS:
         raise ValueError(f"head_dim {d} not supported by the kernel (have {FLASH_HEAD_DIMS})")
-    if q.dtype not in _FLASH_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+    dtype = _FLASH_DTYPES.get(q.dtype)
+    if dtype is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of float32, bfloat16")
-    if kv_len.dtype != torch.int32 or kv_len.shape != (b,):
-        raise ValueError(f"kv_len must be int32 of shape ({b},)")
-    for t in (q, k, v, kv_len):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError("all operands must be CUDA tensors on one device")
-        if not t.is_contiguous():
-            raise ValueError("operands must be contiguous")
+    if kv_len is not None and (kv_len.dtype != torch.int32 or kv_len.shape != (b,)
+                               or not kv_len.is_contiguous()):
+        raise ValueError(f"kv_len must be contiguous int32 of shape ({b},)")
+    if not scale > 0:
+        raise ValueError(f"scale {scale}: the kernel takes a positive scale")
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev or (
+        kv_len is not None and kv_len.device != dev
+    ):
+        raise ValueError("all operands must be CUDA tensors on one device")
+    if not (flash_layout_ok(q) and flash_layout_ok(k) and flash_layout_ok(v)):
+        raise ValueError("q/k/v need a contiguous last dimension, strides that are multiples of 8 "
+                         "and 16-byte aligned data")
     lib = _flash_lib()
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = lib.vcp_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-            b, h, hkv, sq, sk, d, float(scale), int(causal), _FLASH_DTYPES[q.dtype], stream,
-        )
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
+    params = array.array("q", (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
+        b, h, hkv, sq, sk, d, causal, dtype, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        dev.index, _raw_stream(dev.index),
+    ))
+    err = lib.vcp_flash_attention_fwd(params.buffer_info()[0], scale)
     _raise_on(lib, "flash_attention", err)
     launches["flash_attention"] += 1
-    return out
+    return out.transpose(1, 2)
 
 
 _SIMILARITY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

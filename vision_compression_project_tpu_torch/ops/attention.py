@@ -4,9 +4,13 @@ optional causal mask.
 `flash_attention` routes on the device of `q` alone: a CUDA tensor goes to the
 hand-written kernel (kernels/flash_attention.cu), a CPU tensor to
 `mha_reference`, the plain version. It keeps the semantics of the JAX
-wrapper (vision_compression_project_tpu/ops/attention.py::flash_attention):
-S is padded to a multiple of 128, padded keys are masked through the true
-`kv_len`, and padded query rows are sliced off the output.
+wrapper (vision_compression_project_tpu/ops/attention.py::flash_attention),
+which pads S to a multiple of 128, masks the padded keys through the true
+`kv_len` and slices padded query rows off the output: the kernel masks ragged
+Sq and Sk itself, so nothing is padded or sliced here. It reads q, k and v in
+place where their strides allow (head-split views of a projection do) and
+returns a (B, H, S, D) view of a (B, S, H, D) tensor, the layout the output
+projection reads.
 
 Single-token decode attention is plain tensor code in models/layers.py, as it
 is XLA einsums, not a kernel, in the reference.
@@ -17,12 +21,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from .. import kernels
 
 NEG_INF = -1e30
-BLOCK = 128
 
 
 def mha_reference(
@@ -75,21 +77,10 @@ def flash_attention(
         return mha_reference(q, k, v, kv_len=kv_len, causal=causal, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device.type}")
-    b, _, sq, d = q.shape
-    sk = k.shape[2]
     if scale is None:
-        scale = d ** -0.5
-    if kv_len is None:
-        kv_len = torch.full((b,), sk, dtype=torch.int32, device=q.device)
-    pq = (-sq) % BLOCK
-    pk = (-sk) % BLOCK
-    if pq or pk:
-        q = F.pad(q, (0, 0, 0, pq))
-        k = F.pad(k, (0, 0, 0, pk))
-        v = F.pad(v, (0, 0, 0, pk))
-        kv_len = kv_len.clamp(max=sk)
-    out = kernels.flash_attention_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(),
-        kv_len.to(device=q.device, dtype=torch.int32).contiguous(), causal, scale,
-    )
-    return out[:, :, :sq] if pq else out
+        scale = q.shape[3] ** -0.5
+    if kv_len is not None and (kv_len.dtype != torch.int32 or kv_len.device != q.device):
+        kv_len = kv_len.to(device=q.device, dtype=torch.int32)
+    q, k, v = (t if kernels.flash_layout_ok(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    return kernels.flash_attention_fwd(q, k, v, kv_len, causal, scale)

@@ -30,14 +30,21 @@ def masked_similarity_reference(
 def masked_similarity(emb: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """emb (N, D) unit-norm index rows (so dot == cosine), queries (B, D)
     unit-norm, mask (N,) row filter -> scores (B, N) f32. CUDA tensors run the
-    kernel and nothing else; CPU tensors run the plain version."""
+    kernel and nothing else; CPU tensors run the plain version. The kernel
+    takes at most kernels.SIMILARITY_MAX_QUERIES queries a launch, so a
+    larger batch is scored in chunks of that many: any B >= 1 is served, and
+    a batch within the limit (a /chat question's one) is one launch."""
     if emb.device.type == "cpu":
         return masked_similarity_reference(emb, queries, mask)
     if emb.device.type != "cuda":
         raise ValueError(f"masked_similarity runs on cuda or cpu, not {emb.device.type}")
-    return kernels.masked_similarity(
-        emb.contiguous(), queries.to(torch.float32).contiguous(), mask.to(torch.float32).contiguous()
-    )
+    emb, mask = emb.contiguous(), mask.to(torch.float32).contiguous()
+    queries = queries.to(torch.float32).contiguous()
+    step = kernels.SIMILARITY_MAX_QUERIES
+    if queries.shape[0] <= step:
+        return kernels.masked_similarity(emb, queries, mask)
+    return torch.cat([kernels.masked_similarity(emb, queries[i : i + step], mask)
+                      for i in range(0, queries.shape[0], step)])
 
 
 def cosine_topk(

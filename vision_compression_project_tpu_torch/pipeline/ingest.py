@@ -107,7 +107,7 @@ def ingest_pages_dir(
                 for entry in existing.get("pages", []):
                     if "page" in entry and "error" not in entry:
                         existing_pages[entry["page"]] = entry
-        except (OSError, ValueError, AttributeError, TypeError):
+        except Exception:  # an unreadable manifest is ignored, as in the reference
             pass
 
     pages: List[Dict] = []
@@ -123,7 +123,7 @@ def ingest_pages_dir(
             continue
         try:
             data = parse_json_file(file_path)
-        except (OSError, ValueError, AttributeError) as exc:
+        except Exception as exc:  # as the reference: any parse failure, e.g. RecursionError
             failed_pages.append({"page": page_number, "error": f"Failed to parse JSON: {exc}"})
             continue
         content = _page_content(data)

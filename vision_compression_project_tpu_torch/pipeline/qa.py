@@ -216,6 +216,7 @@ def answer_question(
     question: str,
     top_k: int = 8,
     max_chars_per_page: int = 1500,
+    model: Optional[str] = None,
     manifest_path: Optional[Path] = None,
     store=None,
     embedder=None,
@@ -223,8 +224,10 @@ def answer_question(
     engine: Optional[str] = None,
 ) -> Dict:
     """Retrieve + answer.  Returns {"answer_md": str, "retrieved": [
-    {"page", "memory_id", "excerpt"}]} exactly like the reference.
-    `runner` serves engine 'lm' (a VLMRunner of an answer-trained preset)."""
+    {"page", "memory_id", "excerpt"}]} exactly like the reference, with the
+    reference's signature. `model` is accepted and unused, as there (the HTTP
+    layer passes it). `runner` serves engine 'lm' (a VLMRunner of an
+    answer-trained preset)."""
     embedder = embedder or _get_embedder()
     if store is None:
         from ..index import get_default_store
@@ -240,7 +243,7 @@ def answer_question(
     if manifest_path and Path(manifest_path).exists():
         try:
             manifest = json.loads(Path(manifest_path).read_text(encoding="utf-8"))
-        except (OSError, ValueError):
+        except Exception:  # an unreadable manifest is ignored, as in the reference
             pass
 
     with METRICS.timer("qa.retrieve"):
