@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's two paths on one NVIDIA GPU and check them:
-page extraction with ocr_real, and /chat (retrieval and a cited answer) with
-the hash embedder and ocr_bpe.
+"""Drive the PyTorch port's paths on one NVIDIA GPU and check them: page
+extraction with ocr_real, /chat (retrieval and a cited answer) with the hash
+embedder and ocr_bpe, and /ingest from a PDF with the shipped weights.
 
     python3 chip_smoke.py [--seed N]
 
-Run from the repository root, on a machine with a CUDA card and nvcc. It
-needs torch, numpy and the standard library; it reads no checkpoint (weights
-are random, made from the seed). One flushed line per phase, with seconds:
+Run from the repository root, on a machine with a CUDA card, nvcc and g++. It
+needs torch, numpy and the standard library. The kernel, slice and chat
+phases run random weights made from the seed; the weights, ingest and
+chat.shipped phases read the shipped checkpoints under checkpoints/default/
+with the port's own reader. One flushed line per phase, with seconds:
 
   device   the card's name and power limit;
-  build    compile the hand-written kernels from the sources in the repo, one
-           nvcc per kernel, all started together, and print each -Xptxas -v log;
+  build    compile everything the paths run from the sources in the repo, all
+           started together: one nvcc per kernel (each -Xptxas -v log
+           printed) and one g++ per host library (the checkpoint reader's
+           zstd decoder, the PDF engine), each with its seconds;
+  weights  read both shipped checkpoints (ocr_real, ocr_bpe): tensors, MB and
+           seconds; every tensor's SHA-256 equal to the committed digests
+           (train/shipped_digests.json); a strict load into its model;
   kernel   hold each kernel against its plain PyTorch version on the card at
            the shapes its paths give it (and ragged cases: K1 with key
            lengths 0 and 1, K2 with 32 queries, scored in chunks), and time
@@ -35,7 +42,19 @@ are random, made from the seed). One flushed line per phase, with seconds:
            version on a CPU copy of the rows; then each stage (embed,
            retrieve, answer prefill, answer decode) timed five times;
   answer_logits  first-step answer logits of the kernel path on the card
-           against the plain path on the CPU, in f32, for one question.
+           against the plain path on the CPU, in f32, for one question;
+  ingest_pdf  a 16-page PDF made by make_pdf at ocr_real's training render
+           (14 lines, font 24, dpi 93; texts from train/pages.py), read by
+           extract_pdf_to_page_jsons(engine="vlm", batch_size=4) with
+           load_runner(ocr_real): first by glyph transport (no PNGs saved:
+           every batch drawn on the card), then by pixels (PNGs saved); each
+           with exactly 4 x 14 flash-attention launches, the four keys in every
+           page JSON and a mean markdown similarity to structure_page's gold
+           of at least 0.8; pages/s, output tokens and decode steps printed;
+  ingest_text  the same PDF with engine="text": every page JSON equals its gold;
+  chat.shipped  those pages ingested into an index on the card, then
+           answer_question with the default engine, which must answer through
+           _get_answer_runner's shipped ocr_bpe with exact launch counts.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -47,6 +66,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import difflib
+import functools
 import json
 import re
 import subprocess
@@ -60,7 +81,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from vision_compression_project_tpu_torch import kernels
+from vision_compression_project_tpu_torch import config, kernels, native
 from vision_compression_project_tpu_torch.index import VectorIndex
 from vision_compression_project_tpu_torch.models import VLMRunner, get_preset
 from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
@@ -68,14 +89,24 @@ from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedd
 from vision_compression_project_tpu_torch.models.layers import use_flash
 from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, TASK_EXTRACT_ID
 from vision_compression_project_tpu_torch.models.vlm import (
-    ANSWER_DECODE_RESERVE, CACHE_BUCKET, PROMPT_BUCKET,
+    ANSWER_DECODE_RESERVE, CACHE_BUCKET, PROMPT_BUCKET, OpticalVLM,
 )
 from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
 from vision_compression_project_tpu_torch.ops.topk import (
     NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference,
 )
+from vision_compression_project_tpu_torch.pipeline import qa
+from vision_compression_project_tpu_torch.pipeline.extract import extract_pdf_to_page_jsons
 from vision_compression_project_tpu_torch.pipeline.ingest import ingest_pages_dir
 from vision_compression_project_tpu_torch.pipeline.qa import _build_evidence_pack, answer_question
+from vision_compression_project_tpu_torch.pipeline.textmd import structure_page
+from vision_compression_project_tpu_torch.raster import PdfDocument, make_pdf
+from vision_compression_project_tpu_torch.raster.rasterizer import build_library as build_raster
+from vision_compression_project_tpu_torch.train.checkpoint import (
+    load_params, load_runner, param_digests, shipped_digests,
+)
+from vision_compression_project_tpu_torch.train.pages import ingest_texts, prose_pages
+from vision_compression_project_tpu_torch.weights import params_from_jax
 
 PRESET = "ocr_real"
 N_PAGES = 4
@@ -401,28 +432,6 @@ def similarity_phase(seed: int, dim: int, n_path: int):
     return record
 
 
-_SUBJECTS = ("The cache module", "The billing service", "Plant delta", "The audit team",
-             "The retrieval index", "The vision encoder", "Cluster theta", "The night shift")
-_VERBS = ("stored", "reported", "processed", "rejected", "shipped", "reviewed")
-_OBJECTS = ("invoices", "pages", "units", "defect reports", "requests", "samples")
-
-
-def prose_pages(seed: int, n_pages: int, sentences: int = 20) -> list:
-    """Seeded synthetic prose, one string per page (about 1,300 characters);
-    every sentence carries its page and sentence numbers."""
-    rng = np.random.default_rng(seed)
-    pages = []
-    for p in range(1, n_pages + 1):
-        out = []
-        for s in range(1, sentences + 1):
-            subj = _SUBJECTS[rng.integers(len(_SUBJECTS))]
-            verb = _VERBS[rng.integers(len(_VERBS))]
-            obj = _OBJECTS[rng.integers(len(_OBJECTS))]
-            out.append(f"{subj} {verb} {int(rng.integers(2, 999))} {obj} in section {p}.{s}.")
-        pages.append(" ".join(out))
-    return pages
-
-
 def build_index(seed: int, embedder, workdir: Path):
     """The /chat index on the card: random unit rows for the other
     documents, then the target document's page JSON through ingest."""
@@ -639,8 +648,17 @@ def slice_phase(cfg, seed: int, expected_launches: int):
     print("pages " + json.dumps([{k: (v[:60] if isinstance(v, str) else v) for k, v in r.items()}
                                   for r in result]), flush=True)
 
-    # The same path again, warm, timed by stage TIMED_REPEATS times.
-    prompts = [[BOS_ID, TASK_EXTRACT_ID]] * N_PAGES
+    timing = time_extract_stages(runner, pages, MAX_NEW)
+    timing["first_extract_batch_s"] = first_s
+    log("slice.timed", timing.pop("seconds"), **timing)
+    return launches, timing
+
+
+def time_extract_stages(runner, pages: np.ndarray, max_new: int) -> dict:
+    """One extraction batch, warm, timed by stage TIMED_REPEATS times:
+    each stage's median, min and max, and the decode steps."""
+    n = pages.shape[0]
+    prompts = [[BOS_ID, TASK_EXTRACT_ID]] * n
     samples = {"encode_s": [], "prefill_s": [], "decode_s": []}
     t_all = time.perf_counter()
     for _ in range(TIMED_REPEATS):
@@ -648,7 +666,9 @@ def slice_phase(cfg, seed: int, expected_launches: int):
         vis = runner.encode(runner.preprocess_patches(pages))
         samples["encode_s"].append(sync_s(t0))
         ids, lens = runner.pad_prompts(prompts)
-        cache_len = -(-(vis.shape[1] + ids.shape[1] + MAX_NEW) // CACHE_BUCKET) * CACHE_BUCKET
+        bound = max(1, min(max_new, runner.cfg.decoder.max_seq - vis.shape[1] - ids.shape[1]))
+        cache_len = min(runner.cfg.decoder.max_seq,
+                        -(-(vis.shape[1] + ids.shape[1] + bound) // CACHE_BUCKET) * CACHE_BUCKET)
         t0 = time.perf_counter()
         logits, _, _ = runner.first_logits(ids, lens, vis, cache_len)
         prefill_s = sync_s(t0)
@@ -656,19 +676,18 @@ def slice_phase(cfg, seed: int, expected_launches: int):
         if not bool(torch.isfinite(logits).all()):
             fail("non-finite first-step logits")
         t0 = time.perf_counter()
-        toks = runner.generate(prompts, vis, MAX_NEW)
+        toks = runner.generate(prompts, vis, max_new)
         samples["decode_s"].append(max(sync_s(t0) - prefill_s, 1e-9))
-    toks = toks.cpu().numpy()
-    ends = [int(np.argmax(row == EOS_ID)) if (row == EOS_ID).any() else MAX_NEW - 1 for row in toks]
-    steps = max(ends)  # decode steps after the first token, which prefill gives
-    timing = {"repeats": TIMED_REPEATS, "decode_steps": steps, "first_extract_batch_s": first_s}
+    steps = decode_steps(toks)  # after the first token, which prefill gives
+    timing = {"repeats": TIMED_REPEATS, "pages": n, "decode_steps": steps}
     for key, vals in samples.items():
         timing[key] = float(np.median(vals))
         timing[f"{key[:-2]}_min_s"] = min(vals)
         timing[f"{key[:-2]}_max_s"] = max(vals)
-    timing["decode_tokens_per_s"] = N_PAGES * steps / timing["decode_s"]
-    log("slice.timed", time.perf_counter() - t_all, **timing)
-    return launches, timing
+    timing["decode_tokens_per_s"] = n * steps / timing["decode_s"]
+    timing["decode_ms_per_step"] = 1e3 * timing["decode_s"] / max(steps, 1)
+    timing["seconds"] = time.perf_counter() - t_all
+    return timing
 
 
 def logits_phase(cfg, seed: int):
@@ -689,6 +708,236 @@ def logits_phase(cfg, seed: int):
         del runner
     err = (out["cuda"] - out["cpu"]).abs().max().item()
     return err, float(out["cpu"].abs().max())
+
+
+# /ingest from a PDF with the shipped weights: ocr_real at its training render
+# (checkpoints/default/ocr_real/meta.json), pages read in batches of
+# INGEST_BATCH, held to the JAX bench's markdown-similarity floor (bench.py:77).
+SHIPPED = ("ocr_real", "ocr_bpe")
+INGEST_PAGES, INGEST_BATCH = 16, 4
+INGEST_MAX_NEW = 2048  # the JAX bench's decode budget (bench.py:74): decode ends at EOS
+QUALITY_FLOOR = 0.8
+INGEST_DOC = "ingest-report"
+CHAT_SHIPPED_QUESTION = "What did the audit team review?"
+
+
+def build_phase() -> dict:
+    """Every library the paths run, built at once: one nvcc per kernel, one
+    g++ per host library (the checkpoint reader's zstd, the PDF engine).
+    Returns {name: (library path, seconds)}."""
+    jobs = {name: functools.partial(kernels.build, name) for name in sorted(kernels.launches)}
+    jobs["zstd_decode"] = native.build_zstd
+    jobs["vcpraster"] = build_raster
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        lib = fn()
+        return lib, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(timed, fn) for name, fn in jobs.items()}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def _leaves(tree):
+    for value in tree.values():
+        if isinstance(value, dict):
+            yield from _leaves(value)
+        else:
+            yield value
+
+
+def weights_phase() -> None:
+    """Both shipped checkpoints read by the port's reader, every tensor held
+    against the committed digests, then loaded strictly into its model."""
+    want = shipped_digests()
+    for preset in SHIPPED:
+        ckpt = config.shipped_checkpoint_dir(preset)
+        if ckpt is None:
+            fail(f"checkpoints/default/{preset} is not in this checkout: .chiprunignore must let "
+                 "checkpoints/default/ through")
+        t0 = time.perf_counter()
+        tree = load_params(ckpt)
+        seconds = time.perf_counter() - t0
+        got = param_digests(tree)
+        bad = sorted(k for k in set(got) | set(want[preset]) if got.get(k) != want[preset].get(k))
+        model = OpticalVLM(get_preset(preset))
+        model.load_state_dict(params_from_jax(tree), strict=True)
+        log("weights", seconds, preset=preset, tensors=len(got),
+            mb=sum(a.nbytes for a in _leaves(tree)) / 1e6, digests_equal=not bad, strict_load=True)
+        if bad:
+            fail(f"{preset}: {len(bad)} tensors differ from the committed digests, e.g. {bad[:3]}")
+        del model, tree
+
+
+def decode_steps(toks: torch.Tensor) -> int:
+    """Decode steps of one generate call after the first token (which
+    prefill gives): the last EOS position over the rows, else the bound."""
+    rows = toks.cpu().numpy()
+    ends = [int(np.argmax(r == EOS_ID)) if (r == EOS_ID).any() else rows.shape[1] - 1 for r in rows]
+    return max(ends)
+
+
+class Watch:
+    """Counts a runner's extraction calls by route and records each generate
+    call's decode steps, by wrapping the instance's methods."""
+
+    def __init__(self, runner):
+        self.steps, self.glyph, self.pixel = [], 0, 0
+        self._runner = runner
+        self._orig = {n: getattr(runner, n) for n in ("generate", "extract_batch_async_glyphs",
+                                                       "extract_batch_async")}
+
+        def generate(*a, **k):
+            out = self._orig["generate"](*a, **k)
+            self.steps.append(decode_steps(out))
+            return out
+
+        def glyphs(*a, **k):
+            self.glyph += 1
+            return self._orig["extract_batch_async_glyphs"](*a, **k)
+
+        def pixels(*a, **k):
+            self.pixel += 1
+            return self._orig["extract_batch_async"](*a, **k)
+
+        runner.generate, runner.extract_batch_async_glyphs, runner.extract_batch_async = generate, glyphs, pixels
+
+    def close(self):
+        for name, fn in self._orig.items():
+            setattr(self._runner, name, fn)
+
+
+def markdown_similarity(gold: dict, rec: dict) -> float:
+    return difflib.SequenceMatcher(None, gold["markdown"], rec["markdown"]).ratio()
+
+
+def ingest_phase(seed: int, workdir: Path, k1_per_batch: int) -> dict:
+    """extract_pdf_to_page_jsons(engine="vlm") with the shipped ocr_real on a
+    16-page PDF, by glyph transport (no PNGs saved) and by pixels (PNGs
+    saved), each with exact launch counts and the similarity floor."""
+    meta = config.shipped_meta("ocr_real")
+    texts = ingest_texts(seed, INGEST_PAGES, meta["lines"], meta["font_size"])
+    pdf = make_pdf(texts, workdir / "ingest.pdf", font_size=meta["font_size"], fonts=meta.get("fonts"))
+    gold = [structure_page(t, i) for i, t in enumerate(texts, 1)]
+    t0 = time.perf_counter()
+    runner = load_runner(get_preset("ocr_real"), config.shipped_checkpoint_dir("ocr_real"),
+                         max_new_default=INGEST_MAX_NEW, device="cuda")
+    log("ingest_pdf.runner", sync_s(t0), preset="ocr_real", render=json.dumps(
+        {k: meta[k] for k in ("lines", "font_size", "dpi")}), pages=INGEST_PAGES, batch=INGEST_BATCH)
+    n_batches = -(-INGEST_PAGES // INGEST_BATCH)
+    want_launches = {"flash_attention": n_batches * k1_per_batch, "masked_similarity": 0}
+    out = {}
+    routes = (("glyph", {"save_images": False}),
+              ("pixel", {"save_images": True, "images_dir": workdir / "png"}))
+    for route, kw in routes:
+        watch = Watch(runner)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = extract_pdf_to_page_jsons(pdf, workdir / route, dpi=meta["dpi"], engine="vlm",
+                                          batch_size=INGEST_BATCH, runner=runner, **kw)
+        seconds = sync_s(t0)
+        launches = dict(kernels.launches)
+        watch.close()
+        if stats["processed_pages"] != list(range(1, INGEST_PAGES + 1)) or stats["failed_pages"]:
+            fail(f"ingest_pdf ({route}): {stats}")
+        if launches != want_launches:
+            fail(f"ingest_pdf ({route}): launches {launches}, expected {want_launches}")
+        want_calls = (n_batches, 0) if route == "glyph" else (0, n_batches)
+        if (watch.glyph, watch.pixel) != want_calls:
+            fail(f"ingest_pdf ({route}): {watch.glyph} glyph and {watch.pixel} pixel batches, "
+                 f"expected {want_calls}")
+        sims, tokens = [], []
+        for i in range(1, INGEST_PAGES + 1):
+            rec = json.loads((workdir / route / f"page_{i:03d}.json").read_text())
+            if set(rec) != {"page_number", "markdown", "entities", "summary"} or rec["page_number"] != i:
+                fail(f"ingest_pdf ({route}) page {i}: keys {sorted(rec)}")
+            sims.append(markdown_similarity(gold[i - 1], rec))
+            n = len(runner.tok.encode(rec["markdown"])) + len(runner.tok.encode(rec["summary"]))
+            tokens.append(n + sum(len(runner.tok.encode(e)) for e in rec["entities"]) + 3)
+        mean = float(np.mean(sims))
+        out[route] = {"similarity": sims, "mean_similarity": mean, "seconds": seconds,
+                      "pages_per_s": INGEST_PAGES / seconds, "decode_steps": watch.steps,
+                      "launches": launches["flash_attention"]}
+        log(f"ingest_pdf.{route}", seconds, pages_per_s=INGEST_PAGES / seconds, mean_similarity=mean,
+            floor=QUALITY_FLOOR, mean_output_tokens=float(np.mean(tokens)),
+            decode_steps_per_batch=json.dumps(watch.steps), launches=json.dumps(launches),
+            similarity=json.dumps([round(x, 4) for x in sims]))
+        if not mean >= QUALITY_FLOOR:
+            fail(f"ingest_pdf ({route}): mean markdown similarity {mean} < {QUALITY_FLOOR}")
+    if len(list((workdir / "png").glob("page_*.png"))) != INGEST_PAGES:
+        fail("ingest_pdf (pixel): the page PNGs were not all written")
+    # The first batch's pages, drawn by the host at the render dpi, timed by stage.
+    with PdfDocument(pdf) as doc:
+        pages = np.stack([img[..., 0] for img in doc.render_batch(0, INGEST_BATCH - 1, dpi=meta["dpi"])])
+    timing = time_extract_stages(runner, pages, INGEST_MAX_NEW)
+    log("ingest_pdf.timed", timing.pop("seconds"), **timing)
+    log("ingest_pdf.routes", 0.0, **{f"{r}_similarity": json.dumps([round(x, 4) for x in out[r]["similarity"]])
+                                    for r in ("glyph", "pixel")})
+    return {"texts": texts, "gold": gold, "pdf": pdf, "routes": out}
+
+
+def ingest_text_phase(ingest: dict, workdir: Path) -> None:
+    """The same PDF through the text engine: every page JSON is its gold."""
+    t0 = time.perf_counter()
+    stats = extract_pdf_to_page_jsons(ingest["pdf"], workdir / "text", engine="text", batch_size=INGEST_BATCH)
+    seconds = time.perf_counter() - t0
+    recs = [json.loads((workdir / "text" / f"page_{i:03d}.json").read_text())
+            for i in range(1, INGEST_PAGES + 1)]
+    exact = sum(rec == g for rec, g in zip(recs, ingest["gold"]))
+    log("ingest_text", seconds, pages=len(stats["processed_pages"]), exact=exact, pages_per_s=INGEST_PAGES / seconds)
+    if exact != INGEST_PAGES or stats["failed_pages"]:
+        fail(f"ingest_text: {exact} of {INGEST_PAGES} pages equal structure_page; {stats}")
+
+
+def chat_shipped_phase(seed: int, workdir: Path, first_k1: int) -> dict:
+    """answer_question with the default engine over the ingested PDF's pages
+    in an index on the card: it must reach VLMRunner.answer through
+    _get_answer_runner with the shipped ocr_bpe."""
+    embedder = HashNGramEmbedder(EmbedderConfig(), seed=seed, device="cuda")
+    index = VectorIndex(embedder.dim, device="cuda")
+    manifest_path = workdir / "ingest_manifest.json"
+    manifest = ingest_pages_dir(workdir / "text", workdir / "ingest.pdf", INGEST_DOC, manifest_path,
+                                embedder=embedder, store=index)
+    if manifest["failed_pages"] or index.count != INGEST_PAGES:
+        fail(f"chat.shipped: index holds {index.count} rows; failed {manifest['failed_pages']}")
+    resolved = config.resolve_answer_preset()
+    if resolved is None or resolved[0] != "ocr_bpe" or config.resolve_model_preset() == "ocr_bpe":
+        fail(f"chat.shipped: the answer preset resolves to {resolved}, expected the shipped ocr_bpe")
+    calls, steps = [], []
+    orig_answer, orig_generate = VLMRunner.answer, VLMRunner.generate
+
+    def answer(self, *a, **k):
+        calls.append(self)
+        return orig_answer(self, *a, **k)
+
+    def generate(self, *a, **k):
+        toks = orig_generate(self, *a, **k)
+        steps.append(decode_steps(toks))
+        return toks
+
+    qa._ANSWER_RUNNER_CACHE.clear()
+    VLMRunner.answer, VLMRunner.generate = answer, generate
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = answer_question(INGEST_DOC, CHAT_SHIPPED_QUESTION, manifest_path=manifest_path,
+                                 store=index, embedder=embedder)
+        seconds = sync_s(t0)
+        launches = dict(kernels.launches)
+    finally:
+        VLMRunner.answer, VLMRunner.generate = orig_answer, orig_generate
+    runner = qa._ANSWER_RUNNER_CACHE.get(resolved)
+    want = {"flash_attention": first_k1, "masked_similarity": 1}
+    log("chat.shipped", seconds, preset=resolved[0], launches=json.dumps(launches), decode_steps=json.dumps(steps),
+        retrieved=len(result["retrieved"]), answer=json.dumps(result["answer_md"][:200]))
+    if runner is None or calls != [runner]:
+        fail("chat.shipped: the answer did not come from VLMRunner.answer of _get_answer_runner's runner")
+    if launches != want:
+        fail(f"chat.shipped: launches {launches}, expected {want}")
+    if not result["answer_md"].strip() or len(result["retrieved"]) != TOP_K:
+        fail(f"chat.shipped: answer {result['answer_md'][:80]!r}, {len(result['retrieved'])} pages retrieved")
+    return {"launches": launches, "seconds": seconds, "decode_steps": steps}
 
 
 def main() -> int:
@@ -714,12 +963,14 @@ def main() -> int:
         torch=torch.__version__, cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     t0 = time.perf_counter()
-    names = sorted(kernels.launches)
-    with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per kernel, all at once
-        libs = dict(zip(names, pool.map(kernels.build, names)))
-    log("build", time.perf_counter() - t0, **{name: lib.name for name, lib in libs.items()})
-    for name, lib in libs.items():
-        print(f"-- {name}: nvcc -Xptxas -v\n" + lib.with_suffix(".log").read_text().strip(), flush=True)
+    libs = build_phase()
+    log("build", time.perf_counter() - t0, **{name: f"{lib.name}:{sec:.1f}s" for name, (lib, sec) in libs.items()})
+    for name in sorted(kernels.launches):
+        print(f"-- {name}: nvcc -Xptxas -v\n" + libs[name][0].with_suffix(".log").read_text().strip(), flush=True)
+
+    t0 = time.perf_counter()
+    weights_phase()
+    log("weights.all", time.perf_counter() - t0)
 
     shapes = path_shapes(cfg, chat_cfg)
     t0 = time.perf_counter()
@@ -758,8 +1009,21 @@ def main() -> int:
     if not err <= LOGITS_ATOL:
         fail(f"first-step answer logits differ by {err} > {LOGITS_ATOL}")
 
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        t0 = time.perf_counter()
+        ingest = ingest_phase(args.seed, workdir, expected)
+        log("ingest_pdf", sync_s(t0))
+        ingest_text_phase(ingest, workdir)
+        t0 = time.perf_counter()
+        shipped = chat_shipped_phase(args.seed, workdir, expected_chat_launches(shapes)[0])
+        log("chat.shipped.all", sync_s(t0))
+
     def entry(name, source, replaces, rec, **extra):
-        by_path = {"extract": launches[name], "chat": chat_launches[name]}
+        by_path = {"extract": launches[name], "chat": chat_launches[name],
+                   "ingest_pdf": ingest["routes"]["glyph"]["launches"] if name == "flash_attention" else 0,
+                   "ingest_pdf_pixels": ingest["routes"]["pixel"]["launches"] if name == "flash_attention" else 0,
+                   "chat_shipped": shipped["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

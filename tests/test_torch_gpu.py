@@ -1,6 +1,8 @@
 """Tests of the port that need the card: the hand-written kernels against
-their plain versions on CUDA tensors, and the vector index's search on the
-card against the same search on the CPU. They skip without a CUDA device.
+their plain versions on CUDA tensors, the vector index's search and the glyph
+renderer on the card against the same on the CPU, the shipped weights read on
+the card's machine, and /ingest from a PDF on the card. They skip without a
+CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed. On the GPU machine, from the repository root:
@@ -225,3 +227,64 @@ def test_index_search_32_queries_card_equals_cpu(cuda):
         assert [[r["id"] for r in res] for res in got] == [[r["id"] for r in res] for res in want]
         for g, w in zip(got, want):
             assert max(abs(a["score"] - b["score"]) for a, b in zip(g, w)) <= SIM_ATOL
+
+
+def test_shipped_weights_decode_to_the_digests(cuda):
+    """The port's checkpoint reader, built and run on this machine, decodes
+    both shipped checkpoints to the committed per-tensor SHA-256s."""
+    from vision_compression_project_tpu_torch import config
+    from vision_compression_project_tpu_torch.train.checkpoint import load_params, param_digests, shipped_digests
+
+    want = shipped_digests()
+    for preset in ("ocr_real", "ocr_bpe"):
+        ckpt = config.shipped_checkpoint_dir(preset)
+        assert ckpt is not None, f"checkpoints/default/{preset} is missing (see .chiprunignore)"
+        assert param_digests(load_params(ckpt)) == want[preset]
+
+
+def _glyph_pages(tmp_path, dpi):
+    from vision_compression_project_tpu_torch.ops.glyph_render import pack_primitives
+    from vision_compression_project_tpu_torch.raster import PdfDocument, make_pdf
+
+    pdf = make_pdf(["Render Parity\nThe quick brown fox jumps over the lazy dog.\n0123456789 !@#$%^&*()",
+                    "Second Page\nAnother block of text to rasterize faithfully."], tmp_path / "d.pdf")
+    with PdfDocument(pdf) as doc:
+        prims = [doc.page_primitives(i, dpi=dpi) for i in range(2)]
+        h, w = doc.render_page(0, dpi=dpi).shape[:2]
+    return pack_primitives(prims), h, w
+
+
+@pytest.mark.parametrize("dpi", [72, 93, 150])
+def test_glyph_render_card_equals_cpu(cuda, tmp_path, dpi):
+    """The page drawn on the card (bf16 indicator products) equals the page
+    drawn on the CPU (f32), pixel for pixel."""
+    from vision_compression_project_tpu_torch.ops.glyph_render import render_pages_from_glyphs
+
+    arrays, h, w = _glyph_pages(tmp_path, dpi)
+    on_card = render_pages_from_glyphs(*(torch.from_numpy(a).to(cuda) for a in arrays), h=h, w=w)
+    on_cpu = render_pages_from_glyphs(*(torch.from_numpy(a) for a in arrays), h=h, w=w)
+    assert on_card.device.type == "cuda" and (on_cpu < 128).any()
+    assert torch.equal(on_card.cpu(), on_cpu)
+
+
+def test_extract_pdf_on_the_card(cuda, tmp_path):
+    """extract_pdf_to_page_jsons on a 4-page PDF on the card, one batch by
+    glyph transport: 14 flash-attention launches (ocr_real's encoder and
+    prefill), one page JSON with the four keys per page."""
+    import json
+
+    from vision_compression_project_tpu_torch.pipeline.extract import extract_pdf_to_page_jsons
+    from vision_compression_project_tpu_torch.raster import make_pdf
+
+    pdf = make_pdf([f"Page {i}\nThe audit team reviewed {i * 7} samples." for i in range(1, 5)],
+                   tmp_path / "d.pdf", font_size=24)
+    runner = VLMRunner(get_preset("ocr_real"), seed=0, max_new_default=16, device=cuda)
+    kernels.reset_launch_counts()
+    stats = extract_pdf_to_page_jsons(pdf, tmp_path / "pages", dpi=93, engine="vlm", batch_size=4,
+                                      runner=runner, save_images=False)
+    torch.cuda.synchronize()
+    assert kernels.launches == {"flash_attention": 14, "masked_similarity": 0}
+    assert stats == {"pages_total": 4, "processed_pages": [1, 2, 3, 4], "failed_pages": []}
+    for i in range(1, 5):
+        rec = json.loads((tmp_path / "pages" / f"page_{i:03d}.json").read_text())
+        assert set(rec) == {"page_number", "markdown", "entities", "summary"} and rec["page_number"] == i

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of it, and what
-chip_smoke.py imports, loads nothing of JAX, flax, safetensors, triton or
-the JAX package; and asking for the card where there is none raises instead
-of running on the CPU."""
+chip_smoke.py imports, loads nothing of JAX, flax, orbax, tensorstore,
+zstandard, safetensors, triton or the JAX package; building its host
+libraries writes nothing into the JAX package; and asking for the card where
+there is none raises instead of running on the CPU."""
 
 import json
 import subprocess
@@ -17,10 +18,12 @@ _PROBE = r"""
 import importlib, importlib.abc, json, pkgutil, sys
 
 class Blocked(importlib.abc.MetaPathFinder):
-    # Importing JAX, flax, safetensors, triton or the JAX package fails here.
+    # Importing JAX, flax, orbax, tensorstore, zstandard, safetensors, triton
+    # or the JAX package fails here.
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "flax", "safetensors", "triton", "vision_compression_project_tpu"):
+        if top in ("jax", "jaxlib", "flax", "orbax", "tensorstore", "zstandard", "safetensors", "triton",
+                   "vision_compression_project_tpu"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -33,7 +36,7 @@ import chip_smoke
 print(json.dumps(sorted(sys.modules)))
 """
 
-BANNED_PREFIXES = ("jax", "flax", "safetensors", "triton")
+BANNED_PREFIXES = ("jax", "flax", "orbax", "tensorstore", "zstandard", "safetensors", "triton")
 JAX_PACKAGE = "vision_compression_project_tpu"
 
 
@@ -53,10 +56,38 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     for name in (
         "models.vlm", "models.embedder", "ops.topk", "index.vector_index", "index.store",
         "pipeline.ingest", "pipeline.aggregate", "pipeline.qa", "config", "utils.metrics",
-        "utils.json_utils",
+        "utils.json_utils", "native", "train.ocdbt", "train.checkpoint", "train.pages",
+        "raster.rasterizer", "raster.pdfgen", "raster.ttf", "pipeline.textmd", "ops.glyph_render",
+        "pipeline.extract",
     ):
         assert f"vision_compression_project_tpu_torch.{name}" in modules
     assert [m for m in modules if _banned(m)] == []
+
+
+def _tree_state(root):
+    return sorted((str(p.relative_to(root)), p.stat().st_size, p.stat().st_mtime_ns)
+                  for p in root.rglob("*") if p.is_file() and "__pycache__" not in p.parts)
+
+
+def test_building_the_host_libraries_writes_only_into_the_port(tmp_path, monkeypatch):
+    """Both g++ libraries build from the port's own sources into the port's
+    build directory, and the JAX package's tree is left as it was, its own
+    engine library included. The zstd library builds afresh (into a new
+    directory); the PDF engine builds where the other tests load it from."""
+    from vision_compression_project_tpu_torch import native
+    from vision_compression_project_tpu_torch.raster import rasterizer
+
+    port_build = native.BUILD_DIR
+    assert port_build == REPO / "vision_compression_project_tpu_torch" / "_build"
+    assert rasterizer._CPP_DIR == REPO / "vision_compression_project_tpu_torch" / "raster" / "cpp"
+    jax_package = REPO / JAX_PACKAGE
+    before = _tree_state(jax_package)
+    engine = rasterizer.build_library()
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "_build")
+    fresh = native.build_zstd()
+    assert engine.parent == port_build and fresh.parent == tmp_path / "_build"
+    assert engine.exists() and fresh.exists()
+    assert _tree_state(jax_package) == before
 
 
 def test_banned_name_matching_is_exact():

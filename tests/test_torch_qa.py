@@ -9,6 +9,7 @@ Pallas scoring kernel in interpret mode; the port runs on the CPU, where both
 kernels take their plain versions.
 """
 
+import dataclasses
 import inspect
 import itertools
 import json
@@ -16,7 +17,9 @@ import re
 
 import jax.numpy as jnp
 import numpy as np
+import orbax.checkpoint as ocp
 import pytest
+import torch
 
 from vision_compression_project_tpu import config as jconfig
 from vision_compression_project_tpu.index import store as jstore
@@ -25,7 +28,9 @@ from vision_compression_project_tpu.models import embedder as jemb
 from vision_compression_project_tpu.models import tokenizer as jtok
 from vision_compression_project_tpu.models import vlm as jvlm
 from vision_compression_project_tpu.pipeline import ingest as jingest
+from vision_compression_project_tpu.models import configs as jconfigs
 from vision_compression_project_tpu.pipeline import qa as jqa
+from vision_compression_project_tpu.train import checkpoint as jckpt
 from vision_compression_project_tpu.train.data import _synthetic_agg_qa_example
 from vision_compression_project_tpu_torch import config as tconfig
 from vision_compression_project_tpu_torch.index import store as tstore
@@ -34,7 +39,9 @@ from vision_compression_project_tpu_torch.models import embedder as temb
 from vision_compression_project_tpu_torch.models import tokenizer as ttok
 from vision_compression_project_tpu_torch.models import vlm as tvlm
 from vision_compression_project_tpu_torch.pipeline import ingest as tingest
+from vision_compression_project_tpu_torch.models import configs as tconfigs
 from vision_compression_project_tpu_torch.pipeline import qa as tqa
+from vision_compression_project_tpu_torch.train import checkpoint as tckpt
 from vision_compression_project_tpu_torch.weights import params_from_jax
 
 from test_torch_slice import BF16_LOGITS_ATOL
@@ -196,10 +203,68 @@ def test_not_found_on_empty_index_and_missing_doc(tmp_path, embedders, same_memo
     assert got == want == {"answer_md": tqa.NOT_FOUND, "retrieved": []}
 
 
-def test_lm_without_a_runner_raises(tmp_path, embedders, same_memory_ids):
+def test_lm_without_a_runner_raises(tmp_path, embedders, same_memory_ids, monkeypatch):
+    """Engine 'lm' with no runner loads the shipped answer model on the
+    card, the entry points' default device; without a card that raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    monkeypatch.setattr(tqa, "_ANSWER_RUNNER_CACHE", {})
     both = _ingest_both(tmp_path, prose_pages(4, 3), embedders)
-    with pytest.raises(RuntimeError, match="runner"):
+    with pytest.raises(RuntimeError, match="cuda"):
         tqa.answer_question(DOC, "What was stored?", store=both[1][0], embedder=embedders[1], engine="lm")
+
+
+@pytest.fixture
+def cpu_entry_points(monkeypatch):
+    """The entry points' own runners on the CPU, built afresh."""
+    monkeypatch.setattr(tconfig, "RUNTIME", dataclasses.replace(tconfig.RUNTIME, device="cpu"))
+    monkeypatch.setattr(tqa, "_ANSWER_RUNNER_CACHE", {})
+
+
+def test_answer_runner_is_the_shipped_ocr_bpe(cpu_entry_points):
+    """Fault 1: in the repo tree the answer model resolves to the shipped
+    ocr_bpe, and the port loads it with the checkpoint's weights."""
+    runner = tqa._get_answer_runner()
+    assert runner.cfg == tconfigs.get_preset("ocr_bpe") and tqa._get_answer_runner() is runner
+    restored = ocp.StandardCheckpointer().restore(jckpt.latest_params(tconfig.shipped_checkpoint_dir("ocr_bpe")))
+    state = runner.model.state_dict()
+    for name, value in params_from_jax(restored).items():
+        assert torch.equal(state[name], value), name
+
+
+def test_default_engine_answers_with_the_shipped_ocr_bpe(tmp_path, embedders, same_memory_ids,
+                                                        cpu_entry_points, monkeypatch):
+    """Fault 1: answer_question with the default engine no longer raises; it
+    answers through VLMRunner.answer of the shipped ocr_bpe."""
+    both = _ingest_both(tmp_path, prose_pages(9, 6), embedders)
+    calls = []
+    answer = tvlm.VLMRunner.answer
+    monkeypatch.setattr(tvlm.VLMRunner, "answer",
+                        lambda self, *a, **k: calls.append(self.cfg) or answer(self, *a, max_new=16))
+    # The engine's default, "auto" (tests/conftest.py sets "extractive" for every test).
+    monkeypatch.setattr(tqa, "RUNTIME", dataclasses.replace(tqa.RUNTIME, answer_engine="auto"))
+    got = tqa.answer_question(DOC, "What did the audit team review?", store=both[1][0], embedder=embedders[1])
+    assert calls == [tconfigs.get_preset("ocr_bpe")]
+    assert len(got["retrieved"]) == 6 and got["answer_md"].strip()
+
+
+def test_shipped_ocr_bpe_answers_equal_in_f32(monkeypatch):
+    """Both packages' load_runner on the shipped ocr_bpe, the config's dtype
+    set to f32 on both sides: the same answer text over one evidence pack."""
+    monkeypatch.setenv("VCP_FORCE_XLA_ATTENTION", "1")
+
+    def f32(cfg):
+        return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, dtype="float32"),
+                                   decoder=dataclasses.replace(cfg.decoder, dtype="float32"))
+
+    ckpt = tconfig.shipped_checkpoint_dir("ocr_bpe")
+    jr = jckpt.load_runner(f32(jconfigs.get_preset("ocr_bpe")), ckpt)
+    tr = tckpt.load_runner(f32(tconfigs.get_preset("ocr_bpe")), ckpt, device="cpu")
+    pack = "\n\n---\n\n".join(f"[Page {i} | memory_id=mem{i:06d}]\n{text}"
+                                for i, text in enumerate(prose_pages(10, 4), 1))
+    question = "What did the billing service process?"
+    got = tr.answer(question, pack, max_new=40)
+    assert got == jr.answer(question, pack, max_new=40) and got.strip()
 
 
 @pytest.fixture(scope="module")

@@ -1,7 +1,7 @@
-"""The port's own copy of the configuration that the `/chat` path reads, from
-vision_compression_project_tpu/config.py: the request-surface defaults, the
-runtime fields the path reads (overridable through the environment) and the
-shipped-checkpoint resolution of the answer model.
+"""The port's own copy of the configuration that `/ingest` and `/chat` read,
+from vision_compression_project_tpu/config.py: the request-surface defaults,
+the runtime fields the paths read (overridable through the environment) and
+the shipped-checkpoint resolution of the extraction and answer models.
 
 Loading `.env` files is not ported yet: the environment is read as it is.
 """
@@ -41,6 +41,8 @@ def _env_int(name: str, default: int) -> int:
 class RuntimeConfig:
     """Process-wide runtime knobs, overridable via environment."""
 
+    # Extraction engine: "auto" (text layer if present, else vlm), "text", "vlm".
+    extract_engine: str = _env_str("VCP_EXTRACT_ENGINE", "auto")
     # Answering engine: "auto", "analytic", "extractive", "lm".
     answer_engine: str = _env_str("VCP_ANSWER_ENGINE", "auto")
     # Retrieval mode: "single" (one pooled vector per page); "multi" is not ported yet.
@@ -52,7 +54,12 @@ class RuntimeConfig:
     # Model preset for extraction; "auto" = the best shipped preset.
     model_preset: str = _env_str("VCP_MODEL_PRESET", "auto")
     checkpoint_dir: Optional[str] = os.environ.get("VCP_CHECKPOINT_DIR")
+    # Device batch size for page extraction.
+    extract_batch_size: int = _env_int("VCP_EXTRACT_BATCH", 16)
     index_root: str = _env_str("VCP_INDEX_ROOT", "tmp/_index")
+    # Device of the runners the entry points build themselves (extraction's
+    # and the answer model's): the card unless the caller asks for "cpu".
+    device: str = _env_str("VCP_DEVICE", "cuda")
 
 
 RUNTIME = RuntimeConfig()
@@ -85,6 +92,11 @@ def resolve_model_preset() -> str:
         if shipped_checkpoint_dir(name):
             return name
     return "tiny"
+
+
+def resolve_checkpoint_dir(preset: str) -> Optional[str]:
+    """Explicit VCP_CHECKPOINT_DIR wins; else the shipped checkpoint."""
+    return RUNTIME.checkpoint_dir or shipped_checkpoint_dir(preset)
 
 
 def resolve_answer_preset() -> Optional[tuple]:

@@ -3,9 +3,12 @@ that turns page rasters into page-JSON dicts by greedy decoding. The port of
 vision_compression_project_tpu/models/vlm.py (OpticalVLM, _task_logit_mask,
 VLMRunner's extraction and answer paths).
 
-Extraction: the decoder emits `markdown <SEP> summary <SEP> entity (<US>
-entity)* <EOS>`; the host splits the tokens into {page_number, markdown,
-entities, summary}. Answering: the decoder reads `BOS TASK_ANSWER question
+Extraction takes page pixels (`extract_batch`, `extract_batch_async`) or a
+page's glyphs and rects, drawn on the device first
+(`extract_batch_async_glyphs`, ops/glyph_render.py); `collect_extract` turns
+a batch's tokens into page dicts. The decoder emits `markdown <SEP> summary
+<SEP> entity (<US> entity)* <EOS>`; the host splits the tokens into
+{page_number, markdown, entities, summary}. Answering: the decoder reads `BOS TASK_ANSWER question
 SEP evidence SEP` behind a blank page's vision tokens and emits the answer's
 text up to EOS.
 """
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..ops.glyph_render import pack_primitives, render_pages_from_glyphs
 from ..ops.preprocess import preprocess_pages
 from .configs import VLMConfig
 from .decoder import Decoder
@@ -135,20 +139,24 @@ class VLMRunner:
     """Owns the model and presents batched page extraction and answering.
 
     Weights are seeded random unless `params` (a state_dict, e.g. from
-    `weights.params_from_jax`) is given. Runs on `device`, "cuda" unless the
-    caller asks for "cpu"."""
+    `weights.params_from_jax` or `train.checkpoint.load_runner`) is given.
+    Runs on `device`, "cuda" unless the caller asks for "cpu". Extraction and
+    answers decode at most `max_new_default` tokens unless a call asks for
+    another bound."""
 
     def __init__(
         self,
         cfg: VLMConfig,
         params: Optional[Dict[str, torch.Tensor]] = None,
         seed: int = 0,
+        max_new_default: int = MAX_NEW,
         device: Union[str, torch.device] = "cuda",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VLMRunner: device 'cuda' asked for, but no CUDA device is available")
         self.cfg = cfg
+        self.max_new_default = max_new_default
         self.tok = get_tokenizer(cfg)
         model = OpticalVLM(cfg)
         if params is None:
@@ -166,11 +174,14 @@ class VLMRunner:
         return self._masks[task]
 
     @torch.inference_mode()
-    def preprocess_patches(self, pages_u8: np.ndarray) -> torch.Tensor:
-        """uint8 pages -> bf16 patch tokens (bf16 whatever the model dtype, as
-        in the reference)."""
+    def preprocess_patches(self, pages_u8: Union[np.ndarray, torch.Tensor]) -> torch.Tensor:
+        """uint8 pages (host array or tensor) -> bf16 patch tokens (bf16
+        whatever the model dtype, as in the reference)."""
         cfg = self.cfg.vision
-        pages = torch.as_tensor(np.ascontiguousarray(pages_u8)).to(self.device)
+        if isinstance(pages_u8, torch.Tensor):
+            pages = pages_u8.to(self.device)
+        else:
+            pages = torch.as_tensor(np.ascontiguousarray(pages_u8)).to(self.device)
         return preprocess_pages(
             pages, target_h=cfg.image_size, target_w=cfg.image_size, patch=cfg.patch
         )
@@ -255,21 +266,50 @@ class VLMRunner:
             result.append([t for t in row if t != PAD_ID])
         return result
 
-    def extract_batch(
-        self, pages_u8: np.ndarray, page_numbers: List[int], max_new: int = MAX_NEW
-    ) -> List[Dict]:
-        """(B, H, W), (B, H, W, 1) or (B, H, W, 3) uint8 pages -> one
-        {page_number, markdown, entities, summary} dict per page number."""
+    def extract_batch_async(
+        self, pages_u8: np.ndarray, page_numbers: List[int], max_new: Optional[int] = None
+    ):
+        """Encode and decode one batch of (B, H, W), (B, H, W, 1) or
+        (B, H, W, 3) uint8 pages; returns a handle for `collect_extract`. The
+        batch may be padded past `page_numbers`: collect_extract keeps one
+        record per page number."""
         vis = self.encode(self.preprocess_patches(pages_u8))
         prompts = [[BOS_ID, TASK_EXTRACT_ID]] * int(pages_u8.shape[0])
-        sequences = self._collect_tokens(self.generate(prompts, vis, max_new))
+        return self.generate(prompts, vis, max_new or self.max_new_default), list(page_numbers)
+
+    def extract_batch_async_glyphs(
+        self, primitives, render_hw: Tuple[int, int], page_numbers: List[int],
+        max_new: Optional[int] = None,
+    ):
+        """The glyph-transport variant: pages arrive as (glyphs, rects) from
+        `PdfDocument.page_primitives` and are drawn at (h, w) = render_hw on
+        the device (ops/glyph_render.py) before the same encode and decode."""
+        h, w = render_hw
+        arrays = [torch.from_numpy(a).to(self.device) for a in pack_primitives(primitives)]
+        with torch.inference_mode():
+            pages_gray = render_pages_from_glyphs(*arrays, h=h, w=w)
+        vis = self.encode(self.preprocess_patches(pages_gray))
+        prompts = [[BOS_ID, TASK_EXTRACT_ID]] * len(primitives)
+        return self.generate(prompts, vis, max_new or self.max_new_default), list(page_numbers)
+
+    def collect_extract(self, handle) -> List[Dict]:
+        """A batch's tokens -> one {page_number, markdown, entities, summary}
+        dict per page number."""
+        toks, page_numbers = handle
         out = []
-        for page_no, seq in zip(page_numbers, sequences):
+        for page_no, seq in zip(page_numbers, self._collect_tokens(toks)):
             markdown, summary, entities = self._split_fields(seq)
             out.append(
                 {"page_number": page_no, "markdown": markdown, "entities": entities, "summary": summary}
             )
         return out
+
+    def extract_batch(
+        self, pages_u8: np.ndarray, page_numbers: List[int], max_new: Optional[int] = None
+    ) -> List[Dict]:
+        """(B, H, W), (B, H, W, 1) or (B, H, W, 3) uint8 pages -> one
+        {page_number, markdown, entities, summary} dict per page number."""
+        return self.collect_extract(self.extract_batch_async(pages_u8, page_numbers, max_new))
 
     def _split_fields(self, seq: List[int]) -> Tuple[str, str, List[str]]:
         parts: List[List[int]] = [[]]
@@ -323,9 +363,9 @@ class VLMRunner:
         plen_bucketed = -(-len(prompt) // PROMPT_BUCKET) * PROMPT_BUCKET
         return prompt, min(max_new, max_seq - vis_len - plen_bucketed)
 
-    def answer(self, question: str, evidence_pack: str, max_new: int = MAX_NEW) -> str:
+    def answer(self, question: str, evidence_pack: str, max_new: Optional[int] = None) -> str:
         """Greedy answer text for a question over an evidence pack."""
-        prompt, bound = self.answer_prompt(question, evidence_pack, max_new)
+        prompt, bound = self.answer_prompt(question, evidence_pack, max_new or self.max_new_default)
         toks = self.generate([prompt], self._blank_vision(), bound, task="answer")
         # decode() skips ids with no byte expansion (specials).
         return self.tok.decode(self._collect_tokens(toks)[0])

@@ -13,8 +13,8 @@ pipeline/aggregate.py), 'extractive' (evidence sentences ranked by embedding
 similarity, composed into cited markdown) and 'lm' (the decoder,
 `VLMRunner.answer`). 'auto' tries analytic first for aggregation-shaped
 questions, then 'lm' when a shipped checkpoint declares answer-task training,
-else 'extractive'. The port has no reader of the shipped checkpoints yet, so
-'lm' needs an injected `runner`.
+else 'extractive'. 'lm' uses an injected `runner`, else the shipped
+answer-trained checkpoint's (`_get_answer_runner`, on the card).
 """
 
 from __future__ import annotations
@@ -46,14 +46,27 @@ def lm_answer_available() -> bool:
     return config.resolve_answer_preset() is not None
 
 
+_ANSWER_RUNNER_CACHE: Dict[tuple, object] = {}
+
+
 def _get_answer_runner():
-    """The runner that serves generated answers when none is injected. The
-    port cannot read the shipped checkpoints yet, so there is none."""
-    raise RuntimeError(
-        "engine 'lm' needs a runner: the port has no reader of the shipped "
-        "checkpoints yet (ROADMAP.md, queue 1: the orbax reader); pass "
-        "runner=VLMRunner(...) to answer_question"
-    )
+    """The runner serving generated answers: the extraction runner when its
+    preset is the answer preset, else a runner of the best answer-trained
+    shipped checkpoint, built once per (preset, checkpoint) on RUNTIME.device."""
+    from .extract import _get_runner
+
+    resolved = config.resolve_answer_preset()
+    if resolved is None:
+        return _get_runner()  # engine forced to 'lm': use what serves extraction
+    preset, ckpt = resolved
+    if preset == config.resolve_model_preset():
+        return _get_runner()
+    if resolved not in _ANSWER_RUNNER_CACHE:
+        from ..models import get_preset
+        from ..train.checkpoint import load_runner
+
+        _ANSWER_RUNNER_CACHE[resolved] = load_runner(get_preset(preset), ckpt, device=config.RUNTIME.device)
+    return _ANSWER_RUNNER_CACHE[resolved]
 
 
 def _extract_result_info(result, manifest: Optional[Dict]):
