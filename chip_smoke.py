@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: page
 extraction with ocr_real, /chat (retrieval and a cited answer) with the hash
-embedder and ocr_bpe, and /ingest from a PDF with the shipped weights.
+embedder and ocr_bpe, /ingest from a PDF with the shipped weights, and the
+HTTP service with its command line.
 
     python3 chip_smoke.py [--seed N]
 
@@ -54,7 +55,23 @@ with the port's own reader. One flushed line per phase, with seconds:
   ingest_text  the same PDF with engine="text": every page JSON equals its gold;
   chat.shipped  those pages ingested into an index on the card, then
            answer_question with the default engine, which must answer through
-           _get_answer_runner's shipped ocr_bpe with exact launch counts.
+           _get_answer_runner's shipped ocr_bpe with exact launch counts;
+  serve    the port's HTTP server as a deployment runs it: a child process
+           (this script with --serve-child) started with VCP_EXTRACT_ENGINE=vlm
+           and VCP_TMP_DIR / VCP_INDEX_ROOT under the work dir, default presets
+           (shipped ocr_real reads, shipped ocr_bpe answers), calls
+           create_server on 127.0.0.1 at a free port, serves on a thread with
+           the background warm-up, and zeroes or prints its launch counts when
+           this process asks on its stdin. Over real sockets: /health while the
+           warm-up runs, /, OPTIONS /ingest, /ui, a non-PDF upload (400) and
+           /chat without a question (422); POST /ingest of the 16-page PDF at
+           dpi 93 (14 x ceil(16 / VCP_EXTRACT_BATCH) K1 launches, similarity
+           >= 0.8, pages/s, pages equal to ingest_pdf's pixel route); three
+           /chat questions (K2 1, K1 6 then 4) and the first again; four
+           concurrent /chat requests (retrieval equal to one at a time);
+           /metrics; the UI's upload (file only, so dpi 150: its similarity,
+           no floor); then `python -m vision_compression_project_tpu_torch.
+           scripts.serve` answering /health, and every child stopped.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -68,11 +85,16 @@ import argparse
 import dataclasses
 import difflib
 import functools
+import http.client
 import json
+import os
+import queue
 import re
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -102,6 +124,8 @@ from vision_compression_project_tpu_torch.pipeline.qa import _build_evidence_pac
 from vision_compression_project_tpu_torch.pipeline.textmd import structure_page
 from vision_compression_project_tpu_torch.raster import PdfDocument, make_pdf
 from vision_compression_project_tpu_torch.raster.rasterizer import build_library as build_raster
+from vision_compression_project_tpu_torch.serve.httpd import API_INFO, CORS_HEADERS, create_server, warmup
+from vision_compression_project_tpu_torch.serve.ui import UI_HTML
 from vision_compression_project_tpu_torch.train.checkpoint import (
     load_params, load_runner, param_digests, shipped_digests,
 )
@@ -940,13 +964,311 @@ def chat_shipped_phase(seed: int, workdir: Path, first_k1: int) -> dict:
     return {"launches": launches, "seconds": seconds, "decode_steps": steps}
 
 
+# [serve]: the port's HTTP server as a deployment runs it, in a child process
+# whose launch counts the phase reads; the questions are not aggregation-
+# shaped, so the default engine answers them with the shipped ocr_bpe.
+SERVE_QUESTIONS = (
+    "What did the audit team review?",
+    "What did the night shift reject?",
+    "What did the billing service process?",
+)
+SERVE_TIMEOUT_S = 600  # one HTTP request, or the child's answer on its stdin
+CLI_HEALTH_TIMEOUT_S = 180  # the command line's server answering /health
+
+
+def serve_child() -> int:
+    """--serve-child: the port's server on 127.0.0.1 at a free port in this
+    process, its background warm-up as serve_forever starts it, and a control
+    channel on stdin: "reset" zeroes the launch counts, "counts" prints them
+    (after a device synchronise), "stop" shuts the server down."""
+    server = create_server("127.0.0.1", 0)
+    threading.Thread(target=warmup, args=(server.vcp_state,), daemon=True).start()
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    print(f"port {server.server_address[1]}", flush=True)
+    for line in sys.stdin:
+        cmd = line.strip()
+        if cmd == "stop":
+            break
+        torch.cuda.synchronize()
+        if cmd == "reset":
+            kernels.reset_launch_counts()
+        print(f"{cmd} {json.dumps(kernels.launches)}", flush=True)
+    server.shutdown()
+    server.server_close()
+    return 0
+
+
+class ServeChild:
+    """This script with --serve-child, in `env`; its stderr goes to a log."""
+
+    def __init__(self, env: dict, log_path: Path):
+        self.log_path = log_path
+        self._log = open(log_path, "w")
+        self.proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--serve-child"],
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=self._log,
+                                     text=True, env=env)
+        self._lines: "queue.Queue[str]" = queue.Queue()
+        threading.Thread(target=self._read, daemon=True).start()
+        self.port = int(self._line("port"))
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self._lines.put(line.strip())
+        self._lines.put("")  # end of output
+
+    def _line(self, prefix: str) -> str:
+        try:
+            line = self._lines.get(timeout=SERVE_TIMEOUT_S)
+        except queue.Empty:
+            line = ""
+        if not line.startswith(prefix + " "):
+            self.fail(f"expected a '{prefix}' line from the server process, got {line!r}")
+        return line[len(prefix) + 1:]
+
+    def command(self, cmd: str) -> dict:
+        self.proc.stdin.write(cmd + "\n")
+        self.proc.stdin.flush()
+        return json.loads(self._line(cmd))
+
+    def tail(self) -> str:
+        self._log.flush()
+        return self.log_path.read_text()[-3000:]
+
+    def fail(self, msg: str) -> None:
+        self.stop()
+        fail(f"{msg}\n-- server process log (tail):\n{self.tail()}")
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.write("stop\n")
+                self.proc.stdin.flush()
+                self.proc.wait(timeout=60)
+            except (OSError, subprocess.TimeoutExpired):
+                self.proc.kill()
+                self.proc.wait()
+        self._log.close()
+
+
+def request(port: int, method: str, path: str, body: bytes = None, headers: dict = None):
+    """(status, headers, body bytes) of one request to 127.0.0.1:port."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_TIMEOUT_S)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def multipart(filename: str, data: bytes, fields: dict = None):
+    """(body, headers) of a form with the fields and one 'file' part."""
+    boundary = "----chipsmoke7MA4YWxkTrZu0gW"
+    parts = [f'--{boundary}\r\nContent-Disposition: form-data; name="{k}"\r\n\r\n{v}\r\n'.encode()
+             for k, v in (fields or {}).items()]
+    parts.append(f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="{filename}"\r\n'
+                 f"Content-Type: application/pdf\r\n\r\n".encode() + data + b"\r\n")
+    parts.append(f"--{boundary}--\r\n".encode())
+    return b"".join(parts), {"Content-Type": f"multipart/form-data; boundary={boundary}"}
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_phase(ingest: dict, workdir: Path, k1_per_batch: int, chat_k1: tuple) -> dict:
+    """The port's server in a child process, driven over real sockets; then
+    its command line. Returns the launches of the sequential requests and
+    the numbers printed."""
+    env = {**os.environ, "VCP_EXTRACT_ENGINE": "vlm", "VCP_TMP_DIR": str(workdir / "serve_tmp"),
+           "VCP_INDEX_ROOT": str(workdir / "serve_index")}
+    base_tmp = Path(env["VCP_TMP_DIR"])
+    k1_ingest = k1_per_batch * -(-INGEST_PAGES // int(env.get("VCP_EXTRACT_BATCH", "16")))
+    pdf_bytes = Path(ingest["pdf"]).read_bytes()
+    t0 = time.perf_counter()
+    child = ServeChild(env, workdir / "serve_child.log")
+    total = {name: 0 for name in kernels.launches}
+    out = {}
+    try:
+        status, _, body = request(child.port, "GET", "/health")
+        log("serve.start", time.perf_counter() - t0, port=child.port, health=status, body=json.dumps(body.decode()))
+        if (status, body) != (200, b'{"ok": true}'):
+            child.fail(f"GET /health: {status} {body[:200]!r}")
+
+        def expect(name, got, want, detail=""):
+            if got != want:
+                child.fail(f"{name}: got {got!r}, expected {want!r} {detail}")
+
+        status, _, body = request(child.port, "GET", "/")
+        expect("GET /", (status, json.loads(body)), (200, API_INFO))
+        status, headers, body = request(child.port, "OPTIONS", "/ingest")
+        expect("OPTIONS /ingest", (status, {k: headers.get(k) for k in CORS_HEADERS}), (200, CORS_HEADERS))
+        status, headers, body = request(child.port, "GET", "/ui")
+        expect("GET /ui", (status, headers.get("Content-Type"), body),
+               (200, "text/html; charset=utf-8", UI_HTML.encode()))
+        status, _, body = request(child.port, "POST", "/ingest", *multipart("notes.txt", b"plain text"))
+        expect("non-PDF upload", (status, json.loads(body)), (400, {"detail": "File must be a PDF"}))
+        status, _, body = request(child.port, "POST", "/chat", b'{"doc_id": "x"}',
+                                  {"Content-Type": "application/json"})
+        errors = json.loads(json.loads(body)["detail"]) if status == 422 else []
+        expect("/chat without question", (status, [(e["type"], e["loc"]) for e in errors]),
+               (422, [("missing", ["question"])]), body[:300])
+        log("serve.endpoints", 0.0, checked="/health / OPTIONS /ui 400 422")
+
+        def ingest_pdf(fields: dict, route: str):
+            """POST /ingest of the check PDF, launch counts read around it;
+            the page JSONs' similarity to the gold."""
+            child.command("reset")
+            t0 = time.perf_counter()
+            status, _, body = request(child.port, "POST", "/ingest", *multipart("ingest.pdf", pdf_bytes, fields))
+            seconds = time.perf_counter() - t0
+            launches = child.command("counts")
+            if status != 200:
+                child.fail(f"POST /ingest ({route}): {status} {body[:300]!r}")
+            resp = json.loads(body)
+            expect(f"/ingest ({route}) keys", list(resp),
+                   ["doc_id", "pages_total", "pages_ingested", "failed_pages", "manifest_path"])
+            expect(f"/ingest ({route}) pages", (resp["pages_total"], resp["pages_ingested"], resp["failed_pages"]),
+                   (INGEST_PAGES, INGEST_PAGES, []))
+            expect(f"/ingest ({route}) launches", launches, {"flash_attention": k1_ingest, "masked_similarity": 0})
+            pages = base_tmp / resp["doc_id"] / "pages"
+            recs = [json.loads((pages / f"page_{i:03d}.json").read_text()) for i in range(1, INGEST_PAGES + 1)]
+            sims = [markdown_similarity(g, r) for g, r in zip(ingest["gold"], recs)]
+            for name, n in launches.items():
+                total[name] += n
+            return resp, seconds, launches, sims
+
+        resp, seconds, launches, sims = ingest_pdf({"dpi": str(config.shipped_meta("ocr_real")["dpi"])}, "dpi 93")
+        doc_id, mean = resp["doc_id"], float(np.mean(sims))
+        pixel = [workdir / "pixel" / f"page_{i:03d}.json" for i in range(1, INGEST_PAGES + 1)]
+        served = [base_tmp / doc_id / "pages" / f"page_{i:03d}.json" for i in range(1, INGEST_PAGES + 1)]
+        equal_bytes = sum(a.read_bytes() == b.read_bytes() for a, b in zip(served, pixel))
+        equal_markdown = sum(json.loads(a.read_text())["markdown"] == json.loads(b.read_text())["markdown"]
+                             for a, b in zip(served, pixel))
+        out["ingest"] = {"seconds": seconds, "pages_per_s": INGEST_PAGES / seconds, "mean_similarity": mean}
+        log("serve.ingest", seconds, dpi=93, pages_per_s=INGEST_PAGES / seconds, mean_similarity=mean,
+            floor=QUALITY_FLOOR, launches=json.dumps(launches), pages_equal_to_ingest_pdf_pixels=equal_bytes,
+            markdown_equal_to_ingest_pdf_pixels=equal_markdown, similarity=json.dumps([round(x, 4) for x in sims]))
+        if not mean >= QUALITY_FLOOR:
+            child.fail(f"/ingest at dpi 93: mean markdown similarity {mean} < {QUALITY_FLOOR}")
+
+        def chat(question: str):
+            payload = json.dumps({"doc_id": doc_id, "question": question}).encode()
+            t0 = time.perf_counter()
+            status, _, body = request(child.port, "POST", "/chat", payload, {"Content-Type": "application/json"})
+            seconds = time.perf_counter() - t0
+            if status != 200:
+                child.fail(f"POST /chat {question!r}: {status} {body[:300]!r}")
+            resp = json.loads(body)
+            expect("/chat keys", list(resp), ["doc_id", "answer_md", "retrieved"])
+            expect("/chat doc_id", resp["doc_id"], doc_id)
+            expect("/chat retrieved", [list(r) for r in resp["retrieved"]], [["page", "memory_id", "excerpt"]] * TOP_K)
+            if not isinstance(resp["answer_md"], str) or not resp["answer_md"].strip():
+                child.fail(f"/chat {question!r}: empty answer")
+            return resp, seconds
+
+        sequential = {}
+        for i, question in enumerate(SERVE_QUESTIONS + SERVE_QUESTIONS[:1]):
+            child.command("reset")
+            resp, seconds = chat(question)
+            launches = child.command("counts")
+            for name, n in launches.items():
+                total[name] += n
+            expect(f"/chat {i} launches", launches,
+                   {"flash_attention": chat_k1[0] if i == 0 else chat_k1[1], "masked_similarity": 1})
+            if i < len(SERVE_QUESTIONS):
+                sequential[question] = resp
+                out.setdefault("chat_s", []).append(seconds)
+                log("serve.chat", seconds, question=i, launches=json.dumps(launches),
+                    answer=json.dumps(resp["answer_md"][:120]))
+            else:
+                first = sequential[question]
+                out["repeat_equal"] = resp["answer_md"] == first["answer_md"]
+                log("serve.chat_again", seconds, question=0, launches=json.dumps(launches),
+                    answer_equal=out["repeat_equal"], retrieved_equal=resp["retrieved"] == first["retrieved"],
+                    answer=json.dumps(resp["answer_md"][:120]))
+
+        t0 = time.perf_counter()
+        concurrent = SERVE_QUESTIONS + SERVE_QUESTIONS[:1]
+        with ThreadPoolExecutor(len(concurrent)) as pool:
+            results = list(pool.map(chat, concurrent))
+        seconds = time.perf_counter() - t0
+        for question, (resp, _) in zip(concurrent, results):
+            expect(f"concurrent /chat {question!r} retrieved", resp["retrieved"], sequential[question]["retrieved"])
+        log("serve.concurrent", seconds, requests=len(concurrent), latencies_s=json.dumps([s for _, s in results]),
+            answers_equal_to_sequential=json.dumps([r["answer_md"] == sequential[q]["answer_md"]
+                                                    for q, (r, _) in zip(concurrent, results)]))
+
+        status, _, body = request(child.port, "GET", "/metrics")
+        metrics = json.loads(body)
+        n_questions = len(SERVE_QUESTIONS) + 1 + len(concurrent)
+        expect("/metrics", (status, {k: metrics["timers"].get(k, {}).get("count") for k in
+                                     ("extract.batch", "ingest.batch", "qa.retrieve")},
+                            {k: metrics["counters"].get(k) for k in ("extract.pages", "ingest.pages", "qa.queries")}),
+               (200, {"extract.batch": -(-INGEST_PAGES // int(env.get("VCP_EXTRACT_BATCH", "16"))),
+                      "ingest.batch": 1, "qa.retrieve": n_questions},
+                {"extract.pages": INGEST_PAGES, "ingest.pages": INGEST_PAGES, "qa.queries": n_questions}))
+        log("serve.metrics", 0.0, timers=json.dumps(metrics["timers"]), counters=json.dumps(metrics["counters"]),
+            pages_per_sec=metrics.get("pages_per_sec"), http_pages_per_s=out["ingest"]["pages_per_s"])
+        # extract.batch must time the decode (the port decodes inside the
+        # dispatch), so its rate stays within 10x of the request's.
+        if not metrics.get("pages_per_sec", 0) <= 10 * out["ingest"]["pages_per_s"]:
+            child.fail(f"/metrics pages_per_sec {metrics.get('pages_per_sec')} against "
+                       f"{out['ingest']['pages_per_s']} pages/s over HTTP")
+
+        _, seconds, launches, sims = ingest_pdf({}, "file only, dpi 150")
+        out["ui_upload"] = {"seconds": seconds, "mean_similarity": float(np.mean(sims))}
+        log("serve.ui_upload", seconds, dpi=150, pages_per_s=INGEST_PAGES / seconds,
+            mean_similarity=float(np.mean(sims)), launches=json.dumps(launches),
+            similarity=json.dumps([round(x, 4) for x in sims]))
+    finally:
+        child.stop()
+
+    # The command line, as a user starts it.
+    port = free_port()
+    cli_log = workdir / "serve_cli.log"
+    with open(cli_log, "w") as log_file:
+        proc = subprocess.Popen([sys.executable, "-m", "vision_compression_project_tpu_torch.scripts.serve",
+                                 "--host", "127.0.0.1", "--port", str(port)], env=env, stdout=log_file,
+                                stderr=subprocess.STDOUT, cwd=Path(__file__).resolve().parent)
+        t0 = time.perf_counter()
+        health = None
+        try:
+            while time.perf_counter() - t0 < CLI_HEALTH_TIMEOUT_S and proc.poll() is None:
+                try:
+                    health = request(port, "GET", "/health")
+                    break
+                except OSError:
+                    time.sleep(0.25)
+            seconds = time.perf_counter() - t0
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    log("serve.cli", seconds, port=port, health=health and health[0], exit_code=proc.returncode)
+    if health is None or (health[0], health[2]) != (200, b'{"ok": true}'):
+        fail(f"the command line's server did not answer /health in {CLI_HEALTH_TIMEOUT_S} s: {health}\n"
+             + cli_log.read_text()[-3000:])
+    out["cli_health_s"] = seconds
+    out["launches"] = total
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--serve-child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 2
+    if args.serve_child:
+        return serve_child()
     # A reference in f32 means f32: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1018,12 +1340,18 @@ def main() -> int:
         t0 = time.perf_counter()
         shipped = chat_shipped_phase(args.seed, workdir, expected_chat_launches(shapes)[0])
         log("chat.shipped.all", sync_s(t0))
+        t0 = time.perf_counter()
+        served = serve_phase(ingest, workdir, expected, expected_chat_launches(shapes))
+        log("serve", time.perf_counter() - t0, launches=json.dumps(served["launches"]),
+            pages_per_s=served["ingest"]["pages_per_s"], chat_s=json.dumps(served["chat_s"]),
+            repeat_equal=served["repeat_equal"], ui_upload_similarity=served["ui_upload"]["mean_similarity"],
+            cli_health_s=served["cli_health_s"])
 
     def entry(name, source, replaces, rec, **extra):
         by_path = {"extract": launches[name], "chat": chat_launches[name],
                    "ingest_pdf": ingest["routes"]["glyph"]["launches"] if name == "flash_attention" else 0,
                    "ingest_pdf_pixels": ingest["routes"]["pixel"]["launches"] if name == "flash_attention" else 0,
-                   "chat_shipped": shipped["launches"][name]}
+                   "chat_shipped": shipped["launches"][name], "serve": served["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,

@@ -11,6 +11,7 @@ The JAX side runs its XLA attention (VCP_FORCE_XLA_ATTENTION=1).
 """
 
 import json
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +31,7 @@ from vision_compression_project_tpu_torch.pipeline import extract as tex
 from vision_compression_project_tpu_torch.raster import PdfDocument as TPdf
 from vision_compression_project_tpu_torch.raster import glyph_atlas as tatlas
 from vision_compression_project_tpu_torch.raster import make_pdf as tmake_pdf
+from vision_compression_project_tpu_torch.utils.metrics import MetricsRegistry
 from vision_compression_project_tpu_torch.weights import params_from_jax
 
 from torch_parity import mini_configs, numpy_params, prose_pages
@@ -208,6 +210,29 @@ def test_failed_chunk_recorded_then_resumed(tmp_path, runners, vlm_pdf, monkeypa
     jex.extract_pdf_to_page_jsons(vlm_pdf, tmp_path / "j", dpi=90, engine="vlm", batch_size=2,
                                   runner=jr, save_images=False)
     _same_tree(tmp_path / "t", tmp_path / "j")
+
+
+@pytest.mark.parametrize("route", ["glyph", "pixel"])
+def test_extract_batch_timer_takes_the_decode(tmp_path, runners, vlm_pdf, route, monkeypatch):
+    """The port's runner decodes inside extract_batch_async(_glyphs), so the
+    "extract.batch" timer, which /metrics' pages_per_sec reads, must take the
+    dispatch as well as the collect: 3 chunks, each held 0.2 s in its
+    dispatch, give at least 0.6 s."""
+    _, tr = runners
+    name = "extract_batch_async_glyphs" if route == "glyph" else "extract_batch_async"
+    orig = getattr(tr, name)
+
+    def slow(*a, **k):
+        time.sleep(0.2)
+        return orig(*a, **k)
+
+    monkeypatch.setattr(tr, name, slow)
+    registry = MetricsRegistry()
+    monkeypatch.setattr(tex, "METRICS", registry)
+    tex.extract_pdf_to_page_jsons(vlm_pdf, tmp_path / "t", images_dir=tmp_path / "ti", dpi=90, engine="vlm",
+                                  batch_size=2, runner=tr, save_images=route == "pixel")
+    timer = registry.snapshot()["timers"]["extract.batch"]
+    assert timer["count"] == 3 and timer["total"] >= 0.6
 
 
 @pytest.mark.parametrize("shape", [(37, 53), (37, 53, 3)], ids=["gray", "rgb"])

@@ -1,8 +1,8 @@
 """Tests of the port that need the card: the hand-written kernels against
 their plain versions on CUDA tensors, the vector index's search and the glyph
 renderer on the card against the same on the CPU, the shipped weights read on
-the card's machine, and /ingest from a PDF on the card. They skip without a
-CUDA device.
+the card's machine, /ingest from a PDF on the card, and the HTTP server's
+/chat on the card. They skip without a CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed. On the GPU machine, from the repository root:
@@ -288,3 +288,49 @@ def test_extract_pdf_on_the_card(cuda, tmp_path):
     for i in range(1, 5):
         rec = json.loads((tmp_path / "pages" / f"page_{i:03d}.json").read_text())
         assert set(rec) == {"page_number", "markdown", "entities", "summary"} and rec["page_number"] == i
+
+
+def test_server_on_the_card_answers_chat_with_one_similarity_launch(cuda, tmp_path):
+    """The port's HTTP server with its embedder and index on the card: one
+    POST /chat over a small ingested document answers 200 in the response
+    shape, its pages retrieved by exactly one masked-similarity launch."""
+    import json
+    import threading
+    import urllib.request
+
+    from vision_compression_project_tpu_torch.index import IndexStore
+    from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
+    from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedder
+    from vision_compression_project_tpu_torch.pipeline.ingest import ingest_pages_dir
+    from vision_compression_project_tpu_torch.serve.httpd import create_server
+
+    pages = tmp_path / "pages"
+    pages.mkdir()
+    for i, text in enumerate(["Solar panels convert sunlight into electricity.",
+                              "Wind turbines generate power from moving air.",
+                              "Batteries store renewable energy for the night."], 1):
+        (pages / f"page_{i:03d}.json").write_text(json.dumps(
+            {"page_number": i, "markdown": text, "entities": [], "summary": text}))
+    server = create_server(host="127.0.0.1", port=0, base_tmp=tmp_path / "tmp")
+    state = server.vcp_state
+    state._embedder = HashNGramEmbedder(EmbedderConfig(), device=cuda)
+    state._store = IndexStore(tmp_path / "index", dim=state._embedder.dim, device=cuda)
+    ingest_pages_dir(pages, "doc.pdf", "doc-1", tmp_path / "tmp" / "doc-1" / "supermemory_manifest.json",
+                     embedder=state._embedder, store=state._store)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    try:
+        kernels.reset_launch_counts()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.server_address[1]}/chat",
+            data=json.dumps({"doc_id": "doc-1", "question": "How is energy stored?", "top_k": 2}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            status, body = resp.status, json.loads(resp.read())
+        torch.cuda.synchronize()
+        assert kernels.launches["masked_similarity"] == 1
+    finally:
+        server.shutdown()
+        server.server_close()
+    assert status == 200 and list(body) == ["doc_id", "answer_md", "retrieved"]
+    assert body["answer_md"] and len(body["retrieved"]) == 2
+    assert {r["page"] for r in body["retrieved"]} <= {1, 2, 3}

@@ -1,9 +1,8 @@
-"""The port's own copy of the configuration that `/ingest` and `/chat` read,
-from vision_compression_project_tpu/config.py: the request-surface defaults,
-the runtime fields the paths read (overridable through the environment) and
-the shipped-checkpoint resolution of the extraction and answer models.
-
-Loading `.env` files is not ported yet: the environment is read as it is.
+"""The port's own copy of vision_compression_project_tpu/config.py: the
+request-surface defaults, the runtime fields the paths read (overridable
+through the environment, after the first `.env` of the discovery chain is
+loaded, as the reference does at import), the shipped-checkpoint resolution
+of the extraction and answer models, and the service's artifact root.
 """
 
 from __future__ import annotations
@@ -13,6 +12,10 @@ import json
 import os
 from pathlib import Path
 from typing import Optional
+
+from .utils.env import load_env_chain
+
+load_env_chain()
 
 # ---------------------------------------------------------------------------
 # Request-surface defaults (identical to the reference API surface).
@@ -24,6 +27,14 @@ DEFAULT_TOP_K = 8
 DEFAULT_MAX_CHARS_PER_PAGE = 1500
 EXCERPT_CHARS = 250          # retrieved-page excerpt length
 TRUNCATION_MARKER = "... [truncated]"
+
+# Answer-generation budget, kept from the reference's API configuration.
+MAX_OUTPUT_TOKENS_EXTRACTION = 2048
+MAX_OUTPUT_TOKENS_ANSWERING = 8192
+GENERATION_TEMPERATURE = 0.0
+
+# The four keys of every page JSON.
+EXTRACTION_SCHEMA_KEYS = ("page_number", "markdown", "entities", "summary")
 
 
 def _env_str(name: str, default: str) -> str:
@@ -117,3 +128,7 @@ def resolve_answer_preset() -> Optional[tuple]:
         if d and "answer" in shipped_meta(name).get("tasks", ()):
             return name, d
     return None
+
+
+# Base directory for the service's per-document artifacts.
+BASE_TMP_DIR = Path(os.environ.get("VCP_TMP_DIR", "tmp"))

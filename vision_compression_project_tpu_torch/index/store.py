@@ -11,7 +11,7 @@ from typing import Optional, Union
 
 import torch
 
-from ..config import RUNTIME
+from .. import config
 from .vector_index import VectorIndex
 
 _lock = threading.Lock()
@@ -24,7 +24,7 @@ class IndexStore:
     ):
         self.root = Path(root)
         self.dim = dim
-        self.mode = mode or RUNTIME.retrieval_mode
+        self.mode = mode or config.RUNTIME.retrieval_mode
         if self.mode == "multi":
             raise NotImplementedError(
                 "retrieval mode 'multi' is not ported yet (ROADMAP.md, queue 1: multivector MaxSim)"
@@ -52,12 +52,12 @@ class IndexStore:
 
 
 def get_default_store(dim: Optional[int] = None, root=None) -> IndexStore:
-    """The process's shared store on the card at `root` (RUNTIME.index_root
-    by default), made anew when the root or the dim changes."""
+    """The process's shared store on RUNTIME.device at `root`
+    (RUNTIME.index_root by default), made anew when the root or the dim changes."""
     global _default_store
-    dim = dim or RUNTIME.embed_dim
-    root = Path(root or RUNTIME.index_root)
+    dim = dim or config.RUNTIME.embed_dim
+    root = Path(root or config.RUNTIME.index_root)
     with _lock:
         if _default_store is None or _default_store.root != root or _default_store.dim != dim:
-            _default_store = IndexStore(root, dim)
+            _default_store = IndexStore(root, dim, device=config.RUNTIME.device)
         return _default_store

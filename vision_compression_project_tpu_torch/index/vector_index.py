@@ -15,6 +15,7 @@ from __future__ import annotations
 import json
 import secrets
 import string
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Union
 
@@ -35,7 +36,10 @@ def _new_memory_id() -> str:
 
 class VectorIndex:
     """Single-buffer index on `device` ("cuda" unless the caller asks for
-    "cpu"). Mutation happens only in `add`, which callers serialize."""
+    "cpu"). `add`, `search` and `save` may be called from several threads
+    (the HTTP server's /ingest beside /chat): one lock keeps the rows, the
+    count, the cached masks and the metadata still for each call, since
+    `add` writes the rows and cached masks in place."""
 
     def __init__(
         self,
@@ -54,6 +58,7 @@ class VectorIndex:
         self.metadata: List[Dict] = []  # row -> record
         self._doc_rows: Dict[str, List[int]] = {}
         self._mask_cache: Dict[Optional[str], torch.Tensor] = {}
+        self._lock = threading.Lock()
 
     @property
     def capacity(self) -> int:
@@ -93,31 +98,32 @@ class VectorIndex:
             raise ValueError(f"{len(records)} records for {n} rows")
         if memory_ids is None:
             memory_ids = [_new_memory_id() for _ in range(n)]
-        self._ensure_capacity(n)
-        start = self.count
-        # In place: the JAX package donates the buffer to dynamic_update_slice
-        # for the same O(n) append.
-        self._rows[start : start + n] = torch.from_numpy(embeddings).to(self.device, self.dtype)
-        ids = []
-        new_rows_by_doc: Dict[str, List[int]] = {}
-        for i, (record, mem_id) in enumerate(zip(records, memory_ids)):
-            row = start + i
-            rec = dict(record)
-            rec["memory_id"] = mem_id
-            self.metadata.append(rec)
-            doc = rec.get("doc_id")
-            if doc is not None:
-                self._doc_rows.setdefault(doc, []).append(row)
-                new_rows_by_doc.setdefault(doc, []).append(row)
-            ids.append(mem_id)
-        self.count += n
-        # Cached masks are updated in place for the added rows only.
-        for doc, mask in self._mask_cache.items():
-            if doc is None:
-                mask[start : start + n] = 1.0
-            elif doc in new_rows_by_doc:
-                mask[torch.as_tensor(new_rows_by_doc[doc], device=self.device)] = 1.0
-        return ids
+        with self._lock:
+            self._ensure_capacity(n)
+            start = self.count
+            # In place: the JAX package donates the buffer to dynamic_update_slice
+            # for the same O(n) append.
+            self._rows[start : start + n] = torch.from_numpy(embeddings).to(self.device, self.dtype)
+            ids = []
+            new_rows_by_doc: Dict[str, List[int]] = {}
+            for i, (record, mem_id) in enumerate(zip(records, memory_ids)):
+                row = start + i
+                rec = dict(record)
+                rec["memory_id"] = mem_id
+                self.metadata.append(rec)
+                doc = rec.get("doc_id")
+                if doc is not None:
+                    self._doc_rows.setdefault(doc, []).append(row)
+                    new_rows_by_doc.setdefault(doc, []).append(row)
+                ids.append(mem_id)
+            self.count += n
+            # Cached masks are updated in place for the added rows only.
+            for doc, mask in self._mask_cache.items():
+                if doc is None:
+                    mask[start : start + n] = 1.0
+                elif doc in new_rows_by_doc:
+                    mask[torch.as_tensor(new_rows_by_doc[doc], device=self.device)] = 1.0
+            return ids
 
     # -- query --------------------------------------------------------------
 
@@ -139,12 +145,13 @@ class VectorIndex:
         """Masked cosine top-k. Returns, per query, result dicts shaped like
         the reference's search results: {'id', 'content', 'metadata', 'score'}."""
         queries = np.atleast_2d(np.asarray(query_embeddings, np.float32))
-        if self.count == 0:
-            return [[] for _ in range(queries.shape[0])]
-        k = min(top_k, self.count)
-        mask = self._mask_for(doc_id)
-        vals, idx = cosine_topk(self._rows, torch.from_numpy(queries).to(self.device), mask, k)
-        return self._results_from(vals.cpu().numpy(), idx.cpu().numpy())
+        with self._lock:
+            if self.count == 0:
+                return [[] for _ in range(queries.shape[0])]
+            k = min(top_k, self.count)
+            mask = self._mask_for(doc_id)
+            vals, idx = cosine_topk(self._rows, torch.from_numpy(queries).to(self.device), mask, k)
+            return self._results_from(vals.cpu().numpy(), idx.cpu().numpy())
 
     def _results_from(self, vals: np.ndarray, idx: np.ndarray) -> List[List[Dict]]:
         """(Q, k) scores/rows -> per-query result dicts
@@ -173,11 +180,11 @@ class VectorIndex:
     def save(self, path) -> None:
         path = Path(path)
         path.mkdir(parents=True, exist_ok=True)
-        rows = self._rows[: self.count].to(torch.float32).cpu().numpy()
+        with self._lock:
+            rows = self._rows[: self.count].to(torch.float32).cpu().numpy()
+            metadata = json.dumps({"dim": self.dim, "metadata": self.metadata}, ensure_ascii=False)
         np.savez_compressed(path / "rows.npz", rows=rows)
-        (path / "metadata.json").write_text(
-            json.dumps({"dim": self.dim, "metadata": self.metadata}, ensure_ascii=False)
-        )
+        (path / "metadata.json").write_text(metadata)
 
     @classmethod
     def load(

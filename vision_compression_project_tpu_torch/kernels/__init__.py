@@ -19,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -32,6 +33,9 @@ NVCC_FLAGS = (
 )
 
 launches = {"flash_attention": 0, "masked_similarity": 0}
+# One build of a kernel at a time within the process: threads of one process
+# share the temporary file name, which carries the pid.
+_build_locks = {name: threading.Lock() for name in launches}
 
 
 def reset_launch_counts() -> None:
@@ -61,20 +65,21 @@ def build(name: str) -> Path:
     src = _HERE / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"{name}-{digest}.so"
-    if lib.exists():
+    with _build_locks[name]:
+        if lib.exists():
+            return lib
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f".{name}-{digest}.{os.getpid()}.so"
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True, check=False,
+        )
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
+        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{name}-{digest}.{os.getpid()}.so"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-        capture_output=True, text=True, check=False,
-    )
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
 
 
 def _load(name: str) -> ctypes.CDLL:

@@ -23,6 +23,7 @@ import json
 import logging
 import re
 import struct
+import threading
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from datetime import datetime
@@ -44,27 +45,31 @@ GLYPH_MAX = 2048  # glyphs per page that glyph transport takes
 RECT_MAX = 64  # rects per page that glyph transport takes
 
 
+_RUNNER_LOCK = threading.Lock()  # the server's request threads share one runner
+
+
 def _get_runner():
     """The VLM runner of the configured preset, built once on
     RUNTIME.device: the shipped (or VCP_CHECKPOINT_DIR) checkpoint's weights
     when there is one, else seeded random weights."""
     global _RUNNER
-    try:
-        return _RUNNER
-    except NameError:
-        from .. import config
-        from ..models import VLMRunner, get_preset
+    with _RUNNER_LOCK:
+        try:
+            return _RUNNER
+        except NameError:
+            from .. import config
+            from ..models import VLMRunner, get_preset
 
-        preset = config.resolve_model_preset()
-        cfg = get_preset(preset)
-        ckpt = config.resolve_checkpoint_dir(preset)
-        if ckpt:
-            from ..train.checkpoint import load_runner
+            preset = config.resolve_model_preset()
+            cfg = get_preset(preset)
+            ckpt = config.resolve_checkpoint_dir(preset)
+            if ckpt:
+                from ..train.checkpoint import load_runner
 
-            _RUNNER = load_runner(cfg, ckpt, device=config.RUNTIME.device)
-        else:
-            _RUNNER = VLMRunner(cfg, device=config.RUNTIME.device)
-        return _RUNNER
+                _RUNNER = load_runner(cfg, ckpt, device=config.RUNTIME.device)
+            else:
+                _RUNNER = VLMRunner(cfg, device=config.RUNTIME.device)
+            return _RUNNER
 
 
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
@@ -173,17 +178,19 @@ def extract_pdf_to_page_jsons(
                     rasters = raster_futures.pop(ci).result()
                     if engine == "vlm":
                         # A ragged (last) chunk is padded to the full batch;
-                        # collect_extract keeps the real pages only.
+                        # collect_extract keeps the real pages only. The runner
+                        # decodes inside the dispatch, so the timer takes both:
+                        # the device's work, which the reference's timer waits on.
                         pad = batch_size - len(chunk)
-                        if isinstance(rasters, dict) and "glyphs" in rasters:
-                            prims = rasters["glyphs"] + [rasters["glyphs"][-1]] * pad
-                            handle = runner.extract_batch_async_glyphs(prims, rasters["hw"], page_numbers=chunk)
-                        else:
-                            stacked = _stack_rasters(rasters, chunk)
-                            if pad:
-                                stacked = np.concatenate([stacked, np.repeat(stacked[-1:], pad, axis=0)])
-                            handle = runner.extract_batch_async(stacked, page_numbers=chunk)
                         with METRICS.timer("extract.batch"):
+                            if isinstance(rasters, dict) and "glyphs" in rasters:
+                                prims = rasters["glyphs"] + [rasters["glyphs"][-1]] * pad
+                                handle = runner.extract_batch_async_glyphs(prims, rasters["hw"], page_numbers=chunk)
+                            else:
+                                stacked = _stack_rasters(rasters, chunk)
+                                if pad:
+                                    stacked = np.concatenate([stacked, np.repeat(stacked[-1:], pad, axis=0)])
+                                handle = runner.extract_batch_async(stacked, page_numbers=chunk)
                             records = runner.collect_extract(handle)
                     else:
                         with METRICS.timer("extract.batch"):

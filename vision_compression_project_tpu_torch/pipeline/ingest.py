@@ -70,11 +70,13 @@ def _page_content(data: Dict) -> str:
 
 @functools.lru_cache(maxsize=1)
 def _get_embedder():
-    """The process's default embedder (RUNTIME.embed_backend, on the card)."""
+    """The process's default embedder (RUNTIME.embed_backend) on RUNTIME.device."""
+    from .. import config
     from ..models.configs import EmbedderConfig
     from ..models.embedder import get_embedder
 
-    return get_embedder(RUNTIME.embed_backend, EmbedderConfig(dim=RUNTIME.embed_dim))
+    runtime = config.RUNTIME
+    return get_embedder(runtime.embed_backend, EmbedderConfig(dim=runtime.embed_dim), device=runtime.device)
 
 
 def ingest_pages_dir(

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import json
 import re
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -47,6 +48,7 @@ def lm_answer_available() -> bool:
 
 
 _ANSWER_RUNNER_CACHE: Dict[tuple, object] = {}
+_ANSWER_RUNNER_LOCK = threading.Lock()  # the server's request threads share the cache
 
 
 def _get_answer_runner():
@@ -61,12 +63,13 @@ def _get_answer_runner():
     preset, ckpt = resolved
     if preset == config.resolve_model_preset():
         return _get_runner()
-    if resolved not in _ANSWER_RUNNER_CACHE:
-        from ..models import get_preset
-        from ..train.checkpoint import load_runner
+    with _ANSWER_RUNNER_LOCK:
+        if resolved not in _ANSWER_RUNNER_CACHE:
+            from ..models import get_preset
+            from ..train.checkpoint import load_runner
 
-        _ANSWER_RUNNER_CACHE[resolved] = load_runner(get_preset(preset), ckpt, device=config.RUNTIME.device)
-    return _ANSWER_RUNNER_CACHE[resolved]
+            _ANSWER_RUNNER_CACHE[resolved] = load_runner(get_preset(preset), ckpt, device=config.RUNTIME.device)
+        return _ANSWER_RUNNER_CACHE[resolved]
 
 
 def _extract_result_info(result, manifest: Optional[Dict]):
