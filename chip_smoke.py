@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: page
 extraction with ocr_real, /chat (retrieval and a cited answer) with the hash
-embedder and ocr_bpe, /ingest from a PDF with the shipped weights, and the
-HTTP service with its command line.
+embedder and ocr_bpe, /ingest from a PDF with the shipped weights, the HTTP
+service with its command line, and the retrieval settings: the neural
+embedder and multi-vector MaxSim retrieval, over HTTP too.
 
     python3 chip_smoke.py [--seed N]
 
@@ -71,7 +72,24 @@ with the port's own reader. One flushed line per phase, with seconds:
            concurrent /chat requests (retrieval equal to one at a time);
            /metrics; the UI's upload (file only, so dpi 150: its similarity,
            no floor); then `python -m vision_compression_project_tpu_torch.
-           scripts.serve` answering /health, and every child stopped.
+           scripts.serve` answering /health, and every child stopped;
+  retrieval  the neural embedder at full width (EmbedderConfig(), seed) on a
+           batch of 32 texts of 0 to 1600 bytes: exactly depth flash-attention
+           launches, vectors within 2e-2 of the same weights through the plain
+           attention on the card, "" -> the zero vector, a batch of empty
+           texts -> no launch; the tie-ordered top-k timed at the single-mode
+           retrieval shape beside torch.topk; a MultiVectorIndex of 128,064
+           pages at capacity 131,072 (2 GiB of f32 rows): 128,000 seeded random
+           sets of 1-8 unit vectors added directly and a 64-page target
+           document of seeded prose through page_vector_set (15 of its pages
+           share one text, so more pages tie than k), MaxSim search timed and
+           held, ties included, to the same search on a CPU copy; then the
+           port's server in a child process with VCP_RETRIEVAL=multi,
+           VCP_EMBED_BACKEND=neural, VCP_EXTRACT_ENGINE=text and
+           VCP_ANSWER_ENGINE=extractive: /ingest of the 16-page PDF (depth
+           launches per page), three /chat questions and the first again
+           (depth launches each, no similarity launch), four at once; each
+           equal to an in-process library call on the same seed.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -104,10 +122,11 @@ import torch
 import torch.nn.functional as F
 
 from vision_compression_project_tpu_torch import config, kernels, native
-from vision_compression_project_tpu_torch.index import VectorIndex
-from vision_compression_project_tpu_torch.models import VLMRunner, get_preset
+from vision_compression_project_tpu_torch.index import IndexStore, MultiVectorIndex, VectorIndex
+from vision_compression_project_tpu_torch.index.multivector import maxsim_scores, maxsim_topk
+from vision_compression_project_tpu_torch.models import VLMRunner, get_preset, layers
 from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
-from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedder
+from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedder, NeuralEmbedder
 from vision_compression_project_tpu_torch.models.layers import use_flash
 from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, TASK_EXTRACT_ID
 from vision_compression_project_tpu_torch.models.vlm import (
@@ -115,12 +134,12 @@ from vision_compression_project_tpu_torch.models.vlm import (
 )
 from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
 from vision_compression_project_tpu_torch.ops.topk import (
-    NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference,
+    NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference, topk_lowest_first,
 )
 from vision_compression_project_tpu_torch.pipeline import qa
 from vision_compression_project_tpu_torch.pipeline.extract import extract_pdf_to_page_jsons
-from vision_compression_project_tpu_torch.pipeline.ingest import ingest_pages_dir
-from vision_compression_project_tpu_torch.pipeline.qa import _build_evidence_pack, answer_question
+from vision_compression_project_tpu_torch.pipeline.ingest import ingest_pages_dir, page_vector_set
+from vision_compression_project_tpu_torch.pipeline.qa import _build_evidence_pack, answer_question, rewrite_query
 from vision_compression_project_tpu_torch.pipeline.textmd import structure_page
 from vision_compression_project_tpu_torch.raster import PdfDocument, make_pdf
 from vision_compression_project_tpu_torch.raster.rasterizer import build_library as build_raster
@@ -238,7 +257,9 @@ class AttnShape:
     d: int
     causal: bool
     kv_len: list           # per batch row
-    launches: int          # per page batch (extract) or on the first question (chat); 0: extra check
+    # per page batch (extract), on the first question (chat) or per embed
+    # call (retrieval); 0: an extra check
+    launches: int
     path: str = "extract"
 
 
@@ -260,11 +281,12 @@ def encoder_shapes(v, batch: int, path: str) -> list:
     return shapes
 
 
-def path_shapes(cfg, chat_cfg) -> list:
-    """Every flash-attention call of one ocr_real page batch, and of the
-    first ocr_bpe answer whose evidence fills its budget, from the configs.
-    The answer's blank page is encoded on the first question only; later
-    questions launch the prefill calls alone."""
+def path_shapes(cfg, chat_cfg, texts: list) -> list:
+    """Every flash-attention call of one ocr_real page batch, of the first
+    ocr_bpe answer whose evidence fills its budget, and of one full-width
+    neural embed call of `texts`, from the configs. The answer's blank
+    page is encoded on the first question only; later questions launch the
+    prefill calls alone."""
     v, dec = cfg.vision, cfg.decoder
     vis = v.tokens_out
     s_dec = vis + PROMPT_BUCKET  # the 2-token prompt pads to one bucket
@@ -280,7 +302,26 @@ def path_shapes(cfg, chat_cfg) -> list:
     ] + encoder_shapes(cv, 1, "chat") + [
         AttnShape("chat_answer_prefill", 1, cdec.heads, cdec.kv_heads, s_ans, cdec.head_dim, True,
                   [s_ans], cdec.depth, "chat"),
+        embed_shape(texts),
     ]
+
+
+def embed_shape(texts: list) -> AttnShape:
+    """The neural embedder's attention call on `texts` at full width: one per
+    block, non-causal, each text's byte length (cut at max_seq) as kv_len."""
+    e = EmbedderConfig()
+    s = min(e.max_seq, max(8, -(-max(len(t.encode()) for t in texts) // 128) * 128))
+    return AttnShape("retrieval_embed", len(texts), e.heads, e.heads, s, e.dim // e.heads, False,
+                     [min(len(t.encode()), s) for t in texts], e.depth, "retrieval")
+
+
+def embed_texts(seed: int) -> list:
+    """32 texts from 0 to 1,600 bytes of seeded prose, one of them not ASCII:
+    the embedder's batch (VCP_EMBED_BATCH) at lengths a corpus gives it."""
+    rng = np.random.default_rng(seed)
+    prose = " ".join(prose_pages(seed + 7, 30))
+    lengths = [0, 1, 1600, 1024] + sorted(int(n) for n in rng.integers(2, 1100, 27))
+    return [prose[:n] for n in lengths] + ["Ünïcödé text — 日本語 and ASCII words in one line."]
 
 
 def chat_prompt_len(chat_cfg) -> int:
@@ -290,15 +331,17 @@ def chat_prompt_len(chat_cfg) -> int:
     return (max_seq - vis - ANSWER_DECODE_RESERVE) // PROMPT_BUCKET * PROMPT_BUCKET
 
 
-def bound_ms(sh: AttnShape, dtype: torch.dtype):
+def bound_ms(sh: AttnShape, dtype: torch.dtype, full: bool = False):
     """(least time in ms, "bytes" or "operations") for one call: q, k, v and
     kv_len read once, o written once; 4*D operations per (query, key) pair
-    that the masks leave, counted from this call's key lengths."""
+    that the masks leave, counted from this call's key lengths (every query
+    row against its row's kv_len keys), or with `full` every (query, key)
+    pair of the padded S x S."""
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * sh.b * sh.h + 2 * sh.b * sh.hkv) * sh.s * sh.d * item + 4 * sh.b
     rows = np.arange(sh.s)
     pairs = 0
-    for n in sh.kv_len:
+    for n in ([sh.s] * sh.b if full else sh.kv_len):
         pairs += int(np.minimum(rows + 1, n).sum()) if sh.causal else n * sh.s
     ops = 4 * sh.d * pairs * sh.h
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -319,10 +362,14 @@ def library_call(q, k, v, sh: AttnShape):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=gqa)
 
 
-def kernel_phase(cfg, chat_cfg, seed: int):
+LAUNCH_KEYS = {"extract": "launches_per_batch", "chat": "launches_first_question",
+               "retrieval": "launches_per_embed_call"}
+
+
+def kernel_phase(shapes: list, seed: int):
     rows, record = [], {}
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    for sh in path_shapes(cfg, chat_cfg):
+    for sh in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             def rnd(heads):
                 return torch.randn((sh.b, heads, sh.s, sh.d), generator=gen, device="cuda").to(dtype)
@@ -351,7 +398,8 @@ def kernel_phase(cfg, chat_cfg, seed: int):
                 row["library_host_us"] = host_us(lib)
                 row["library_graph_ms"] = graph_ms(lib)
                 row["bound_ms"], row["bound_by"] = bound_ms(sh, dtype)
-                row["launches_per_batch" if sh.path == "extract" else "launches_first_question"] = sh.launches
+                row["bound_full_ms"] = bound_ms(sh, dtype, full=True)[0]
+                row[LAUNCH_KEYS[sh.path]] = sh.launches
             print("kernel " + json.dumps(row), flush=True)
             rows.append(row)
             if not ok:
@@ -371,6 +419,13 @@ def kernel_phase(cfg, chat_cfg, seed: int):
     record["chat_first_question"] = {
         key: sum(r[key] * r["launches_first_question"] for r in chat)
         for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
+    }
+    # One full-width neural embed call's worth (the retrieval path): the
+    # bound of the useful S x kv_len pairs, and of the padded S x S.
+    embed = [r for r in rows if r.get("launches_per_embed_call")]
+    record["embed_call"] = {
+        key: sum(r[key] * r["launches_per_embed_call"] for r in embed)
+        for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms", "bound_full_ms")
     }
     return record
 
@@ -980,15 +1035,19 @@ def serve_child() -> int:
     """--serve-child: the port's server on 127.0.0.1 at a free port in this
     process, its background warm-up as serve_forever starts it, and a control
     channel on stdin: "reset" zeroes the launch counts, "counts" prints them
-    (after a device synchronise), "stop" shuts the server down."""
+    (after a device synchronise), "warm" waits for the warm-up to end and
+    prints them, "stop" shuts the server down."""
     server = create_server("127.0.0.1", 0)
-    threading.Thread(target=warmup, args=(server.vcp_state,), daemon=True).start()
+    warm = threading.Thread(target=warmup, args=(server.vcp_state,), daemon=True)
+    warm.start()
     threading.Thread(target=server.serve_forever, daemon=True).start()
     print(f"port {server.server_address[1]}", flush=True)
     for line in sys.stdin:
         cmd = line.strip()
         if cmd == "stop":
             break
+        if cmd == "warm":
+            warm.join(SERVE_TIMEOUT_S)
         torch.cuda.synchronize()
         if cmd == "reset":
             kernels.reset_launch_counts()
@@ -1259,6 +1318,290 @@ def serve_phase(ingest: dict, workdir: Path, k1_per_batch: int, chat_k1: tuple) 
     return out
 
 
+# [retrieval]: the neural embedder and multi-vector MaxSim retrieval. The
+# index holds the /chat index's page count (OTHER_DOCS x OTHER_PAGES other
+# pages and a TARGET_PAGES target document) as vector sets: 2 GiB of f32 rows
+# at capacity 131,072. TIED_PAGES pages of the target share page TIED_SOURCE's
+# text, so more pages tie at the top than TOP_K keeps.
+EMBED_ATOL = 2e-2  # bf16 vectors of unit norm, kernel vs plain attention (the reference's padding limit)
+TIED_SOURCE, TIED_PAGES = 5, range(50, 64)
+RETRIEVAL_QUESTION = "What did the audit team review in section 5.3?"
+RETRIEVAL_ENV = {"VCP_RETRIEVAL": "multi", "VCP_EMBED_BACKEND": "neural", "VCP_EXTRACT_ENGINE": "text",
+                 "VCP_ANSWER_ENGINE": "extractive"}
+
+
+def median_s(fn, repeats: int = TIMED_REPEATS):
+    """(median, min, max) host seconds of `fn()` ending in a device sync."""
+    samples = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        samples.append(sync_s(t0))
+    return float(np.median(samples)), min(samples), max(samples)
+
+
+def embedder_check(embedder, texts: list) -> dict:
+    """One embed call of `texts` on the card: depth K1 launches, within
+    EMBED_ATOL of the plain attention on the card; "" -> zero; then timed."""
+    depth = embedder.cfg.depth
+    kernels.reset_launch_counts()
+    got = embedder.embed(texts)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    orig = layers.use_flash
+    layers.use_flash = lambda s, d: False  # the reference's XLA route: plain attention
+    try:
+        want = embedder.embed(texts)
+        plain_s = median_s(lambda: embedder.embed(texts))
+    finally:
+        layers.use_flash = orig
+    err = float(np.abs(got - want).max())
+    empty = [i for i, t in enumerate(texts) if not t]
+    norms = np.linalg.norm(got, axis=1)
+    kernels.reset_launch_counts()
+    all_empty = embedder.embed(["", ""])
+    torch.cuda.synchronize()
+    empty_launches = kernels.launches["flash_attention"]
+    out = {"texts": len(texts), "padded_s": embedder.padded_length(texts), "launches": launches["flash_attention"],
+           "max_abs_err": err, "atol": EMBED_ATOL, "embed_s": median_s(lambda: embedder.embed(texts)),
+           "plain_embed_s": plain_s, "empty_batch_launches": empty_launches}
+    log("retrieval.embedder", out["embed_s"][0], **{k: json.dumps(v) for k, v in out.items()})
+    if launches != {"flash_attention": depth, "masked_similarity": 0}:
+        fail(f"retrieval.embedder: launches {launches}, expected {depth} flash_attention")
+    if not (np.isfinite(got).all() and err <= EMBED_ATOL):
+        fail(f"retrieval.embedder: vectors differ from the plain attention's by {err} > {EMBED_ATOL}")
+    if any(norms[i] != 0 for i in empty) or not np.allclose(np.delete(norms, empty), 1.0, atol=1e-5):
+        fail(f"retrieval.embedder: norms {norms}")
+    if empty_launches or (all_empty != 0).any():
+        fail(f"retrieval.embedder: a batch of empty texts launched {empty_launches} times")
+    return out
+
+
+def topk_timing(seed: int, n: int) -> dict:
+    """The tie-ordered top-k at the single-mode retrieval shape (one query's
+    scores over n rows, k = TOP_K) beside torch.topk: ms each."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    scores = torch.rand((1, n), generator=gen, device="cuda")
+    out = {"rows": n, "k": TOP_K, "ms": cuda_ms(lambda: topk_lowest_first(scores, TOP_K), 50, warmup=5),
+           "torch_topk_ms": cuda_ms(lambda: torch.topk(scores, TOP_K), 50, warmup=5)}
+    log("retrieval.topk", 0.0, **out)
+    return out
+
+
+def build_multivector_index(seed: int, embedder):
+    """The 2 GiB multi-vector index on the card: seeded random sets for the
+    other documents, added directly, then the target document's pages
+    through page_vector_set (TIED_PAGES repeat page TIED_SOURCE's text)."""
+    rng = np.random.default_rng(seed + 1)
+    index = MultiVectorIndex(embedder.dim, device="cuda")
+    n_other = OTHER_DOCS * OTHER_PAGES
+    for start in range(0, n_other, ADD_CHUNK):
+        n = min(ADD_CHUNK, n_other - start)
+        block = rng.standard_normal((n, index.vecs_per_page, embedder.dim), dtype=np.float32)
+        block /= np.linalg.norm(block, axis=2, keepdims=True)
+        sizes = rng.integers(1, index.vecs_per_page + 1, n)
+        ids = range(start, start + n)
+        index.add([block[i, : sizes[i]] for i in range(n)],
+                  [{"doc_id": f"other-{i // OTHER_PAGES:04d}", "page": i % OTHER_PAGES + 1,
+                    "content": f"Filler page {i % OTHER_PAGES + 1} of document {i // OTHER_PAGES}."} for i in ids],
+                  memory_ids=[f"other{i:07d}" for i in ids])
+    texts = prose_pages(seed, TARGET_PAGES)
+    for p in TIED_PAGES:
+        texts[p - 1] = texts[TIED_SOURCE - 1]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    sets, records = [], []
+    for p, text in enumerate(texts, 1):
+        vecs, sentences = page_vector_set(embedder, text)
+        sets.append(vecs)
+        records.append({"doc_id": TARGET_DOC, "page": p, "content": text, "sentences": sentences})
+    index.add(sets, records, memory_ids=[f"target{p:03d}" for p in range(1, TARGET_PAGES + 1)])
+    target_s = sync_s(t0)
+    launches = dict(kernels.launches)
+    want = {"flash_attention": TARGET_PAGES * embedder.cfg.depth, "masked_similarity": 0}
+    if launches != want:
+        fail(f"retrieval.index: the target's page_vector_set calls launched {launches}, expected {want}")
+    return index, target_s, launches["flash_attention"]
+
+
+def maxsim_check(index, embedder) -> dict:
+    """MaxSim search on the card against the same search on a CPU copy of
+    the rows, for the embedded question's query set and for page
+    TIED_SOURCE's own first two vectors (whose TIED_PAGES copies tie at the
+    top): the same pages in the same order, ties lowest row first, scores
+    within SIM_ATOL; then timed."""
+    query_texts = [RETRIEVAL_QUESTION] + rewrite_query(RETRIEVAL_QUESTION)[:1]
+    kernels.reset_launch_counts()
+    queries = embedder.embed(query_texts)
+    torch.cuda.synchronize()
+    query_launches = kernels.launches["flash_attention"]
+    rows_cpu, valid_cpu = index._rows.cpu(), index._valid.cpu()
+    tied_rows = [OTHER_DOCS * OTHER_PAGES + p - 1 for p in [TIED_SOURCE] + list(TIED_PAGES)]
+    out = {"pages": index.count, "capacity": index.capacity, "row_gib": index._rows.numel() * 4 / 2**30,
+           "query_vectors": len(query_texts), "query_launches": query_launches}
+    for qname, q in (("question", queries), ("tied", rows_cpu[tied_rows[0], :2].numpy())):
+        q_card = torch.from_numpy(q).cuda()
+        for doc in (TARGET_DOC, None):
+            name = f"{qname}_{'target' if doc else 'all'}"
+            mask = index._mask_for(doc)
+            vals, idx = maxsim_topk(index._rows, index._valid, q_card, mask, TOP_K)
+            cpu_scores = maxsim_scores(rows_cpu, valid_cpu, torch.from_numpy(q), mask.cpu())
+            cpu_vals, cpu_idx = topk_lowest_first(cpu_scores, TOP_K)
+            idx, vals = idx.cpu(), vals.cpu()
+            diff = float((vals - cpu_vals).abs().max())
+            # Where the orders differ, the rows must score within SIM_ATOL
+            # of each other on the CPU (a near-tie the two sums split).
+            swapped = [(int(a), int(b)) for a, b in zip(idx, cpu_idx) if a != b]
+            gap = max((abs(float(cpu_scores[a] - cpu_scores[b])) for a, b in swapped), default=0.0)
+            results = index.search(q, top_k=TOP_K, doc_id=doc)
+            out[f"{name}_pages"] = [(r["metadata"]["doc_id"], r["metadata"]["page"]) for r in results]
+            out[f"{name}_max_score_diff"] = diff
+            out[f"{name}_rows_swapped"] = len(swapped)
+            if qname == "question":
+                out[f"{name}_search_s"] = median_s(lambda: index.search(q, top_k=TOP_K, doc_id=doc))
+                out[f"{name}_maxsim_topk_ms"] = cuda_ms(
+                    lambda: maxsim_topk(index._rows, index._valid, q_card, mask, TOP_K), 20, warmup=3)
+            if not diff <= SIM_ATOL or not gap <= SIM_ATOL or [r["id"] for r in results] != [
+                    index.metadata[int(i)]["memory_id"] for i in idx]:
+                fail(f"retrieval.maxsim ({name}): card rows {idx.tolist()} against CPU rows {cpu_idx.tolist()}: "
+                     f"scores differ by {diff}, swapped rows by {gap} (tol {SIM_ATOL})")
+            if qname == "tied" and (idx.tolist() != tied_rows[:TOP_K] or swapped):
+                fail(f"retrieval.maxsim ({name}): rows {idx.tolist()}, expected the tied rows lowest first "
+                     f"{tied_rows[:TOP_K]}")
+    mask = index._mask_for(TARGET_DOC)
+    q_card = torch.from_numpy(queries).cuda()
+    out["maxsim_scores_ms"] = cuda_ms(lambda: maxsim_scores(index._rows, index._valid, q_card, mask), 20, warmup=3)
+    # Bound: the rows, valid slots, mask and queries read once, the scores
+    # written once; 2*D f32 operations per (slot, query) pair.
+    n, k, d = index._rows.shape
+    nbytes = n * k * d * 4 + n * k + n * 4 + queries.nbytes + n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n * k * d * len(query_texts) / PEAK_FLOPS[torch.float32] * 1e3
+    out["maxsim_bound_ms"], out["maxsim_bound_by"] = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    log("retrieval.maxsim", out["question_target_search_s"][0], **{k: json.dumps(v) for k, v in out.items()})
+    if query_launches != embedder.cfg.depth:
+        fail(f"retrieval.maxsim: the query set's embed launched {query_launches} times")
+    return out
+
+
+def retrieval_serve_phase(ingest: dict, workdir: Path, depth: int) -> dict:
+    """The port's server with RETRIEVAL_ENV in a child process, over sockets:
+    /ingest of the check PDF and /chat questions with exact launch counts,
+    each equal to the same calls made in this process on the same seed."""
+    env = {**os.environ, **RETRIEVAL_ENV, "VCP_TMP_DIR": str(workdir / "retrieval_tmp"),
+           "VCP_INDEX_ROOT": str(workdir / "retrieval_index")}
+    base_tmp = Path(env["VCP_TMP_DIR"])
+    t0 = time.perf_counter()
+    child = ServeChild(env, workdir / "retrieval_child.log")
+    total = {name: 0 for name in kernels.launches}
+    out = {}
+    try:
+        warm = child.command("warm")
+        out["start_s"] = time.perf_counter() - t0
+        log("retrieval.serve.start", out["start_s"], port=child.port, warmup_launches=json.dumps(warm))
+
+        def expect(name, got, want, detail=""):
+            if got != want:
+                child.fail(f"{name}: got {got!r}, expected {want!r} {detail}")
+
+        child.command("reset")
+        t0 = time.perf_counter()
+        status, _, body = request(child.port, "POST", "/ingest",
+                                  *multipart("ingest.pdf", Path(ingest["pdf"]).read_bytes(), {"dpi": "72"}))
+        seconds = time.perf_counter() - t0
+        launches = child.command("counts")
+        if status != 200:
+            child.fail(f"POST /ingest: {status} {body[:300]!r}")
+        resp = json.loads(body)
+        expect("/ingest pages", (resp["pages_total"], resp["pages_ingested"], resp["failed_pages"]),
+               (INGEST_PAGES, INGEST_PAGES, []))
+        expect("/ingest launches", launches, {"flash_attention": depth * INGEST_PAGES, "masked_similarity": 0})
+        for name, n in launches.items():
+            total[name] += n
+        doc_id = resp["doc_id"]
+        out["ingest_s"] = seconds
+        log("retrieval.serve.ingest", seconds, pages=INGEST_PAGES, launches=json.dumps(launches))
+
+        def chat(question: str):
+            payload = json.dumps({"doc_id": doc_id, "question": question}).encode()
+            t0 = time.perf_counter()
+            status, _, body = request(child.port, "POST", "/chat", payload, {"Content-Type": "application/json"})
+            seconds = time.perf_counter() - t0
+            if status != 200:
+                child.fail(f"POST /chat {question!r}: {status} {body[:300]!r}")
+            return json.loads(body), seconds
+
+        sequential = {}
+        for i, question in enumerate(SERVE_QUESTIONS + SERVE_QUESTIONS[:1]):
+            child.command("reset")
+            resp, seconds = chat(question)
+            launches = child.command("counts")
+            for name, n in launches.items():
+                total[name] += n
+            expect(f"/chat {i} launches", launches, {"flash_attention": depth, "masked_similarity": 0})
+            if i < len(SERVE_QUESTIONS):
+                sequential[question] = resp
+                out.setdefault("chat_s", []).append(seconds)
+            else:
+                expect("/chat again", resp, sequential[question])
+            log("retrieval.serve.chat", seconds, question=i % len(SERVE_QUESTIONS), launches=json.dumps(launches),
+                pages=json.dumps([r["page"] for r in resp["retrieved"]]), answer=json.dumps(resp["answer_md"][:100]))
+
+        t0 = time.perf_counter()
+        concurrent = SERVE_QUESTIONS + SERVE_QUESTIONS[:1]
+        with ThreadPoolExecutor(len(concurrent)) as pool:
+            results = list(pool.map(chat, concurrent))
+        out["concurrent_s"] = time.perf_counter() - t0
+        for question, (resp, _) in zip(concurrent, results):
+            expect(f"concurrent /chat {question!r}", resp, sequential[question])
+        log("retrieval.serve.concurrent", out["concurrent_s"], requests=len(concurrent),
+            latencies_s=json.dumps([s for _, s in results]), equal_to_sequential=True)
+
+        # The same calls in this process on the same seed: the library's
+        # retrieval and answers equal the server's.
+        embedder = NeuralEmbedder(EmbedderConfig(dim=config.RUNTIME.embed_dim), device="cuda")
+        store = IndexStore(workdir / "retrieval_library_index", embedder.dim, mode="multi", device="cuda")
+        manifest = base_tmp / doc_id / "supermemory_manifest.json"
+        ingest_pages_dir(base_tmp / doc_id / "pages", "ingest.pdf", doc_id, workdir / "retrieval_library.json",
+                         embedder=embedder, store=store)
+        for question, resp in sequential.items():
+            lib = answer_question(doc_id, question, manifest_path=manifest, store=store, embedder=embedder,
+                                  engine="extractive")
+            expect(f"library call {question!r}", ([(r["page"], r["excerpt"]) for r in lib["retrieved"]],
+                                                  lib["answer_md"]),
+                   ([(r["page"], r["excerpt"]) for r in resp["retrieved"]], resp["answer_md"]))
+        log("retrieval.serve.library", 0.0, questions=len(sequential), equal=True)
+    finally:
+        child.stop()
+    out["launches"] = total
+    return out
+
+
+def retrieval_phase(seed: int, workdir: Path, ingest: dict, sim_rows: int) -> dict:
+    """[retrieval]: the neural embedder, the tie-ordered top-k, the 2 GiB
+    MaxSim index and the server in the retrieval settings. Returns the K1
+    launches of its main-path runs and the numbers printed."""
+    t0 = time.perf_counter()
+    embedder = NeuralEmbedder(EmbedderConfig(), seed=seed, device="cuda")
+    log("retrieval.init", sync_s(t0), dim=embedder.dim, depth=embedder.cfg.depth, heads=embedder.cfg.heads,
+        max_seq=embedder.cfg.max_seq, params=sum(p.numel() for p in embedder.model.parameters()))
+    out = {"embedder": embedder_check(embedder, embed_texts(seed)), "topk": topk_timing(seed, sim_rows)}
+    launches = out["embedder"]["launches"]
+    t0 = time.perf_counter()
+    index, target_s, target_launches = build_multivector_index(seed, embedder)
+    log("retrieval.index", sync_s(t0), pages=index.count, capacity=index.capacity,
+        row_gib=index._rows.numel() * 4 / 2**30, target_pages=TARGET_PAGES, target_ingest_s=target_s,
+        target_launches=target_launches)
+    out["maxsim"] = maxsim_check(index, embedder)
+    launches += target_launches + out["maxsim"]["query_launches"]
+    del index
+    torch.cuda.empty_cache()
+    out["serve"] = retrieval_serve_phase(ingest, workdir, embedder.cfg.depth)
+    out["launches"] = {"flash_attention": launches + out["serve"]["launches"]["flash_attention"],
+                       "masked_similarity": out["serve"]["launches"]["masked_similarity"]}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1294,13 +1637,13 @@ def main() -> int:
     weights_phase()
     log("weights.all", time.perf_counter() - t0)
 
-    shapes = path_shapes(cfg, chat_cfg)
+    shapes = path_shapes(cfg, chat_cfg, embed_texts(args.seed))
     t0 = time.perf_counter()
-    record = kernel_phase(cfg, chat_cfg, args.seed)
+    record = kernel_phase(shapes, args.seed)
     log("kernel.flash_attention", sync_s(t0),
         **{k: record[k]
            for k in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")},
-        chat_first_question=json.dumps(record["chat_first_question"]))
+        chat_first_question=json.dumps(record["chat_first_question"]), embed_call=json.dumps(record["embed_call"]))
     capacity = 1024  # VectorIndex's first capacity, doubled until the chat index fits
     while capacity < OTHER_DOCS * OTHER_PAGES + TARGET_PAGES:
         capacity *= 2
@@ -1346,12 +1689,19 @@ def main() -> int:
             pages_per_s=served["ingest"]["pages_per_s"], chat_s=json.dumps(served["chat_s"]),
             repeat_equal=served["repeat_equal"], ui_upload_similarity=served["ui_upload"]["mean_similarity"],
             cli_health_s=served["cli_health_s"])
+        t0 = time.perf_counter()
+        retrieved = retrieval_phase(args.seed, workdir, ingest, capacity)
+        log("retrieval", sync_s(t0), launches=json.dumps(retrieved["launches"]),
+            embed_max_abs_err=retrieved["embedder"]["max_abs_err"],
+            maxsim_topk_ms=retrieved["maxsim"]["question_all_maxsim_topk_ms"],
+            serve_ingest_s=retrieved["serve"]["ingest_s"], serve_chat_s=json.dumps(retrieved["serve"]["chat_s"]))
 
     def entry(name, source, replaces, rec, **extra):
         by_path = {"extract": launches[name], "chat": chat_launches[name],
                    "ingest_pdf": ingest["routes"]["glyph"]["launches"] if name == "flash_attention" else 0,
                    "ingest_pdf_pixels": ingest["routes"]["pixel"]["launches"] if name == "flash_attention" else 0,
-                   "chat_shipped": shipped["launches"][name], "serve": served["launches"][name]}
+                   "chat_shipped": shipped["launches"][name], "serve": served["launches"][name],
+                   "retrieval": retrieved["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1363,10 +1713,11 @@ def main() -> int:
         entry("flash_attention", "vision_compression_project_tpu_torch/kernels/flash_attention.cu",
               "vision_compression_project_tpu/ops/attention.py:30", record,
               kernel_route=kernels.FLASH_ROUTES[torch.bfloat16], graph_ms=record["graph_ms"],
-              library_graph_ms=record["library_graph_ms"]),
+              library_graph_ms=record["library_graph_ms"], embed_call=record["embed_call"]),
         entry("masked_similarity", "vision_compression_project_tpu_torch/kernels/masked_similarity.cu",
               "vision_compression_project_tpu/ops/topk.py:26", sim_record,
-              gemv_no_mask_ms=sim_record["gemv_no_mask_ms"]),
+              gemv_no_mask_ms=sim_record["gemv_no_mask_ms"], topk_lowest_first_ms=retrieved["topk"]["ms"],
+              torch_topk_ms=retrieved["topk"]["torch_topk_ms"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

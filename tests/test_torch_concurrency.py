@@ -1,7 +1,8 @@
 """The port's index store and batcher under threads: the counterparts of
-both tests in tests/test_concurrency.py, and a case where writers grow the
+both tests in tests/test_concurrency.py, and cases where writers grow the
 index past its capacity while readers search doc ids, fresh ones included,
-as the threaded HTTP server does with /ingest beside /chat. On the CPU."""
+as the threaded HTTP server does with /ingest beside /chat, in single and
+in multi mode. On the CPU."""
 
 import sys
 import threading
@@ -132,6 +133,66 @@ def test_index_grows_while_readers_search_fresh_doc_ids(tmp_path, seed):
     assert store.index.count == len(docs) * batches * per_batch
     assert store.index.capacity == 4096
     q = _unit(np.random.default_rng(seed).standard_normal((1, 32)))
+    for doc in docs:
+        results = store.search(q, top_k=batches * per_batch, doc_id=doc)[0]
+        assert sorted(r["metadata"]["page"] for r in results) == list(range(1, batches * per_batch + 1))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_multivector_index_grows_while_readers_search(tmp_path, seed):
+    """Multi mode: 4 writers add 640 pages of 1 to 8 vectors in batches of
+    16, growing the index from 256 pages to 1,024, while 8 readers search
+    fresh doc ids, the writers' docs and all docs. No search may raise; a
+    result holds only pages of its doc, each with the vectors it was given;
+    afterwards every doc finds all of its pages."""
+    store = IndexStore(tmp_path / "idx", dim=16, mode="multi", device="cpu")
+    docs, batches, per_batch = [f"doc{i}" for i in range(4)], 10, 16
+    errors = []
+    done = threading.Event()
+
+    def writer(w, doc):
+        rng = np.random.default_rng((seed, w))
+        try:
+            for i in range(batches):
+                sets = [_unit(rng.standard_normal((int(rng.integers(1, 9)), 16))) for _ in range(per_batch)]
+                store.add(sets, [{"doc_id": doc, "page": i * per_batch + j + 1, "content": f"{doc} {i} {j}",
+                                  "n": len(sets[j])} for j in range(per_batch)])
+        except Exception as exc:  # pragma: no cover
+            errors.append(exc)
+
+    def reader(r):
+        rng = np.random.default_rng((seed, 100 + r))
+        i = 0
+        try:
+            while not done.is_set() or i < 30:
+                q = _unit(rng.standard_normal((2, 16)))
+                assert store.search(q, top_k=4, doc_id=f"fresh-{r}-{i}")[0] == []
+                doc = docs[i % len(docs)]
+                for hit in store.search(q, top_k=8, doc_id=doc)[0]:
+                    assert hit["metadata"]["doc_id"] == doc and len(hit["vectors"]) == hit["metadata"]["n"]
+                store.search(q, top_k=8)
+                i += 1
+        except Exception as exc:
+            errors.append(exc)
+
+    writers = [threading.Thread(target=writer, args=(w, doc)) for w, doc in enumerate(docs)]
+    readers = [threading.Thread(target=reader, args=(r,)) for r in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in readers + writers:
+            t.start()
+        for t in writers:
+            t.join(JOIN_S)
+        done.set()
+        for t in readers:
+            t.join(JOIN_S)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in writers + readers)
+    assert errors == []
+    assert store.index.count == len(docs) * batches * per_batch and store.index.capacity == 1024
+    q = _unit(np.random.default_rng(seed).standard_normal((1, 16)))
     for doc in docs:
         results = store.search(q, top_k=batches * per_batch, doc_id=doc)[0]
         assert sorted(r["metadata"]["page"] for r in results) == list(range(1, batches * per_batch + 1))

@@ -1,8 +1,9 @@
 """Tests of the port that need the card: the hand-written kernels against
 their plain versions on CUDA tensors, the vector index's search and the glyph
 renderer on the card against the same on the CPU, the shipped weights read on
-the card's machine, /ingest from a PDF on the card, and the HTTP server's
-/chat on the card. They skip without a CUDA device.
+the card's machine, /ingest from a PDF on the card, the HTTP server's
+/chat on the card, the neural embedder and MaxSim retrieval on the card, and
+the retrieval harness's 40-page hit@3. They skip without a CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed. On the GPU machine, from the repository root:
@@ -57,6 +58,10 @@ def cuda():
         (4, 6, 2, 1088, 64, [1026] * 4, True),
         (1, 4, 4, 256, 64, None, False),
         (1, 8, 4, 768, 32, None, True),
+        # The neural embedder's calls: non-causal, each text's length as
+        # kv_len (0 for an empty text), S padded to 128..1024.
+        (4, 8, 8, 1024, 64, [0, 37, 1024, 600], False),
+        (3, 8, 8, 128, 64, [1, 128, 0], False),
         # Ragged S (not a multiple of 64 or 16), key lengths 0 and 1, GQA 3:1.
         (2, 6, 2, 77, 64, [77, 1], False),
         (3, 3, 1, 333, 32, [0, 1, 250], True),
@@ -334,3 +339,80 @@ def test_server_on_the_card_answers_chat_with_one_similarity_launch(cuda, tmp_pa
     assert status == 200 and list(body) == ["doc_id", "answer_md", "retrieved"]
     assert body["answer_md"] and len(body["retrieved"]) == 2
     assert {r["page"] for r in body["retrieved"]} <= {1, 2, 3}
+
+
+NEURAL_TEXTS = ["", "What is the efficiency of solar panels?", "Ωmega ünïcödé — 日本語のテキスト 🙂",
+                "The cache module stores pages. " * 40, "a" * 1500, "short"]
+
+
+def test_neural_embedder_card_matches_plain(cuda, monkeypatch):
+    """The full-width neural embedder on the card (flash-attention kernel,
+    depth launches per call) against the same weights with the plain
+    attention on the card, bf16: 2e-2 on unit vectors, as the reference's
+    padding tolerance. A batch of empty texts pads to 8 and launches nothing."""
+    from vision_compression_project_tpu_torch.models import layers
+    from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
+    from vision_compression_project_tpu_torch.models.embedder import NeuralEmbedder
+
+    cfg = EmbedderConfig()
+    embedder = NeuralEmbedder(cfg, seed=0, device=cuda)
+    assert embedder.padded_length(NEURAL_TEXTS) == cfg.max_seq
+    kernels.reset_launch_counts()
+    got = embedder.embed(NEURAL_TEXTS)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attention"] == cfg.depth
+    with monkeypatch.context() as mp:
+        mp.setattr(layers, "use_flash", lambda s, d: False)
+        want = embedder.embed(NEURAL_TEXTS)
+    assert np.isfinite(got).all() and np.abs(got - want).max() <= 2e-2
+    assert (got[0] == 0).all()
+    np.testing.assert_allclose(np.linalg.norm(got[1:], axis=1), 1.0, atol=1e-5)
+    kernels.reset_launch_counts()
+    assert (embedder.embed(["", ""]) == 0).all() and kernels.launches["flash_attention"] == 0
+
+
+def test_maxsim_search_card_equals_cpu(cuda):
+    """The same multi-vector index on the card and on the CPU: the same pages
+    in the same order, ties included (12 copies of one page's set, more than
+    k), scores within 1e-5."""
+    from vision_compression_project_tpu_torch.index import MultiVectorIndex
+
+    rng = np.random.default_rng(0)
+    dim = 512
+    sets = [rng.standard_normal((int(rng.integers(1, 9)), dim)).astype(np.float32) for _ in range(3000)]
+    sets = [s / np.linalg.norm(s, axis=1, keepdims=True) for s in sets]
+    for i in range(1000, 1012):
+        sets[i] = sets[999]
+    records = [{"doc_id": "a" if i % 2 else "b", "page": i + 1, "content": f"p{i}"} for i in range(3000)]
+    ids = [f"m{i}" for i in range(3000)]
+    on_card = MultiVectorIndex(dim, device=cuda)
+    on_cpu = MultiVectorIndex(dim, device="cpu")
+    for index in (on_card, on_cpu):
+        index.add(sets, records, memory_ids=ids)
+    for queries, doc in ((sets[999][:2], None), (sets[999][:1], "a"), (sets[5], "b")):
+        got = on_card.search(queries, top_k=8, doc_id=doc)
+        want = on_cpu.search(queries, top_k=8, doc_id=doc)
+        assert [r["id"] for r in got] == [r["id"] for r in want]
+        assert max(abs(a["score"] - b["score"]) for a, b in zip(got, want)) <= 1e-5
+    assert [r["id"] for r in on_card.search(sets[999], top_k=8)] == [f"m{i}" for i in range(999, 1007)]
+
+
+def test_eval_retrieval_40_pages_on_the_card(cuda, monkeypatch, capsys):
+    """The retrieval harness's default form on the card: hit@3 over 40 pages
+    is 1.000 in both modes with the hash embedder (as the JAX package's
+    harness gives on the CPU); the neural rows are printed, not held to a
+    number (their weights are random)."""
+    import dataclasses
+
+    from vision_compression_project_tpu_torch import config
+    from vision_compression_project_tpu_torch.scripts import eval_retrieval
+
+    monkeypatch.setattr(config, "RUNTIME", dataclasses.replace(config.RUNTIME, device="cuda"))
+    pages, questions = eval_retrieval.build_corpus(40)
+    for cfg in ("single:hash", "multi:hash", "single:neural", "multi:neural"):
+        mode, backend = cfg.split(":")
+        score = eval_retrieval.evaluate(mode, backend, pages, questions, 3)
+        with capsys.disabled():
+            print(f"{cfg}: {score:.3f}")
+        if backend == "hash":
+            assert score == 1.0

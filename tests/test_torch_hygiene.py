@@ -55,13 +55,14 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
     modules = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "vision_compression_project_tpu_torch.kernels" in modules
     for name in (
-        "models.vlm", "models.embedder", "ops.topk", "index.vector_index", "index.store",
+        "models.vlm", "models.embedder", "ops.topk", "index.vector_index", "index.multivector", "index.store",
         "pipeline.ingest", "pipeline.aggregate", "pipeline.qa", "config", "utils.metrics",
         "utils.json_utils", "native", "train.ocdbt", "train.checkpoint", "train.pages",
         "raster.rasterizer", "raster.pdfgen", "raster.ttf", "pipeline.textmd", "ops.glyph_render",
         "pipeline.extract", "utils.env", "utils.dirs", "utils.retry", "schemas", "serve", "serve.httpd",
         "serve.batching", "serve.ui", "serve.app", "scripts", "scripts.serve", "scripts.extract_pdf",
         "scripts.extract_page", "scripts.ingest_to_index", "scripts.qa_query",
+        "scripts.eval_retrieval",
     ):
         assert f"vision_compression_project_tpu_torch.{name}" in modules
     assert [m for m in modules if _banned(m)] == []

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from vision_compression_project_tpu.index import vector_index as jvi
-from vision_compression_project_tpu_torch.index import IndexStore
+from vision_compression_project_tpu_torch.index import IndexStore, MultiVectorIndex
 from vision_compression_project_tpu_torch.index import vector_index as tvi
 
 # Scores: f32 dot products of unit vectors summed in another order.
@@ -135,5 +135,36 @@ def test_index_store_round_trip(tmp_path):
     assert again.index.count == 40
     assert_same_results(again.search(queries, doc_id="d"), store.search(queries, doc_id="d"))
     assert IndexStore(tmp_path, DIM * 2, mode="single", device="cpu").index.count == 0
-    with pytest.raises(NotImplementedError, match="multi"):
-        IndexStore(tmp_path, DIM, mode="multi", device="cpu")
+    # Multi mode beside it: its own files, so the single-mode index is not read.
+    multi = IndexStore(tmp_path, DIM, mode="multi", device="cpu")
+    assert isinstance(multi.index, MultiVectorIndex) and multi.index.count == 0
+    with pytest.raises(ValueError, match="retrieval mode"):
+        IndexStore(tmp_path, DIM, mode="sharded", device="cpu")
+
+
+def _tied_pages(n_pages, unit_pages, rng):
+    """A doc of n_pages whose pages are zero vectors (blank pages embed to
+    zero) except `unit_pages` (1-based), which hold one shared unit vector."""
+    rows = np.zeros((n_pages, DIM), np.float32)
+    rows[[p - 1 for p in unit_pages]] = _unit(rng, 1)
+    records = [{"doc_id": "tied", "page": p, "content": f"page {p}"} for p in range(1, n_pages + 1)]
+    return rows, records, [f"mem{p:06d}" for p in range(1, n_pages + 1)]
+
+
+@pytest.mark.parametrize("unit_pages,top_k", [([4], 8), ([4], 19), ([3, 9, 12, 15, 18], 3), ([], 8)])
+def test_search_ties_ordered_as_the_jax_index(unit_pages, top_k):
+    """Pages of equal score come in the JAX index's order, lowest row first,
+    and where more pages tie than fit in k the same pages are kept: page 4's
+    vector against 19 zero pages gives pages [4, 1, 2, 3, 5, 6, 7, 8] there
+    (torch.topk gave [4, 2, 8, 5, 6, 1, 3, 7]). Other docs' rows come first
+    in the index, so the tied rows are not rows 0.."""
+    rng = np.random.default_rng(6)
+    jx, tx = _both()
+    _add((jx, tx), *_batch(rng, 37, ["other"], 1000))
+    rows, records, ids = _tied_pages(20, unit_pages, rng)
+    _add((jx, tx), rows, records, ids)
+    query = rows[unit_pages[0] - 1] if unit_pages else _unit(rng, 1)[0]
+    got = _search_both(jx, tx, query, top_k=top_k, doc_id="tied")[0]
+    # The unit pages tie among themselves, and the zero pages below them.
+    want = (unit_pages + [p for p in range(1, 21) if p not in unit_pages])[:top_k]
+    assert [r["metadata"]["page"] for r in got] == want

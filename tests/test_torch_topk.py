@@ -73,3 +73,41 @@ def test_cosine_topk_matches_jax(k):
     # Random unit rows: the top scores are distinct, so the indices agree exactly.
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL, rtol=0)
+
+
+def _tied_scores(seed, b, n):
+    """Scores with many exact ties: a few levels, +0.0 and -0.0 among them,
+    and the mask's -1e30 filler."""
+    rng = np.random.default_rng(seed)
+    levels = np.array([0.5, 0.25, 0.0, -0.0, -0.25, -1e30], np.float32)
+    return levels[rng.integers(0, len(levels), (b, n))]
+
+
+@pytest.mark.parametrize("k", [1, 5, 8, 40, 200])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_topk_ties_ordered_as_lax_top_k(seed, k):
+    """Equal scores come lowest row first, the lowest rows are kept among
+    those tied at the k-th score, and +0.0 ranks above -0.0: lax.top_k's
+    order, index for index. torch.topk orders ties arbitrarily."""
+    import jax
+
+    scores = _tied_scores(seed, 3, 200)
+    jv, ji = jax.lax.top_k(jnp.asarray(scores), k)
+    tv, ti = ttopk.topk_lowest_first(torch.from_numpy(scores), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy().view(np.int32), np.asarray(jv).view(np.int32))
+
+
+def test_cosine_topk_ties_match_jax():
+    """Zero rows (blank pages embed to zero) tie at score 0: the JAX
+    package's cosine_topk and the port's give the same rows in the same order."""
+    rng = np.random.default_rng(11)
+    emb = np.zeros((64, 512), np.float32)
+    emb[[3, 17, 40]] = _unit(rng, (3, 512))
+    q = np.concatenate([emb[3:4], _unit(rng, (1, 512))])
+    mask = np.ones(64, np.float32)
+    mask[[5, 9]] = 0
+    jv, ji = jtopk.cosine_topk(jnp.asarray(emb), jnp.asarray(q), jnp.asarray(mask), 12)
+    tv, ti = ttopk.cosine_topk(torch.from_numpy(emb), torch.from_numpy(q), torch.from_numpy(mask), 12)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=ATOL, rtol=0)

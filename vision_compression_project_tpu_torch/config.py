@@ -56,9 +56,10 @@ class RuntimeConfig:
     extract_engine: str = _env_str("VCP_EXTRACT_ENGINE", "auto")
     # Answering engine: "auto", "analytic", "extractive", "lm".
     answer_engine: str = _env_str("VCP_ANSWER_ENGINE", "auto")
-    # Retrieval mode: "single" (one pooled vector per page); "multi" is not ported yet.
+    # Retrieval mode: "single" (one pooled vector per page) or "multi"
+    # (multi-vector MaxSim, index/multivector.py).
     retrieval_mode: str = _env_str("VCP_RETRIEVAL", "single")
-    # Embedding backend: "hash" ("neural" is not ported yet).
+    # Embedding backend: "hash" (hashed n-gram projection) or "neural".
     embed_backend: str = _env_str("VCP_EMBED_BACKEND", "hash")
     embed_dim: int = _env_int("VCP_EMBED_DIM", 512)
     embed_batch_size: int = _env_int("VCP_EMBED_BATCH", 32)

@@ -1,6 +1,8 @@
 """Process-wide index store: load-or-create, save after every add, one lock
-for writers. The port of vision_compression_project_tpu/index/store.py in
-single mode; multi-vector mode and the sharded search are not ported yet.
+for writers. The port of vision_compression_project_tpu/index/store.py:
+single mode (VectorIndex, one pooled vector per page) and multi mode
+(MultiVectorIndex, MaxSim over per-page vector sets); the sharded search is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from typing import Optional, Union
 import torch
 
 from .. import config
+from .multivector import MultiVectorIndex
 from .vector_index import VectorIndex
 
 _lock = threading.Lock()
@@ -25,29 +28,32 @@ class IndexStore:
         self.root = Path(root)
         self.dim = dim
         self.mode = mode or config.RUNTIME.retrieval_mode
-        if self.mode == "multi":
-            raise NotImplementedError(
-                "retrieval mode 'multi' is not ported yet (ROADMAP.md, queue 1: multivector MaxSim)"
-            )
-        if self.mode != "single":
+        if self.mode not in ("single", "multi"):
             raise ValueError(f"unknown retrieval mode {self.mode!r}")
         self._lock = threading.Lock()
+        cls, meta_file = (MultiVectorIndex, "mv_metadata.json") if self.mode == "multi" else (
+            VectorIndex, "metadata.json")
         self.index = None
-        if (self.root / "metadata.json").exists():
-            self.index = VectorIndex.load(self.root, device=device)
+        if (self.root / meta_file).exists():
+            self.index = cls.load(self.root, device=device)
         if self.index is None or self.index.dim != dim:
             # A new store, or the embedder's dim changed: start fresh rather than mix spaces.
-            self.index = VectorIndex(dim=dim, device=device)
+            self.index = cls(dim=dim, device=device)
 
     def add(self, embeddings, records, memory_ids=None):
-        """(B, dim) pooled vectors with their records; the index is saved after."""
+        """Single mode: (B, dim) pooled vectors. Multi mode: a list of
+        per-page (k_i, dim) vector sets. The index is saved after."""
         with self._lock:
             ids = self.index.add(embeddings, records, memory_ids)
             self.index.save(self.root)
             return ids
 
     def search(self, query_embeddings, top_k=8, doc_id=None):
-        """Per-query result lists for (B, dim) queries."""
+        """Single mode: per-query result lists for (B, dim) queries. Multi
+        mode: the (Q, dim) input is ONE query set (question + rewrites);
+        returns [results] for call-site uniformity."""
+        if self.mode == "multi":
+            return [self.index.search(query_embeddings, top_k=top_k, doc_id=doc_id)]
         return self.index.search(query_embeddings, top_k=top_k, doc_id=doc_id)
 
 

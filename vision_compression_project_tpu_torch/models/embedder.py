@@ -1,13 +1,20 @@
-"""The hashed word n-gram text embedder, the port of
-vision_compression_project_tpu/models/embedder.py::HashNGramEmbedder.
+"""The text embedders, the port of
+vision_compression_project_tpu/models/embedder.py. Both share one
+interface, `embed(texts)` -> (B, dim) f32 numpy rows:
 
-Hashed word n-gram counts (host featurize, stable blake2 hashes) -> log1p ->
-a seeded random-sign projection -> L2 norm. The projection is the JAX
-package's own +-1 matrix, `jax.random.rademacher(PRNGKey(seed), (buckets,
-dim), bfloat16)`, reproduced here bit for bit with numpy: an index saved by
-one package lies in the same space as the other package's queries.
+* HashNGramEmbedder (the default): hashed word n-gram counts (host
+  featurize, stable blake2 hashes) -> log1p -> a seeded random-sign
+  projection -> L2 norm. The projection is the JAX package's own +-1 matrix,
+  `jax.random.rademacher(PRNGKey(seed), (buckets, dim), bfloat16)`,
+  reproduced here bit for bit with numpy: an index saved by one package lies
+  in the same space as the other package's queries.
+* NeuralEmbedder: a byte-level transformer encoder (the vision encoder's
+  EncoderBlock, non-causal, each text's length as the attention's kv_len)
+  with a masked mean pool. Its attention takes the flash-attention kernel
+  (kernels/flash_attention.cu) on the card, as the reference takes Pallas:
+  the sequence is padded to a multiple of 128.
 
-Both packages emit unit-norm vectors, so the index's dot product
+Both emit unit-norm vectors (or zero ones), so the index's dot product
 (ops/topk.py) is cosine similarity.
 """
 
@@ -15,12 +22,18 @@ from __future__ import annotations
 
 import hashlib
 import re
-from typing import List, Optional, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+from torch import nn
 
+from ..ops.topk import full_f32_matmul
 from .configs import EmbedderConfig
+from .layers import RMSNorm, init_weights_, torch_dtype
+from .tokenizer import VOCAB_SIZE, ByteTokenizer
+from .vit import EncoderBlock
 
 _WORD_RE = re.compile(r"[a-z0-9]+")
 
@@ -120,14 +133,85 @@ class HashNGramEmbedder:
         # so an f32 product of the upcast operands is the same arithmetic;
         # on the card it must be true f32, so TF32 is off for the call.
         x = torch.log1p(counts).to(torch.bfloat16).to(torch.float32)
-        allow_tf32 = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
+        with full_f32_matmul():
             emb = x @ self.projection()
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = allow_tf32
         norm = torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
         return (emb / torch.clamp(norm, min=1e-6)).cpu().numpy()
+
+
+class NeuralEmbedderModule(nn.Module):
+    """Byte ids (B, S) and lengths (B,) -> (B, dim) f32 unit vectors (zero
+    for a text of no bytes). Parameters are f32; the embedding, position
+    embedding and blocks compute in cfg.dtype, the norm, the pool and the
+    output projection in f32, as in the reference."""
+
+    def __init__(self, cfg: EmbedderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.dt = torch_dtype(cfg.dtype)
+        self.embed = nn.Embedding(VOCAB_SIZE, cfg.dim)
+        self.pos_embed = nn.Parameter(torch.zeros(cfg.max_seq, cfg.dim))
+        self.blocks = nn.ModuleList(EncoderBlock(cfg.dim, cfg.heads, cfg.dtype) for _ in range(cfg.depth))
+        self.norm = RMSNorm(cfg.dim)
+        self.out = nn.Linear(cfg.dim, cfg.dim, bias=False)
+
+    def forward(self, ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        s = ids.shape[1]
+        x = F.embedding(ids, self.embed.weight.to(self.dt))
+        x = x + self.pos_embed[:s].to(self.dt)[None]
+        for block in self.blocks:
+            x = block(x, kv_len=lengths)
+        x = self.norm(x)
+        mask = (torch.arange(s, device=ids.device)[None, :] < lengths[:, None]).to(torch.float32)[..., None]
+        # Rows past a text's length are multiplied by 0 here: they must be
+        # finite, which both attention routes keep them.
+        pooled = (x.to(torch.float32) * mask).sum(dim=1) / torch.clamp(mask.sum(dim=1), min=1.0)
+        emb = F.linear(pooled, self.out.weight)
+        return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True), min=1e-6)
+
+
+class NeuralEmbedder:
+    """The byte-level transformer embedder on `device` ("cuda" unless the
+    caller asks for "cpu"). Weights are seeded random unless `params` (a
+    state_dict, e.g. `weights.params_from_jax` of the JAX embedder's flax
+    params) is given: no trained embedder weights are shipped, in the
+    reference either."""
+
+    def __init__(
+        self,
+        cfg: Optional[EmbedderConfig] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None,
+        seed: int = 0,
+        device: Union[str, torch.device] = "cuda",
+    ):
+        self.cfg = cfg or EmbedderConfig()
+        self.dim = self.cfg.dim
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("NeuralEmbedder: device 'cuda' asked for, but no CUDA device is available")
+        self.tok = ByteTokenizer()
+        model = NeuralEmbedderModule(self.cfg)
+        if params is None:
+            with torch.no_grad():
+                g = torch.Generator().manual_seed(seed)
+                init_weights_(model, g)
+                model.pos_embed.normal_(0.0, 0.02, generator=g)
+        else:
+            model.load_state_dict(params)
+        self.model = model.to(self.device).eval()
+
+    def padded_length(self, texts: List[str]) -> int:
+        """The sequence length a batch pads to: the longest text's bytes
+        rounded up to a multiple of 128, at least 8, at most max_seq."""
+        return min(self.cfg.max_seq, max(8, -(-max(len(t.encode()) for t in texts) // 128) * 128))
+
+    @torch.inference_mode()
+    def embed(self, texts: List[str]) -> np.ndarray:
+        ids, lens = self.tok.encode_batch(texts, self.padded_length(texts))
+        ids = torch.from_numpy(ids).to(self.device, torch.long)
+        lens = torch.from_numpy(lens).to(self.device)
+        with full_f32_matmul():
+            return self.model(ids, lens).cpu().numpy()
 
 
 def get_embedder(
@@ -139,7 +223,5 @@ def get_embedder(
     if backend == "hash":
         return HashNGramEmbedder(cfg, seed=seed, device=device)
     if backend == "neural":
-        raise NotImplementedError(
-            "the neural embedder is not ported yet (ROADMAP.md, queue 1: NeuralEmbedder)"
-        )
+        return NeuralEmbedder(cfg, seed=seed, device=device)
     raise ValueError(f"unknown embedder backend {backend!r}")

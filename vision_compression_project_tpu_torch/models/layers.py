@@ -12,6 +12,7 @@ cache with plain tensor code.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple, Union
 
 import torch
@@ -38,6 +39,33 @@ def use_flash(s: int, head_dim: int) -> bool:
 def _attend(q, k, v, kv_len, causal: bool) -> torch.Tensor:
     attend = flash_attention if use_flash(q.shape[2], q.shape[3]) else mha_reference
     return attend(q, k, v, kv_len=kv_len, causal=causal)
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
+    # flax's lecun_normal: truncated normal at two std, std corrected for the truncation.
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+
+
+@torch.no_grad()
+def init_weights_(model: nn.Module, g: torch.Generator) -> None:
+    """Seeded random weights for every submodule, in module order, with the
+    JAX package's initializers: lecun-normal Linear and Conv2d kernels, zero
+    biases, unit RMSNorm scales, N(0, 0.02) embeddings. Parameters held
+    outside these modules (position embeddings) are the caller's."""
+    for module in model.modules():
+        if isinstance(module, RMSNorm):
+            module.scale.fill_(1.0)
+        elif isinstance(module, nn.Linear):
+            _lecun_normal_(module.weight, module.in_features, g)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.Conv2d):
+            w = module.weight
+            _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], g)
+            module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            module.weight.normal_(0.0, 0.02, generator=g)
 
 
 class Dense(nn.Linear):

@@ -15,7 +15,6 @@ text up to EOS.
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -26,7 +25,7 @@ from ..ops.glyph_render import pack_primitives, render_pages_from_glyphs
 from ..ops.preprocess import preprocess_pages
 from .configs import VLMConfig
 from .decoder import Decoder
-from .layers import Dense, RMSNorm, torch_dtype
+from .layers import Dense, init_weights_, torch_dtype
 from .tokenizer import BOS_ID, EOS_ID, PAD_ID, SEP_ID, TASK_ANSWER_ID, TASK_EXTRACT_ID, get_tokenizer
 from .vit import VisionEncoder
 
@@ -106,12 +105,6 @@ class OpticalVLM(nn.Module):
         return self.decoder.decode_step(self.decoder.embed_tokens(ids[:, None]), caches, pos)
 
 
-def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
-    # flax's lecun_normal: truncated normal at two std, std corrected for the truncation.
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
-
-
 @torch.no_grad()
 def init_params(model: OpticalVLM, seed: int) -> None:
     """Fill `model` with seeded random weights, with the initializers the JAX
@@ -119,19 +112,7 @@ def init_params(model: OpticalVLM, seed: int) -> None:
     0.02) position and token embeddings. Same seed, same weights on any
     device when the model lies on the CPU (the generator's device)."""
     g = torch.Generator().manual_seed(seed)
-    for module in model.modules():
-        if isinstance(module, RMSNorm):
-            module.scale.fill_(1.0)
-        elif isinstance(module, nn.Linear):
-            _lecun_normal_(module.weight, module.in_features, g)
-            if module.bias is not None:
-                module.bias.zero_()
-        elif isinstance(module, nn.Conv2d):
-            w = module.weight
-            _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], g)
-            module.bias.zero_()
-        elif isinstance(module, nn.Embedding):
-            module.weight.normal_(0.0, 0.02, generator=g)
+    init_weights_(model, g)
     model.vision.pos_embed.normal_(0.0, 0.02, generator=g)
 
 

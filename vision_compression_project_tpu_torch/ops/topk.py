@@ -5,18 +5,32 @@ the hand-written kernel (kernels/masked_similarity.cu), a CPU tensor to
 `masked_similarity_reference`, the plain version. It keeps the semantics of
 vision_compression_project_tpu/ops/topk.py::masked_similarity: scores in f32,
 -1e30 where the mask is not positive. Top-k runs outside the kernel
-(`torch.topk`), as `lax.top_k` runs outside the Pallas kernel there.
+(`topk_lowest_first`), as `lax.top_k` runs outside the Pallas kernel there,
+and orders equal scores as `lax.top_k` does.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+from typing import Iterator, Tuple
 
 import torch
 
 from .. import kernels
 
 NEG_INF = -1e30
+
+
+@contextlib.contextmanager
+def full_f32_matmul() -> Iterator[None]:
+    """f32 matrix products on the card in true f32 (TF32 off) within the
+    block, as the reference's f32 products are; the flag is put back after."""
+    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
 
 
 def masked_similarity_reference(
@@ -47,8 +61,22 @@ def masked_similarity(emb: torch.Tensor, queries: torch.Tensor, mask: torch.Tens
                       for i in range(0, queries.shape[0], step)])
 
 
+def topk_lowest_first(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest of each row of f32 `scores`: (values (..., k), indices
+    (..., k)), in the order of `jax.lax.top_k`: by value in IEEE total order
+    (so +0.0 above -0.0), and among equal values the lower index first, also
+    for the ones tied at the k-th value. `torch.topk` promises no order for
+    equal values, so this is a stable sort of the floats' bit patterns mapped
+    to integers that sort in total order."""
+    bits = scores.to(torch.float32).contiguous().view(torch.int32)
+    keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    idx = torch.sort(keys, dim=-1, descending=True, stable=True).indices[..., :k]
+    return torch.gather(scores, -1, idx), idx
+
+
 def cosine_topk(
     emb: torch.Tensor, queries: torch.Tensor, mask: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k masked cosine matches: (values (B, k), indices (B, k))."""
-    return torch.topk(masked_similarity(emb, queries, mask), k, dim=-1)
+    """Top-k masked cosine matches: (values (B, k), indices (B, k)), equal
+    scores ordered as `topk_lowest_first` orders them."""
+    return topk_lowest_first(masked_similarity(emb, queries, mask), k)

@@ -1,8 +1,9 @@
 """Page-JSON ingestion into the vector index: the port of
-vision_compression_project_tpu/pipeline/ingest.py in single mode (one pooled
-vector per page).
+vision_compression_project_tpu/pipeline/ingest.py.
 
-Each page_NNN.json becomes one index row, embedded in batches; the manifest
+Each page_NNN.json becomes one index row: in single mode one pooled vector,
+embedded in batches; in multi mode (a store whose mode is "multi") the
+page's vector set, `page_vector_set`, one embed call per page. The manifest
 {doc_id, pdf_path, pages: [{page, file, memory_id}], failed_pages} has the
 reference's schema, and an existing manifest for the same doc is resumed.
 parse_json_file reads both legacy artifact shapes: {page_number,
@@ -139,12 +140,22 @@ def ingest_pages_dir(
         }
         todo.append((page_number, file_path, content, record))
 
+    multi = getattr(store, "mode", "single") == "multi"
     # One device batch per chunk: embed + append.
     for i in range(0, len(todo), batch_size):
         chunk = todo[i : i + batch_size]
         try:
             with METRICS.timer("ingest.batch"):
-                embeddings = embedder.embed([c[2] for c in chunk])
+                if multi:
+                    embeddings = []
+                    for c in chunk:
+                        vecs, sentences = page_vector_set(embedder, c[2])
+                        embeddings.append(vecs)
+                        # The sentence texts ride the record, aligned with
+                        # vectors 1.., so answers can reuse the stored vectors.
+                        c[3]["sentences"] = sentences
+                else:
+                    embeddings = embedder.embed([c[2] for c in chunk])
                 memory_ids = store.add(embeddings, [c[3] for c in chunk])
             METRICS.count("ingest.pages", len(chunk))
         except Exception as exc:  # a failed batch is recorded per page; the others go on

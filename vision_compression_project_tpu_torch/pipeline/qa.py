@@ -186,23 +186,42 @@ def _compose_extractive_answer(
 ) -> str:
     """Rank evidence sentences by embedding similarity to the question and
     compose cited markdown.  Citations are correct by construction: each
-    sentence cites the page it came from."""
+    sentence cites the page it came from.
+
+    When the index stored per-sentence vectors (multi-vector mode), they are
+    reused here: answer composition then embeds nothing but the question."""
     candidates = []  # (sentence, page)
+    stored_vecs = []  # aligned stored vectors (or None)
     for result in results:
         info = _extract_result_info(result, manifest)
         if info is None:
             continue
         _, page_number, content = info
+        sentences_meta = result.get("metadata", {}).get("sentences") if isinstance(result, dict) else None
+        vectors = result.get("vectors") if isinstance(result, dict) else None
+        if sentences_meta and vectors is not None and len(vectors) >= 1:
+            # vectors row 0 is the pooled page vector; rows 1.. align with sentences_meta.
+            for j, sentence in enumerate(sentences_meta):
+                if j + 1 < len(vectors) and 20 <= len(sentence) <= 500:
+                    candidates.append((sentence, page_number))
+                    stored_vecs.append(np.asarray(vectors[j + 1]))
+            continue
         content = content[:max_chars_per_page]
         for sentence in _SENT_RE.split(" ".join(content.split())):
             sentence = sentence.strip()
             if 20 <= len(sentence) <= 500:
                 candidates.append((sentence, page_number))
+                stored_vecs.append(None)
     if not candidates:
         return NOT_FOUND
     if question_vec is None:
         question_vec = embedder.embed([question])[0]
-    vecs = embedder.embed([sentence for sentence, _ in candidates])
+    missing = [i for i, v in enumerate(stored_vecs) if v is None]
+    if missing:
+        fresh = embedder.embed([candidates[i][0] for i in missing])
+        for i, v in zip(missing, fresh):
+            stored_vecs[i] = v
+    vecs = np.stack(stored_vecs)
     sims = vecs @ np.asarray(question_vec)
     order = np.argsort(-sims)
     chosen = []
@@ -263,7 +282,12 @@ def answer_question(
             pass
 
     with METRICS.timer("qa.retrieve"):
-        query_vec = embedder.embed([question])
+        if getattr(store, "mode", "single") == "multi":
+            # Query SET for late-interaction scoring: the question plus its
+            # full content-word rewrite.
+            query_vec = embedder.embed([question] + rewrite_query(question)[:1])
+        else:
+            query_vec = embedder.embed([question])
         results = store.search(query_vec, top_k=top_k, doc_id=doc_id)[0]
     METRICS.count("qa.queries", 1)
     if not results:

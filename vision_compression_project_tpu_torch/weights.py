@@ -10,7 +10,8 @@ Layouts:
   bias, RMSNorm scale, pos_embed              -> unchanged
   Embed embedding (vocab, dim)                -> Embedding weight (vocab, dim)
 Names: local_<i> -> local_blocks.<i>, global_<i> -> global_blocks.<i>,
-block_<i> -> blocks.<i>.
+block_<i> -> blocks.<i>, Embed_0 (the neural embedder's unnamed nn.Embed)
+-> embed.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ _RENAMES = [
     (re.compile(r"^local_(\d+)$"), r"local_blocks.\1"),
     (re.compile(r"^global_(\d+)$"), r"global_blocks.\1"),
     (re.compile(r"^block_(\d+)$"), r"blocks.\1"),
+    (re.compile(r"^Embed_0$"), "embed"),
 ]
 
 
@@ -57,7 +59,7 @@ def _leaf(parent: str, name: str, value: np.ndarray):
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
     """Flax params (nested mappings of arrays) -> state_dict of contiguous
     CPU tensors in the arrays' dtype, for OpticalVLM or any of its
-    submodules."""
+    submodules, or for NeuralEmbedderModule."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, path: list) -> None:
