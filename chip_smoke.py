@@ -2,8 +2,9 @@
 """Drive the PyTorch port's paths on one NVIDIA GPU and check them: page
 extraction with ocr_real, /chat (retrieval and a cited answer) with the hash
 embedder and ocr_bpe, /ingest from a PDF with the shipped weights, the HTTP
-service with its command line, and the retrieval settings: the neural
-embedder and multi-vector MaxSim retrieval, over HTTP too.
+service with its command line, the retrieval settings (the neural embedder
+and multi-vector MaxSim retrieval, over HTTP too), and training: ocr_real
+extraction training and the embedder's contrastive training.
 
     python3 chip_smoke.py [--seed N]
 
@@ -89,7 +90,27 @@ with the port's own reader. One flushed line per phase, with seconds:
            VCP_ANSWER_ENGINE=extractive: /ingest of the 16-page PDF (depth
            launches per page), three /chat questions and the first again
            (depth launches each, no similarity launch), four at once; each
-           equal to an in-process library call on the same seed.
+           equal to an in-process library call on the same seed;
+  train    (a) K1 inside FlashAttentionFn at the training shapes (ocr_real at
+           batch 32 and text_len 511: encoder windows, global, the causal GQA
+           decoder over 1534 tokens; the embedder's 64 documents of 256
+           bytes, ragged), bf16 and f32: output and dq/dk/dv against autograd
+           through mha_reference on the card, and the forward (K1), the
+           backward (plain tensor code, as the reference's is XLA), SDPA's
+           forward and backward and both bounds timed; (b) the shipped
+           ocr_real's loss on a fixed batch from train/pages.py, the card (f32
+           and bf16) against the CPU's plain path in f32, then the shipped
+           weights trained at the curriculum stage mixC (real prose, half the
+           pages jumbled, font 24, 14 lines, dpi 93, batch 32, lr 8e-4):
+           every parameter with a finite gradient on step 1, exactly 28 K1
+           launches per step (8 encoder + 6 decoder blocks, forward and remat
+           recompute), steps/s, pages/s, peak memory and each step's share
+           in data, forward, backward and optimizer; (c) ocr_real from the
+           seed halving its loss on one fixed batch; (d) EmbedderConfig() on a
+           repeated batch of 64 pairs, 4 K1 launches a step, the loss
+           falling, pairs/s; (e) save_checkpoint then load_runner extracting
+           the same pages as the model in memory, and both training command
+           lines, 2 steps each, each writing a checkpoint.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -132,6 +153,8 @@ from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, EOS_ID
 from vision_compression_project_tpu_torch.models.vlm import (
     ANSWER_DECODE_RESERVE, CACHE_BUCKET, PROMPT_BUCKET, OpticalVLM,
 )
+from vision_compression_project_tpu_torch.models.tokenizer import get_tokenizer
+from vision_compression_project_tpu_torch.ops import attention as tattn
 from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
 from vision_compression_project_tpu_torch.ops.topk import (
     NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference, topk_lowest_first,
@@ -146,9 +169,17 @@ from vision_compression_project_tpu_torch.raster.rasterizer import build_library
 from vision_compression_project_tpu_torch.serve.httpd import API_INFO, CORS_HEADERS, create_server, warmup
 from vision_compression_project_tpu_torch.serve.ui import UI_HTML
 from vision_compression_project_tpu_torch.train.checkpoint import (
-    load_params, load_runner, param_digests, shipped_digests,
+    load_params, load_runner, param_digests, save_checkpoint, shipped_digests,
+)
+from vision_compression_project_tpu_torch.train.corpus import corpus_sentences
+from vision_compression_project_tpu_torch.train.data import (
+    device_batch, prefetch_batches, synthetic_batches, target_tokens,
+)
+from vision_compression_project_tpu_torch.train.embedder_train import (
+    embedder_train_step, make_embedder_train_state, pair_batch, synthetic_pair_batches,
 )
 from vision_compression_project_tpu_torch.train.pages import ingest_texts, prose_pages
+from vision_compression_project_tpu_torch.train.train_step import cosine_lr, make_train_state, train_step, vlm_loss
 from vision_compression_project_tpu_torch.weights import params_from_jax
 
 PRESET = "ocr_real"
@@ -660,11 +691,7 @@ def time_chat_stages(runner, index, embedder, manifest, workdir: Path) -> dict:
 def answer_logits_phase(chat_cfg, seed: int):
     """First-step answer logits, kernel path (card) against plain path (CPU),
     f32, over a full evidence budget behind the blank page."""
-    cfg32 = dataclasses.replace(
-        chat_cfg,
-        vision=dataclasses.replace(chat_cfg.vision, dtype="float32"),
-        decoder=dataclasses.replace(chat_cfg.decoder, dtype="float32"),
-    )
+    cfg32 = f32_config(chat_cfg)
     pack = "\n\n---\n\n".join(prose_pages(seed + 1, TOP_K))
     out = {}
     for device in ("cuda", "cpu"):
@@ -693,6 +720,12 @@ def make_pages(seed: int) -> np.ndarray:
                 pages[p, top : top + 24, x : x + gw] = rng.integers(0, 90, (24, gw), dtype=np.uint8)
                 x += gw + int(rng.integers(2, 14))
     return pages
+
+
+def f32_config(cfg):
+    """`cfg` computing in f32 (its parameters are f32 already)."""
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, dtype="float32"),
+                               decoder=dataclasses.replace(cfg.decoder, dtype="float32"))
 
 
 def sync_s(t0: float) -> float:
@@ -771,11 +804,7 @@ def time_extract_stages(runner, pages: np.ndarray, max_new: int) -> dict:
 
 def logits_phase(cfg, seed: int):
     """Kernel path (card) against plain path (CPU) in f32 on one page."""
-    cfg32 = dataclasses.replace(
-        cfg,
-        vision=dataclasses.replace(cfg.vision, dtype="float32"),
-        decoder=dataclasses.replace(cfg.decoder, dtype="float32"),
-    )
+    cfg32 = f32_config(cfg)
     page = make_pages(seed)[:1]
     out = {}
     for device in ("cuda", "cpu"):
@@ -1602,6 +1631,408 @@ def retrieval_phase(seed: int, workdir: Path, ingest: dict, sim_rows: int) -> di
     return out
 
 
+# ---------------------------------------------------------------- [train]
+# Training at full width: ocr_real at the shipped curriculum stage mixC
+# (scripts/run_curriculum.py:83-86, checkpoints/default/ocr_real/meta.json):
+# real prose with half the pages jumbled, font 24, 14 lines, dpi 93, text_len
+# 511, batch 32, lr 8e-4; and the neural embedder at EmbedderConfig().
+DEVICE = "cuda"  # every tensor of the phase lies on the card
+MIXC = dict(kind="real", jumble_frac=0.5, font_size=24, lines=14, dpi=93, text_len=511)
+TRAIN_BATCH, TRAIN_LR = 32, 8e-4
+TRAIN_STEPS = 4          # warm-started steps at mixC: step 1 checked, the rest timed by stage
+LOSS_PAGES = 2           # the fixed batch of the loss check, from train/pages.py
+OVERFIT_PAGES, OVERFIT_LR, OVERFIT_MAX_STEPS = 2, 1e-3, 200
+EMBED_BATCH, EMBED_STEPS, EMBED_LR = 64, 20, 3e-4
+# The shipped model's loss on the fixed batch, the card against the CPU's
+# plain path in f32: f32 on the card within 1e-3 (the same f32 arithmetic
+# summed in another order, TF32 off); the training dtype (bf16) within
+# 5e-2 x max(loss, 1) (bf16 activations through 14 blocks).
+LOSS_ATOL_F32, LOSS_RTOL_BF16 = 1e-3, 5e-2
+# FlashAttentionFn against autograd through mha_reference on the card, the
+# largest error of the output and of dq, dk, dv over the largest value of
+# the reference's: both backwards are f32 arithmetic on the same inputs (the
+# port's chunked), rounded to the input type at the end.
+GRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def train_shapes(cfg, embed_kv_len: list) -> list:
+    """K1's calls in one ocr_real training step at mixC's batch and text_len
+    (each launched in the forward and again in the remat recompute), and in
+    one embedder step (the documents: S 256, non-causal, ragged)."""
+    v, dec = cfg.vision, cfg.decoder
+    win = v.window
+    s_dec = v.tokens_out + MIXC["text_len"] - 1
+    e = EmbedderConfig()
+    return [
+        AttnShape("train_encoder_local", TRAIN_BATCH * (v.grid // win) ** 2, v.heads_local, v.heads_local, win * win,
+                  v.dim_local // v.heads_local, False, [win * win] * (TRAIN_BATCH * (v.grid // win) ** 2),
+                  2 * v.depth_local, "train"),
+        AttnShape("train_encoder_global", TRAIN_BATCH, v.heads_global, v.heads_global, v.tokens_out,
+                  v.dim_global // v.heads_global, False, [v.tokens_out] * TRAIN_BATCH, 2 * v.depth_global, "train"),
+        AttnShape("train_decoder", TRAIN_BATCH, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
+                  [s_dec] * TRAIN_BATCH, 2 * dec.depth, "train"),
+        AttnShape("train_embedder_docs", EMBED_BATCH, e.heads, e.heads, 256, e.dim // e.heads, False,
+                  list(embed_kv_len), e.depth, "train_embedder"),
+    ]
+
+
+def backward_bound_ms(sh: AttnShape, dtype: torch.dtype):
+    """(least time in ms, "bytes" or "operations") of one attention backward:
+    q, k, v and the output gradient read once, dq, dk, dv written once; 10*D
+    operations per (query, key) pair the masks leave (the recomputed scores
+    and the four products of the backward)."""
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = (2 * sh.b * sh.h + 4 * sh.b * sh.hkv) * sh.s * sh.d * item
+    rows = np.arange(sh.s)
+    pairs = sum(int(np.minimum(rows + 1, n).sum()) if sh.causal else n * sh.s for n in sh.kv_len)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 10 * sh.d * pairs * sh.h / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_library_call(q, k, v, g, sh: AttnShape):
+    """SDPA's forward, and its forward + backward, on the same inputs, as
+    yardsticks only: GQA's k/v expanded to every head before the call, the
+    causal rows as is_causal, ragged key lengths as a boolean mask."""
+    group = sh.h // sh.hkv
+    leaves = [q.detach().requires_grad_(), *(t.repeat_interleave(group, dim=1).detach().requires_grad_()
+                                              for t in (k, v))]
+    mask = None
+    if any(n < sh.s for n in sh.kv_len):
+        idx = torch.arange(sh.s, device=q.device)
+        mask = idx[None, None, None, :] < torch.tensor(sh.kv_len, device=q.device)[:, None, None, None]
+
+    def fwd():
+        return F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=sh.causal and mask is None)
+
+    return (lambda: fwd().detach()), (lambda: torch.autograd.grad(fwd(), leaves, g))
+
+
+def train_kernel_phase(shapes: list, seed: int) -> dict:
+    """FlashAttentionFn at each training shape, bf16 and f32: output and
+    dq/dk/dv against autograd through mha_reference on the card; in bf16 the
+    forward (K1), the backward (plain tensor code), SDPA's forward and
+    backward, and their bounds, timed."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    rows = []
+    for sh in shapes:
+        kv_len = torch.tensor(sh.kv_len, dtype=torch.int32, device=DEVICE)
+        scale = sh.d ** -0.5
+        for dtype in (torch.bfloat16, torch.float32):
+            def rnd(heads):
+                return torch.randn((sh.b, heads, sh.s, sh.d), generator=gen, device=DEVICE).to(dtype)
+            q, k, v, g = rnd(sh.h), rnd(sh.hkv), rnd(sh.hkv), rnd(sh.h)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            kernels.reset_launch_counts()
+            out = flash_attention(*leaves, kv_len=kv_len, causal=sh.causal)
+            grads = torch.autograd.grad(out, leaves, g)
+            torch.cuda.synchronize()
+            launched = kernels.launches["flash_attention"]
+            ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            ref = mha_reference(*ref_leaves, kv_len=kv_len, causal=sh.causal)
+            ref_grads = torch.autograd.grad(ref, ref_leaves, g)
+            errs = {}
+            for name, got, want in zip(("o", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads)):
+                want = want.float()
+                errs[name] = (got.float() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+            del ref_leaves, ref, ref_grads
+            ok = (launched == 1 and type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+                  and all(bool(torch.isfinite(t).all()) for t in (out, *grads))
+                  and max(errs.values()) <= GRAD_RTOL[dtype])
+            row = dict(kernel="flash_attention", shape=sh.name, dtype=str(dtype).replace("torch.", ""),
+                       route=kernels.FLASH_ROUTES[dtype], q=[sh.b, sh.h, sh.s, sh.d], kv=[sh.b, sh.hkv, sh.s, sh.d],
+                       causal=sh.causal, kv_len=sh.kv_len if len(set(sh.kv_len)) > 1 else sh.kv_len[0],
+                       launches_in_check=launched, rel_err=errs, max_rel_err=max(errs.values()),
+                       tol_rel=GRAD_RTOL[dtype], ok=ok, launches_per_step=sh.launches, path=sh.path)
+            if dtype == torch.bfloat16:
+                with torch.no_grad():
+                    row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal), 10)
+                row["bwd_ms"] = cuda_ms(
+                    lambda: tattn.flash_attention_bwd(q, k, v, kv_len, g, sh.causal, scale), 3, warmup=1)
+                row["plain_ms"] = cuda_ms(lambda: mha_reference(q, k, v, kv_len=kv_len, causal=sh.causal), 3,
+                                          warmup=1)
+                lib_fwd, lib_fwd_bwd = train_library_call(q, k, v, g, sh)
+                row["library_ms"] = cuda_ms(lib_fwd, 10)
+                row["library_fwd_bwd_ms"] = cuda_ms(lib_fwd_bwd, 5, warmup=1)
+                row["library_bwd_ms"] = row["library_fwd_bwd_ms"] - row["library_ms"]
+                row["bound_ms"], row["bound_by"] = bound_ms(sh, dtype)
+                row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(sh, dtype)
+            print("kernel " + json.dumps(row), flush=True)
+            rows.append(row)
+            if not ok:
+                fail(f"FlashAttentionFn {sh.name} {dtype}: launches {launched}, relative errors {errs} "
+                     f"(tol {GRAD_RTOL[dtype]})")
+            del q, k, v, g, leaves, out, grads
+    torch.cuda.empty_cache()
+    # Per training step: the forward launches (in ocr_real's blocks the
+    # forward and the remat recompute) and one backward per block.
+    rec = {}
+    for path in ("train", "train_embedder"):
+        main = [r for r in rows if r["dtype"] == "bfloat16" and r["path"] == path]
+        per_block = 2 if path == "train" else 1
+        rec[path] = {
+            "launches_per_step": sum(r["launches_per_step"] for r in main),
+            **{k: sum(r[k] * r["launches_per_step"] for r in main)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            **{k: sum(r[k] * (r["launches_per_step"] // per_block) for r in main)
+               for k in ("bwd_ms", "library_bwd_ms", "bwd_bound_ms")},
+        }
+    rec["max_rel_err"] = max(r["max_rel_err"] for r in rows)
+    return rec
+
+
+def fixed_pages(seed: int, n: int, workdir: Path, text_len: int, tok):
+    """A batch made from train/pages.py (the same on any machine) at mixC's
+    render: {pages_u8, token_ids} as synthetic_batches yields them."""
+    texts = ingest_texts(seed, n, MIXC["lines"], MIXC["font_size"])
+    pdf = make_pdf(texts, workdir / f"fixed_{n}.pdf", font_size=MIXC["font_size"])
+    with PdfDocument(pdf) as doc:
+        rasters = doc.render_batch(0, n - 1, dpi=MIXC["dpi"])
+    h, w = max(r.shape[0] for r in rasters), max(r.shape[1] for r in rasters)
+    pages = np.full((n, h, w, 3), 255, np.uint8)
+    for i, r in enumerate(rasters):
+        pages[i, : r.shape[0], : r.shape[1]] = r
+    tokens = np.stack([target_tokens(t, i + 1, text_len, tok=tok) for i, t in enumerate(texts)])
+    return {"pages_u8": pages, "token_ids": tokens}
+
+
+def shipped_loss_check(cfg, shipped: dict, fixed: dict) -> dict:
+    """The shipped ocr_real's loss on the fixed batch: the card in the
+    training dtype and in f32 against the CPU's plain path in f32."""
+    losses = {}
+    for name, c, device in (("cpu_f32", f32_config(cfg), "cpu"), ("card_f32", f32_config(cfg), DEVICE),
+                            ("card_bf16", cfg, DEVICE)):
+        model = OpticalVLM(c)
+        model.load_state_dict(shipped)
+        model.to(device)
+        with torch.no_grad():
+            losses[name] = float(vlm_loss(model, device_batch(c, fixed, device=device)))
+        del model
+    ref = losses["cpu_f32"]
+    out = dict(losses, f32_err=abs(losses["card_f32"] - ref), bf16_err=abs(losses["card_bf16"] - ref),
+               f32_atol=LOSS_ATOL_F32, bf16_atol=LOSS_RTOL_BF16 * max(ref, 1.0))
+    if not (np.isfinite(list(losses.values())).all() and out["f32_err"] <= out["f32_atol"]
+            and out["bf16_err"] <= out["bf16_atol"]):
+        fail(f"shipped ocr_real loss on the fixed batch: {out}")
+    return out
+
+
+def timed_step(model, opt, state, data, cfg) -> dict:
+    """One train step by stage, each ending in a device sync: data (the next
+    prefetched batch to the device), forward (vlm_loss), backward, optimizer.
+    The same calls as train_step."""
+    t = {}
+    t0 = time.perf_counter()
+    batch = device_batch(cfg, next(data), device=DEVICE)
+    t["data_s"] = sync_s(t0)
+    for p in state.params.values():
+        p.grad = None
+    t0 = time.perf_counter()
+    loss = vlm_loss(model, batch)
+    t["forward_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    loss.backward()
+    t["backward_s"] = sync_s(t0)
+    t0 = time.perf_counter()
+    state.opt_state = opt.update(state.params, state.opt_state)
+    state.step += 1
+    t["optimizer_s"] = sync_s(t0)
+    t["loss"] = float(loss.detach())
+    return t
+
+
+def check_gradients(model) -> None:
+    """Every parameter has a finite gradient, and every attention projection a
+    non-zero one (a forward that left autograd would give wq/wk/wv none)."""
+    bad = [n for n, p in model.named_parameters() if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad:
+        fail(f"{len(bad)} parameters without a finite gradient after step 1, e.g. {bad[:4]}")
+    blocks = list(model.vision.local_blocks) + list(model.vision.global_blocks) + list(model.decoder.blocks)
+    zero = [f"{i}.{w}" for i, blk in enumerate(blocks) for w in ("wq", "wk", "wv")
+            if float(getattr(blk.attn, w).weight.grad.abs().max()) == 0.0]
+    if zero:
+        fail(f"attention projections with an all-zero gradient: {zero[:6]}")
+
+
+def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int) -> dict:
+    """(b) the shipped ocr_real warm-started and trained at mixC; (c) ocr_real
+    from the seed overfitting one fixed batch."""
+    out = {"launches": 0}
+    shipped = params_from_jax(load_params(config.shipped_checkpoint_dir("ocr_real")))
+    fixed = fixed_pages(seed, LOSS_PAGES, workdir, MIXC["text_len"], get_tokenizer(cfg))
+    t0 = time.perf_counter()
+    out["loss_check"] = shipped_loss_check(cfg, shipped, fixed)
+    log("train.loss_check", time.perf_counter() - t0, **out["loss_check"])
+
+    data = prefetch_batches(synthetic_batches(cfg, TRAIN_BATCH, seed=seed, workdir=workdir, **MIXC))
+    model, opt, state = make_train_state(cfg, device=DEVICE, seed=seed, lr=cosine_lr(TRAIN_LR, TRAIN_STEPS))
+    model.load_state_dict(shipped)  # what --init_from checkpoints/default/ocr_real loads
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    t_all = time.perf_counter()
+    for step in range(1, TRAIN_STEPS + 1):
+        kernels.reset_launch_counts()
+        if step == 1:
+            t0 = time.perf_counter()
+            batch = device_batch(cfg, next(data), device=DEVICE)
+            first_data_s = sync_s(t0)
+            t0 = time.perf_counter()
+            state, loss = train_step(model, opt, state, batch)
+            t = {"loss": float(loss), "step_s": sync_s(t0), "first_batch_s": first_data_s}
+            check_gradients(model)
+            t_steady = time.perf_counter()
+        else:
+            t = timed_step(model, opt, state, data, cfg)
+            t["step_s"] = t["data_s"] + t["forward_s"] + t["backward_s"] + t["optimizer_s"]
+        launched = kernels.launches["flash_attention"]
+        out["launches"] += launched
+        log("train.mixc_step", t["step_s"], step=step, flash_launches=launched, **t)
+        if launched != k1_per_step:
+            fail(f"ocr_real training step {step}: {launched} flash-attention launches, expected {k1_per_step}")
+        if not np.isfinite(t["loss"]):
+            fail(f"ocr_real training step {step}: loss {t['loss']}")
+        steps.append(t)
+    steady_s = time.perf_counter() - t_steady
+    timed = steps[1:]
+    out["mixc"] = {
+        "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "losses": [t["loss"] for t in steps],
+        "steps_per_s": len(timed) / steady_s, "pages_per_s": len(timed) * TRAIN_BATCH / steady_s,
+        "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "first_batch_s": steps[0]["first_batch_s"], "first_step_s": steps[0]["step_s"],
+        **{k: float(np.median([t[k] for t in timed])) for k in ("data_s", "forward_s", "backward_s", "optimizer_s")},
+    }
+    total = sum(out["mixc"][k] for k in ("data_s", "forward_s", "backward_s", "optimizer_s"))
+    out["mixc"]["share"] = {k[:-2]: out["mixc"][k] / total
+                            for k in ("data_s", "forward_s", "backward_s", "optimizer_s")}
+    out["model"], out["state"], out["fixed"] = model, state, fixed
+    log("train.mixc", steady_s, **{k: json.dumps(v) for k, v in out["mixc"].items()})
+
+    # (c) From the seed, one fixed batch again and again.
+    t0 = time.perf_counter()
+    model_s, opt_s, state_s = make_train_state(cfg, device=DEVICE, seed=seed, lr=OVERFIT_LR)
+    batch = device_batch(cfg, fixed, device=DEVICE)
+    first = None
+    for step in range(1, OVERFIT_MAX_STEPS + 1):
+        kernels.reset_launch_counts()
+        state_s, loss = train_step(model_s, opt_s, state_s, batch)
+        loss_v = float(loss)
+        launched = kernels.launches["flash_attention"]
+        out["launches"] += launched
+        if launched != k1_per_step or not np.isfinite(loss_v):
+            fail(f"overfit step {step}: {launched} flash-attention launches, loss {loss_v}")
+        first = loss_v if first is None else first
+        if loss_v <= first / 2:
+            break
+    out["overfit"] = {"pages": OVERFIT_PAGES, "lr": OVERFIT_LR, "first_loss": first, "last_loss": loss_v,
+                      "steps": step, "max_steps": OVERFIT_MAX_STEPS}
+    log("train.overfit", sync_s(t0), **out["overfit"])
+    if not loss_v <= first / 2:
+        fail(f"ocr_real from the seed did not halve its loss on one batch in {OVERFIT_MAX_STEPS} steps: "
+             f"{first} -> {loss_v}")
+    del model_s, opt_s, state_s
+    return out
+
+
+def embedder_train_phase(seed: int, k1_per_step: int) -> dict:
+    """(d) EmbedderConfig() trained on one repeated pair batch of 64."""
+    cfg = EmbedderConfig()
+    model, opt, params, opt_state = make_embedder_train_state(cfg, lr=EMBED_LR, seed=seed, device=DEVICE)
+    batch = pair_batch(next(synthetic_pair_batches(EMBED_BATCH, seed=seed)), DEVICE)
+    losses, launches, t_steady = [], 0, None
+    for step in range(1, EMBED_STEPS + 1):
+        if step == 2:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+        kernels.reset_launch_counts()
+        params, opt_state, loss = embedder_train_step(model, opt, params, opt_state, batch)
+        losses.append(float(loss))
+        launched = kernels.launches["flash_attention"]
+        launches += launched
+        if launched != k1_per_step:
+            fail(f"embedder step {step}: {launched} flash-attention launches, expected {k1_per_step}")
+    steady_s = time.perf_counter() - t_steady
+    out = {"dim": cfg.dim, "depth": cfg.depth, "batch": EMBED_BATCH, "steps": EMBED_STEPS, "first_loss": losses[0],
+           "last_loss": losses[-1], "pairs_per_s": (EMBED_STEPS - 1) * EMBED_BATCH / steady_s,
+           "launches": launches}
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"embedder loss did not fall on a repeated batch: {losses}")
+    return out
+
+
+def train_round_trip(cfg, model, state, fixed: dict, workdir: Path) -> dict:
+    """(e) save_checkpoint then load_runner: the same page extraction as the
+    model in memory; then both command lines, 2 steps each, on the card."""
+    path = save_checkpoint(workdir / "trained", state)
+    pages = fixed["pages_u8"][..., 0]
+    model.eval()
+    in_memory = VLMRunner(cfg, params=model.state_dict(), device=DEVICE).extract_batch(pages, [1, 2], max_new=64)
+    loaded = load_runner(cfg, workdir / "trained", device=DEVICE).extract_batch(pages, [1, 2], max_new=64)
+    if loaded != in_memory:
+        fail(f"extraction after save_checkpoint + load_runner differs: {loaded} vs {in_memory}")
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    commands = {
+        "train_vlm": ["--preset", "ocr_real", "--steps", "2", "--batch", "2", "--text_len", "128", "--log_every", "1",
+                      "--init_from", config.shipped_checkpoint_dir("ocr_real"), "--ckpt_dir",
+                      str(workdir / "cli_vlm")],
+        "train_embedder": ["--steps", "2", "--batch", "8", "--log_every", "1", "--ckpt_dir", str(workdir / "cli_emb")],
+    }
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen([sys.executable, "-m", f"vision_compression_project_tpu_torch.scripts.{name}",
+                                     *args], cwd=repo, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for name, args in commands.items()}
+    out = {"checkpoint": str(path)}
+    for name, proc in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            fail(f"{name} did not finish in 300 s")
+        lines = stdout.strip().splitlines() or [""]
+        print(f"-- {name}\n{stdout.strip()}", flush=True)
+        ckpt = (workdir / ("cli_vlm" if name == "train_vlm" else "cli_emb") / "step_00000002").resolve()
+        written = Path(lines[-1].split(": ", 1)[-1]).resolve()
+        if proc.returncode != 0 or not (ckpt / "checkpoint.pt").is_file() or written != ckpt:
+            fail(f"{name} --steps 2: rc {proc.returncode}, last line {lines[-1:]}, stderr {stderr[-2000:]}")
+        out[name] = lines[-1]
+    out["cli_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_phase(cfg, seed: int, workdir: Path) -> dict:
+    """[train]: (a) K1 with its gradient at the training shapes, (b) the
+    shipped ocr_real trained at mixC, (c) ocr_real from the seed overfitting
+    a batch, (d) the embedder at full width, (e) a checkpoint round trip and
+    both command lines."""
+    # The corpus harvest (reading the installed packages' documentation) runs
+    # while K1 is checked.
+    pair = next(synthetic_pair_batches(EMBED_BATCH, seed=seed))
+    shapes = train_shapes(cfg, [int(n) for n in pair["d_len"]])
+    with ThreadPoolExecutor(1) as pool:
+        harvest = pool.submit(corpus_sentences, "train")
+        t0 = time.perf_counter()
+        rec = train_kernel_phase(shapes, seed)
+        log("train.kernel", sync_s(t0), **{k: json.dumps(v) for k, v in rec.items()})
+        t0 = time.perf_counter()
+        n_sentences = len(harvest.result())
+    log("train.harvest_wait", time.perf_counter() - t0, sentences=n_sentences)
+    k1_vlm = sum(sh.launches for sh in shapes if sh.path == "train")
+    k1_embed = sum(sh.launches for sh in shapes if sh.path == "train_embedder")
+    out = vlm_train_phase(cfg, seed, workdir, k1_vlm)
+    out["kernel"] = rec
+    out["k1_per_step"] = {"ocr_real": k1_vlm, "embedder": k1_embed}
+    t0 = time.perf_counter()
+    out["embedder"] = embedder_train_phase(seed, k1_embed)
+    out["launches"] += out["embedder"]["launches"]
+    log("train.embedder", sync_s(t0), **out["embedder"])
+    t0 = time.perf_counter()
+    out["round_trip"] = train_round_trip(cfg, out.pop("model"), out.pop("state"), out.pop("fixed"), workdir)
+    log("train.round_trip", time.perf_counter() - t0, **out["round_trip"])
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1695,13 +2126,19 @@ def main() -> int:
             embed_max_abs_err=retrieved["embedder"]["max_abs_err"],
             maxsim_topk_ms=retrieved["maxsim"]["question_all_maxsim_topk_ms"],
             serve_ingest_s=retrieved["serve"]["ingest_s"], serve_chat_s=json.dumps(retrieved["serve"]["chat_s"]))
+        t0 = time.perf_counter()
+        trained = train_phase(cfg, args.seed, workdir)
+        log("train", sync_s(t0), launches=trained["launches"], k1_per_step=json.dumps(trained["k1_per_step"]),
+            mixc=json.dumps(trained["mixc"]), overfit=json.dumps(trained["overfit"]),
+            embedder=json.dumps(trained["embedder"]))
 
     def entry(name, source, replaces, rec, **extra):
         by_path = {"extract": launches[name], "chat": chat_launches[name],
                    "ingest_pdf": ingest["routes"]["glyph"]["launches"] if name == "flash_attention" else 0,
                    "ingest_pdf_pixels": ingest["routes"]["pixel"]["launches"] if name == "flash_attention" else 0,
                    "chat_shipped": shipped["launches"][name], "serve": served["launches"][name],
-                   "retrieval": retrieved["launches"][name]}
+                   "retrieval": retrieved["launches"][name],
+                   "train": trained["launches"] if name == "flash_attention" else 0}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1713,7 +2150,9 @@ def main() -> int:
         entry("flash_attention", "vision_compression_project_tpu_torch/kernels/flash_attention.cu",
               "vision_compression_project_tpu/ops/attention.py:30", record,
               kernel_route=kernels.FLASH_ROUTES[torch.bfloat16], graph_ms=record["graph_ms"],
-              library_graph_ms=record["library_graph_ms"], embed_call=record["embed_call"]),
+              library_graph_ms=record["library_graph_ms"], embed_call=record["embed_call"],
+              train_step=trained["kernel"]["train"], embedder_train_step=trained["kernel"]["train_embedder"],
+              train_max_rel_err=trained["kernel"]["max_rel_err"]),
         entry("masked_similarity", "vision_compression_project_tpu_torch/kernels/masked_similarity.cu",
               "vision_compression_project_tpu/ops/topk.py:26", sim_record,
               gemv_no_mask_ms=sim_record["gemv_no_mask_ms"], topk_lowest_first_ms=retrieved["topk"]["ms"],

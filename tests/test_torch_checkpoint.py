@@ -1,9 +1,11 @@
-"""The port's checkpoint reader against orbax and libzstd: both shipped
+"""The port's checkpoints against orbax and libzstd: both shipped
 checkpoints read bit for bit as orbax restores them, the committed digests
 equal those of orbax's restore, damaged files raise, TrainState checkpoints
 written by the JAX package load to the same params, and the zstd decoder
 round-trips frames made by the system's libzstd (loaded here through ctypes;
-the port never loads it).
+the port never loads it). The save side: `params_to_jax` inverts
+`params_from_jax`; the port's own step and params checkpoints restore the
+state and load into a runner; partial saves are ignored.
 
 Tolerance: none anywhere; every comparison is of exact bytes.
 """
@@ -19,6 +21,7 @@ import numpy as np
 import orbax.checkpoint as ocp
 import pytest
 import tensorstore as ts
+import torch
 
 from vision_compression_project_tpu import config as jconfig
 from vision_compression_project_tpu.train import checkpoint as jckpt
@@ -154,6 +157,102 @@ def test_no_checkpoint_gives_seeded_runner(tmp_path):
     assert fresh.max_new_default == 256
     for name, value in seeded.model.state_dict().items():
         assert torch_equal(fresh.model.state_dict()[name], value), name
+
+
+# ---------------------------------------------------------------- save side
+
+
+@pytest.mark.parametrize("which", ["vlm", "embedder"])
+def test_params_to_jax_inverts_params_from_jax(which):
+    from vision_compression_project_tpu.models import configs as jconfigs
+    from vision_compression_project_tpu.models.embedder import NeuralEmbedderModule as JEmbedder
+    from vision_compression_project_tpu_torch.models import configs as tconfigs
+    from vision_compression_project_tpu_torch.weights import params_to_jax
+
+    if which == "vlm":
+        jcfg, tcfg = mini_configs("float32")
+        tree = numpy_params(jcfg, seed=2)
+    else:
+        small = dict(dim=64, depth=2, heads=4, max_seq=256)
+        tcfg = tconfigs.EmbedderConfig(**small)
+        shapes = jax.eval_shape(lambda: JEmbedder(jconfigs.EmbedderConfig(**small)).init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32), jnp.ones((1,), jnp.int32)))["params"]
+        rng = np.random.default_rng(2)
+        tree = jax.tree_util.tree_map(lambda s: rng.standard_normal(s.shape).astype(np.float32),
+                                      __import__("flax").core.meta.unbox(shapes))
+    back = params_to_jax(params_from_jax(tree), tcfg)
+    want, got = _flat(tree), _flat(back)
+    assert list(sorted(got)) == list(sorted(want))
+    for name, arr in want.items():
+        assert got[name].dtype == arr.dtype and got[name].shape == arr.shape, name
+        assert got[name].tobytes() == arr.tobytes(), name
+
+
+def _port_state(tcfg, seed):
+    from vision_compression_project_tpu_torch.train.train_step import make_train_state
+
+    model, opt, state = make_train_state(tcfg, device="cpu", seed=seed)
+    with torch.no_grad():
+        for i, (mu, nu) in enumerate(zip(state.opt_state.mu.values(), state.opt_state.nu.values())):
+            mu.fill_(0.01 * i)
+            nu.fill_(0.02 * i)
+    state.opt_state.count, state.step = 5, 7
+    return model, state
+
+
+def test_train_state_saves_and_restores_exactly(tmp_path):
+    _, tcfg = mini_configs("float32")
+    model, state = _port_state(tcfg, seed=1)
+    path = tckpt.save_checkpoint(tmp_path, state)
+    assert path == tmp_path.resolve() / "step_00000007" and (path / tckpt.PORT_FILE).is_file()
+    assert [p.name for p in tmp_path.iterdir()] == ["step_00000007"]  # no temporary left
+    _, fresh = _port_state(tcfg, seed=2)
+    fresh.opt_state.count, fresh.step = 0, 0
+    assert tckpt.restore_checkpoint(tmp_path, fresh) is fresh
+    assert (fresh.step, fresh.opt_state.count) == (7, 5)
+    for got, want in ((fresh.params, state.params), (fresh.opt_state.mu, state.opt_state.mu),
+                      (fresh.opt_state.nu, state.opt_state.nu)):
+        for name, value in want.items():
+            assert torch_equal(got[name].detach(), value.detach()), name
+    # load_runner reads the port's TrainState checkpoint: the same weights.
+    runner = tckpt.load_runner(tcfg, tmp_path, device="cpu")
+    for name, value in model.state_dict().items():
+        assert torch_equal(runner.model.state_dict()[name], value), name
+    assert tckpt.restore_checkpoint(tmp_path / "missing", fresh) is None
+
+
+def test_params_checkpoint_round_trips_the_shipped_weights(tmp_path):
+    tree = tckpt.load_params(jconfig.shipped_checkpoint_dir("ocr_bpe"))
+    path = tckpt.save_params(tmp_path, tree, step=3)
+    assert path.name == "params_00000003"
+    got, want = _flat(tckpt.load_params(tmp_path)), _flat(tree)
+    assert list(got) == list(want)
+    assert all(got[k].dtype == want[k].dtype and got[k].tobytes() == want[k].tobytes() for k in want)
+    raw = torch.load(path / tckpt.PORT_FILE, weights_only=True)
+    assert "decoder.block_0.attn.wq.kernel" in raw["params"]  # the reference's dotted names
+
+
+def test_partial_port_saves_are_ignored(tmp_path):
+    _, tcfg = mini_configs("float32")
+    _, state = _port_state(tcfg, seed=3)
+    tckpt.save_checkpoint(tmp_path, state, step=2)
+    partial = tmp_path / ".step_00000009.tmp-4242"
+    partial.mkdir()
+    (partial / tckpt.PORT_FILE).write_bytes(b"half a checkpoint")
+    (tmp_path / "step_00000010.orbax-checkpoint-tmp-1").mkdir()
+    assert [p.name for p in tckpt.complete_steps(tmp_path)] == ["step_00000002"]
+    assert tckpt.latest_checkpoint(tmp_path).name == "step_00000002"
+    assert tckpt.load_params(tmp_path) is not None
+
+
+def test_restore_refuses_an_orbax_train_state(tmp_path):
+    jcfg, tcfg = mini_configs("float32")
+    params = jax.tree_util.tree_map(jnp.asarray, numpy_params(jcfg, seed=5))
+    jckpt.save_checkpoint(tmp_path, TrainState(params=params, opt_state=make_optimizer(3e-4).init(params),
+                                               step=jnp.asarray(1, jnp.int32)))
+    _, state = _port_state(tcfg, seed=3)
+    with pytest.raises(ValueError, match="orbax"):
+        tckpt.restore_checkpoint(tmp_path, state)
 
 
 # ---------------------------------------------------------------- zstd

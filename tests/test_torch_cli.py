@@ -8,7 +8,9 @@ the same work in-process through the library functions its scripts call
 relative paths. What the port writes must equal it: page JSON, manifest.json
 keys and values, combined.md, the PNGs' pixels, supermemory_manifest.json,
 the answer file's sections, and the stdout lines the JAX scripts print.
-Timestamps and memory ids are masked; nothing else is.
+Timestamps and memory ids are masked; nothing else is. The training command
+lines (`train_vlm`, `train_embedder`) run 2 steps at small widths on the CPU:
+their step and checkpoint lines, and checkpoints the library loads.
 """
 
 import json
@@ -203,3 +205,52 @@ def test_config_reads_the_env_file_at_import(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == [values.get("VCP_EXTRACT_ENGINE", "auto"), values.get("VCP_TMP_DIR", "tmp")]
+
+
+_STEP_LINE = re.compile(r"^step +\d+  loss \d+\.\d{4}  pages/s \d+\.\d  \(inst \d+\.\d\)$")
+
+
+def test_train_vlm_two_steps_on_the_cpu(tmp_path):
+    """`train_vlm --preset tiny --steps 2`: the JAX script's step lines and
+    checkpoint line, a checkpoint load_runner reads, and a warm start from
+    it."""
+    from vision_compression_project_tpu_torch.models import get_preset
+    from vision_compression_project_tpu_torch.train import checkpoint as tckpt
+
+    out = _run("train_vlm", ["--preset", "tiny", "--steps", "2", "--batch", "2", "--log_every", "1",
+                             "--text_len", "64", "--ckpt_dir", "ck"], tmp_path).splitlines()
+    assert out[0] == "device: cpu (cpu)"
+    assert len(out) == 4 and all(_STEP_LINE.match(line) for line in out[1:3]), out
+    assert out[3] == f"final checkpoint: {(tmp_path / 'ck' / 'step_00000002').resolve()}"
+    runner = tckpt.load_runner(get_preset("tiny"), tmp_path / "ck", device="cpu")
+    fresh = tckpt.load_runner(get_preset("tiny"), tmp_path / "none", device="cpu")
+    assert any(not bool((runner.model.state_dict()[k] == v).all()) for k, v in fresh.model.state_dict().items())
+    warm = _run("train_vlm", ["--preset", "tiny", "--steps", "1", "--batch", "1", "--text_len", "32",
+                              "--init_from", "ck", "--ckpt_dir", "ck2"], tmp_path).splitlines()
+    assert warm[1] == "warm-started params from ck" and _STEP_LINE.match(warm[2])
+
+
+def test_train_vlm_refuses_pipeline_parallel(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO), VCP_DEVICE="cpu")
+    proc = subprocess.run(
+        [sys.executable, "-m", "vision_compression_project_tpu_torch.scripts.train_vlm", "--pp_microbatches", "2"],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 2 and "GPipe" in proc.stderr and not (tmp_path / "checkpoints").exists()
+
+
+def test_train_embedder_two_steps_on_the_cpu(tmp_path):
+    from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
+    from vision_compression_project_tpu_torch.models.embedder import NeuralEmbedder
+    from vision_compression_project_tpu_torch.train import checkpoint as tckpt
+    from vision_compression_project_tpu_torch.weights import params_from_jax
+
+    out = _run("train_embedder", ["--steps", "2", "--batch", "4", "--dim", "64", "--depth", "1",
+                                  "--log_every", "1", "--ckpt_dir", "ck"], tmp_path).splitlines()
+    assert [re.sub(r"\d+\.\d{4}", "L", re.sub(r"pairs/s \d+", "pairs/s R", line)) for line in out[:2]] == [
+        "step     1  loss L  pairs/s R", "step     2  loss L  pairs/s R"]
+    assert out[2] == f"checkpoint: {(tmp_path / 'ck' / 'step_00000002').resolve()}"
+    params = params_from_jax(tckpt.load_params(tmp_path / "ck"))
+    embedder = NeuralEmbedder(EmbedderConfig(dim=64, depth=1), params=params, device="cpu")
+    vec = embedder.embed(["a trained embedder reads this"])
+    assert vec.shape == (1, 64) and abs(float((vec ** 2).sum()) - 1.0) < 1e-5

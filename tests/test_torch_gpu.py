@@ -416,3 +416,82 @@ def test_eval_retrieval_40_pages_on_the_card(cuda, monkeypatch, capsys):
             print(f"{cfg}: {score:.3f}")
         if backend == "hash":
             assert score == 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "b,h,hkv,s,d,kv_len,causal",
+    [
+        # Training shapes of ocr_real at a small batch (encoder windows and
+        # global, decoder over 1024 + 510 tokens), the embedder's documents
+        # (ragged), and a ragged S.
+        (32, 6, 6, 256, 32, None, False),
+        (2, 6, 6, 1024, 64, None, False),
+        (2, 6, 2, 1534, 64, None, True),
+        (4, 8, 8, 256, 64, [256, 17, 130, 1], False),
+        (3, 6, 2, 130, 64, [130, 2, 77], True),
+    ],
+)
+def test_flash_attention_gradient_matches_plain_autograd(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
+    """FlashAttentionFn on the card (K1 forward, the port's chunked backward)
+    against autograd through mha_reference on the card: the largest error of
+    the output and of dq, dk, dv over the reference's largest value, 2e-2 in
+    bf16 and 1e-4 in f32 (both backwards are f32 arithmetic on the same
+    inputs, rounded to the input type at the end)."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn((b, heads, s, d), generator=g, device=cuda).to(dtype) for heads in (h, hkv, hkv))
+    w = torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
+    kv = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = flash_attention(*leaves, kv_len=kv, causal=causal)
+    grads = torch.autograd.grad(out, leaves, w)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attention"] == 1
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = mha_reference(*ref_leaves, kv_len=kv, causal=causal)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, w)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, want in zip((out, *grads), (ref, *ref_grads)):
+        assert got.dtype == dtype and got.shape == want.shape
+        err = (got.float() - want.float()).abs().max().item()
+        assert bool(torch.isfinite(got).all()) and err <= tol * want.float().abs().max().item()
+
+
+def test_ocr_real_train_step_card_equals_cpu(cuda):
+    """One ocr_real train_step at batch 2 in f32, the same seeded weights and
+    batch on the card and on the CPU: every parameter's gradient within 1e-3
+    of its largest value plus 1e-6, the loss within 1e-4, the parameters after
+    the step within 2 x lr (a gradient near 0 may change sign between the two
+    and move its parameter by lr either way). The step launches K1 28 times
+    (8 encoder + 6 decoder blocks, forward and remat recompute)."""
+    from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID
+    from vision_compression_project_tpu_torch.train.train_step import make_train_state, train_step
+
+    cfg = get_preset("ocr_real")
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, dtype="float32"),
+                              decoder=dataclasses.replace(cfg.decoder, dtype="float32"))
+    rng = np.random.default_rng(0)
+    v = cfg.vision
+    patches = torch.tensor(rng.standard_normal((2, v.grid * v.grid, v.patch * v.patch * 3)), dtype=torch.float32)
+    ids = torch.tensor(rng.integers(0, cfg.decoder.vocab, size=(2, 511)))
+    ids[:, 0] = BOS_ID
+    lr = 1e-5
+    results = {}
+    for device in ("cpu", cuda):
+        model, opt, state = make_train_state(cfg, device=device, seed=0, lr=lr)
+        batch = {"patch_tokens": patches.to(device), "token_ids": ids.to(device)}
+        kernels.reset_launch_counts()
+        state, loss = train_step(model, opt, state, batch)
+        grads = {k: p.grad.float().cpu() for k, p in state.params.items()}
+        params = {k: p.detach().cpu() for k, p in state.params.items()}
+        results[str(device)] = (float(loss), grads, params, kernels.launches["flash_attention"])
+    (cpu_loss, cpu_grads, cpu_params, _), (loss, grads, params, launches) = results["cpu"], results["cuda"]
+    assert launches == 28
+    assert abs(loss - cpu_loss) <= 1e-4
+    for name, want in cpu_grads.items():
+        got = grads[name]
+        assert bool(torch.isfinite(got).all()), name
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item() + 1e-6, name
+        assert (params[name] - cpu_params[name]).abs().max().item() <= 2 * lr, name

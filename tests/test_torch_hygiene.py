@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: importing every module of it, and what
-chip_smoke.py imports, loads nothing of JAX, flax, orbax, tensorstore,
+chip_smoke.py imports, loads nothing of JAX, flax, optax, orbax, tensorstore,
 zstandard, safetensors, triton, pydantic, fastapi or the JAX package; building its host
 libraries writes nothing into the JAX package; and asking for the card where
 there is none raises instead of running on the CPU."""
@@ -18,11 +18,11 @@ _PROBE = r"""
 import importlib, importlib.abc, json, pkgutil, sys
 
 class Blocked(importlib.abc.MetaPathFinder):
-    # Importing JAX, flax, orbax, tensorstore, zstandard, safetensors, triton,
-    # pydantic, fastapi or the JAX package fails here.
+    # Importing JAX, flax, optax, orbax, tensorstore, zstandard, safetensors,
+    # triton, pydantic, fastapi or the JAX package fails here.
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
-        if top in ("jax", "jaxlib", "flax", "orbax", "tensorstore", "zstandard", "safetensors", "triton",
+        if top in ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "safetensors", "triton",
                    "pydantic", "pydantic_core", "fastapi", "starlette", "vision_compression_project_tpu"):
             raise ImportError(f"blocked import of {name}")
         return None
@@ -36,7 +36,7 @@ import chip_smoke
 print(json.dumps(sorted(sys.modules)))
 """
 
-BANNED_PREFIXES = ("jax", "flax", "orbax", "tensorstore", "zstandard", "safetensors", "triton", "pydantic",
+BANNED_PREFIXES = ("jax", "flax", "optax", "orbax", "tensorstore", "zstandard", "safetensors", "triton", "pydantic",
                    "fastapi", "starlette")
 JAX_PACKAGE = "vision_compression_project_tpu"
 
@@ -62,7 +62,8 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         "pipeline.extract", "utils.env", "utils.dirs", "utils.retry", "schemas", "serve", "serve.httpd",
         "serve.batching", "serve.ui", "serve.app", "scripts", "scripts.serve", "scripts.extract_pdf",
         "scripts.extract_page", "scripts.ingest_to_index", "scripts.qa_query",
-        "scripts.eval_retrieval",
+        "scripts.eval_retrieval", "ops.attention", "train.train_step", "train.data", "train.corpus",
+        "train.embedder_train", "weights", "scripts.train_vlm", "scripts.train_embedder",
     ):
         assert f"vision_compression_project_tpu_torch.{name}" in modules
     assert [m for m in modules if _banned(m)] == []
@@ -97,6 +98,7 @@ def test_building_the_host_libraries_writes_only_into_the_port(tmp_path, monkeyp
 def test_banned_name_matching_is_exact():
     assert _banned("jaxlib.xla_client") and _banned("flax.linen")
     assert _banned("pydantic_core._pydantic_core") and _banned("fastapi.routing")
+    assert _banned("optax._src.alias")
     assert _banned("vision_compression_project_tpu") and _banned("vision_compression_project_tpu.ops")
     assert not _banned("vision_compression_project_tpu_torch.ops")
 

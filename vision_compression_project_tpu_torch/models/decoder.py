@@ -1,6 +1,8 @@
 """Causal LM decoder (RMSNorm + RoPE + GQA + SwiGLU) with a KV cache. The
 port of vision_compression_project_tpu/models/decoder.py; the unembed runs in
-f32. Switch-MoE blocks are not ported yet: a config with experts is
+f32. The full-sequence forward rematerialises every block in training, as the
+reference's `nn.remat(DecoderBlock)` does for `__call__`; prefill and decode
+are not. Switch-MoE blocks are not ported yet: a config with experts is
 refused."""
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .configs import DecoderConfig
-from .layers import Attention, Cache, Dense, RMSNorm, SwiGLU, torch_dtype
+from .layers import Attention, Cache, Dense, RMSNorm, SwiGLU, remat, torch_dtype
 
 
 class DecoderBlock(nn.Module):
@@ -63,7 +65,7 @@ class Decoder(nn.Module):
         """Full-sequence forward: (B, S, dim) embeddings -> (B, S, vocab)."""
         h = x_emb
         for block in self.blocks:
-            h = block(h, kv_len=kv_len)
+            h = remat(block, h, kv_len=kv_len)
         return self.hidden_to_logits(h)
 
     def prefill(

@@ -170,6 +170,16 @@ class NeuralEmbedderModule(nn.Module):
         return emb / torch.clamp(torch.linalg.vector_norm(emb, dim=-1, keepdim=True), min=1e-6)
 
 
+@torch.no_grad()
+def init_params(model: NeuralEmbedderModule, seed: int) -> None:
+    """Seeded random weights for `model` from one torch.Generator, with the
+    JAX package's initializers (models/layers.py::init_weights_), N(0, 0.02)
+    position embeddings."""
+    g = torch.Generator().manual_seed(seed)
+    init_weights_(model, g)
+    model.pos_embed.normal_(0.0, 0.02, generator=g)
+
+
 class NeuralEmbedder:
     """The byte-level transformer embedder on `device` ("cuda" unless the
     caller asks for "cpu"). Weights are seeded random unless `params` (a
@@ -192,10 +202,7 @@ class NeuralEmbedder:
         self.tok = ByteTokenizer()
         model = NeuralEmbedderModule(self.cfg)
         if params is None:
-            with torch.no_grad():
-                g = torch.Generator().manual_seed(seed)
-                init_weights_(model, g)
-                model.pos_embed.normal_(0.0, 0.02, generator=g)
+            init_params(model, seed)
         else:
             model.load_state_dict(params)
         self.model = model.to(self.device).eval()

@@ -7,7 +7,9 @@ f32, attention keeps scores and softmax in f32. Whole-sequence attention goes
 through `ops.attention.flash_attention` (the kernel on a CUDA tensor) where
 the reference runs its Pallas kernel (`use_flash`), and through the plain
 version where the reference runs XLA; single-token decode attends to the
-cache with plain tensor code.
+cache with plain tensor code. With grad enabled, the encoder's and the
+decoder's blocks are rematerialised (`remat`) as the reference's `nn.remat`
+does: the backward recomputes each block's activations.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import NEG_INF, flash_attention, mha_reference
@@ -39,6 +42,17 @@ def use_flash(s: int, head_dim: int) -> bool:
 def _attend(q, k, v, kv_len, causal: bool) -> torch.Tensor:
     attend = flash_attention if use_flash(q.shape[2], q.shape[3]) else mha_reference
     return attend(q, k, v, kv_len=kv_len, causal=causal)
+
+
+def remat(block: nn.Module, *args, **kwargs):
+    """block(*args, **kwargs), with its activations recomputed in the
+    backward instead of stored (the reference's `nn.remat`) when grad is
+    enabled; a plain call otherwise, so inference is untouched."""
+    if not torch.is_grad_enabled():
+        return block(*args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(
+        block, *args, use_reentrant=False, preserve_rng_state=False, **kwargs
+    )
 
 
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:

@@ -1,7 +1,8 @@
 """Two-stage vision encoder: windowed attention over patch tokens, a strided
 convolution that downsamples the token grid, then global attention. The port
 of vision_compression_project_tpu/models/vit.py; the window reshapes match it
-exactly."""
+exactly, and every block, local and global, is rematerialised in training as
+the reference's `nn.remat(EncoderBlock)` is."""
 
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .configs import VisionConfig
-from .layers import Attention, Dense, RMSNorm, SwiGLU, torch_dtype
+from .layers import Attention, Dense, RMSNorm, SwiGLU, remat, torch_dtype
 
 
 class EncoderBlock(nn.Module):
@@ -60,7 +61,7 @@ class VisionEncoder(nn.Module):
         nw = grid // win
         for block in self.local_blocks:
             xw = x.reshape(b, nw, win, nw, win, dl).permute(0, 1, 3, 2, 4, 5)
-            xw = block(xw.reshape(b * nw * nw, win * win, dl))
+            xw = remat(block, xw.reshape(b * nw * nw, win * win, dl))
             xw = xw.reshape(b, nw, nw, win, win, dl).permute(0, 1, 3, 2, 4, 5)
             x = xw.reshape(b, grid * grid, dl)
 
@@ -75,5 +76,5 @@ class VisionEncoder(nn.Module):
 
         # Stage 2: global attention over the compressed token set.
         for block in self.global_blocks:
-            x = block(x)
+            x = remat(block, x)
         return self.norm_out(x)

@@ -12,6 +12,14 @@ place where their strides allow (head-split views of a projection do) and
 returns a (B, H, S, D) view of a (B, S, H, D) tensor, the layout the output
 projection reads.
 
+The gradient: `FlashAttentionFn` is the port of the reference's custom_vjp
+(`_flash_core`). Its forward is the routing above; its backward,
+`flash_attention_bwd`, recomputes the attention weights in plain tensor code,
+a chunk of query rows at a time, as the reference's `core_bwd` does in XLA
+(the JAX package has no backward kernel). `flash_attention` takes it only when
+grad is enabled and an input requires it, so inference calls the forward
+directly.
+
 Single-token decode attention is plain tensor code in models/layers.py, as it
 is XLA einsums, not a kernel, in the reference.
 """
@@ -62,6 +70,101 @@ def mha_reference(
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def _forward(q, k, v, kv_len, causal: bool, scale: float) -> torch.Tensor:
+    """The kernel on a CUDA tensor and nothing else; the plain version on a
+    CPU tensor."""
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, kv_len=kv_len, causal=causal, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device.type}")
+    if kv_len is not None and (kv_len.dtype != torch.int32 or kv_len.device != q.device):
+        kv_len = kv_len.to(device=q.device, dtype=torch.int32)
+    q, k, v = (t if kernels.flash_layout_ok(t) else t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
+    return kernels.flash_attention_fwd(q, k, v, kv_len, causal, scale)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_len: Optional[torch.Tensor],
+    g: torch.Tensor,
+    causal: bool,
+    scale: float,
+    chunk: int = 256,
+):
+    """(dq, dk, dv) of O = attention(q, k, v, kv_len, causal, scale) for the
+    output gradient g: the port of the reference's `core_bwd`
+    (vision_compression_project_tpu/ops/attention.py:153-211). The weights
+    are recomputed in f32, `chunk` query rows at a time, so the largest
+    temporary is (B, H, chunk, Sk), never the whole score matrix; dk and dv
+    accumulate over the chunks, and GQA folds them back onto the kv heads by
+    summing over the group. The gradients come back in the inputs' dtypes.
+
+    The reference pads S to its 128-row block and slices the padding off;
+    here the shapes stay unpadded, which gives the same real rows (its padded
+    query rows have zero q and g, its padded keys are masked). A row with no
+    valid key (kv_len == 0) has output 0 on both routes of the port, so its
+    gradient is 0; the reference's softmax over such a row is uniform."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    chunk = min(chunk, sq)
+    dev = q.device
+    kr = k.float().repeat_interleave(group, dim=1)
+    vr = v.float().repeat_interleave(group, dim=1)
+    k_idx = torch.arange(sk, device=dev)
+    mask = torch.ones((b, 1, 1, sk), dtype=torch.bool, device=dev)
+    keep = None
+    if kv_len is not None:
+        kv_len = kv_len.to(dev)
+        mask = k_idx[None, None, None, :] < kv_len[:, None, None, None]
+        keep = (kv_len > 0).to(torch.float32)[:, None, None, None]
+    neg_inf = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, h, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, h, sk, d), dtype=torch.float32, device=dev)
+    for c0 in range(0, sq, chunk):
+        c1 = min(c0 + chunk, sq)
+        q_i, g_i = q[:, :, c0:c1].float(), g[:, :, c0:c1].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", q_i, kr) * scale
+        m = mask
+        if causal:
+            m = m & (k_idx[None, None, None, :] <= torch.arange(c0, c1, device=dev)[None, None, :, None])
+        p = torch.softmax(torch.where(m, s, neg_inf), dim=-1)
+        if keep is not None:
+            p = p * keep
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, g_i)
+        dp = torch.einsum("bhqd,bhkd->bhqk", g_i, vr)
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        dq[:, :, c0:c1] = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, q_i) * scale
+    dk = dk.view(b, hkv, group, sk, d).sum(dim=2)
+    dv = dv.view(b, hkv, group, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Attention with a gradient, the port of the reference's custom_vjp
+    (`_flash_core`): the forward is `_forward` (the kernel on the card, the
+    plain version on the CPU), the backward `flash_attention_bwd` on either
+    device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, causal: bool, scale: float):
+        ctx.save_for_backward(q, k, v, kv_len)
+        ctx.causal, ctx.scale = causal, scale
+        return _forward(q, k, v, kv_len, causal, scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, kv_len = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, kv_len, g, ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -72,15 +175,10 @@ def flash_attention(
 ) -> torch.Tensor:
     """O = softmax(scale * Q K^T + mask) V; q (B, H, S, D), k/v (B, Hkv, S, D),
     kv_len optional (B,) valid key lengths. CUDA tensors run the kernel and
-    nothing else; CPU tensors run the plain version."""
-    if q.device.type == "cpu":
-        return mha_reference(q, k, v, kv_len=kv_len, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device.type}")
+    nothing else; CPU tensors run the plain version. With grad enabled and an
+    input that requires it, the call goes through FlashAttentionFn."""
     if scale is None:
         scale = q.shape[3] ** -0.5
-    if kv_len is not None and (kv_len.dtype != torch.int32 or kv_len.device != q.device):
-        kv_len = kv_len.to(device=q.device, dtype=torch.int32)
-    q, k, v = (t if kernels.flash_layout_ok(t) else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
-    return kernels.flash_attention_fwd(q, k, v, kv_len, causal, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, kv_len, causal, scale)
+    return _forward(q, k, v, kv_len, causal, scale)

@@ -1,6 +1,7 @@
 """Command lines of the port, the counterparts of the repository's
-scripts/{serve,extract_pdf,extract_page,ingest_to_index,qa_query}.py, with
-their arguments, stdout lines and output files. Run each as
+scripts/{serve,extract_pdf,extract_page,ingest_to_index,qa_query,
+eval_retrieval,train_vlm,train_embedder}.py, with their arguments, stdout
+lines and output files. Run each as
 
     python -m vision_compression_project_tpu_torch.scripts.<name> --help
 

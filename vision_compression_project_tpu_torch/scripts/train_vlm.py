@@ -1,0 +1,107 @@
+"""Train the OpticalVLM on synthetic rendered-page extraction data: the port
+of scripts/train_vlm.py, with its arguments, defaults and output lines.
+
+Runs on RUNTIME.device (VCP_DEVICE, the card unless it says "cpu") and
+writes the port's checkpoints (train/checkpoint.py), which load_runner and
+VCP_CHECKPOINT_DIR read. There is no mesh: one device, and
+--pp_microbatches > 0 (GPipe) is refused.
+
+    python -m vision_compression_project_tpu_torch.scripts.train_vlm --preset tiny --steps 2
+"""
+
+import argparse
+import time
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train the OpticalVLM.")
+    parser.add_argument("--preset", default="tiny", help="model preset")
+    parser.add_argument("--steps", type=int, default=100)
+    parser.add_argument("--batch", type=int, default=8)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--text_len", type=int, default=384)
+    parser.add_argument("--dpi", type=int, default=72)
+    parser.add_argument("--font_size", type=int, default=12)
+    parser.add_argument("--lines", type=int, default=18)
+    parser.add_argument(
+        "--data", choices=["words", "words_easy", "codes", "codes_easy", "real", "jumble"], default="words",
+        help="codes: random digit pages, so a loss below ln(10)/digit proves reading; jumble: independently "
+        "random corpus words (real-language glyphs, no language prior to shortcut through)",
+    )
+    parser.add_argument(
+        "--jumble_frac", type=float, default=0.0,
+        help="with --data real: fraction of pages drawn from the jumble generator instead",
+    )
+    parser.add_argument(
+        "--fonts", default="builtin",
+        help="comma list of page fonts to rotate per page: 'builtin' (engine atlas) and/or make_pdf "
+        "aliases (dejavu_sans, dejavu_serif, dejavu_mono, ...) or .ttf paths",
+    )
+    parser.add_argument("--vocab_cap", type=int, default=0,
+                        help="jumble word-inventory cap (0 = the full corpus vocabulary)")
+    parser.add_argument("--jumble_plain", type=int, default=0,
+                        help="1: strip structural extras (value templates, bullets, blank lines) from jumble pages")
+    parser.add_argument("--code_groups", type=int, default=3)
+    parser.add_argument("--code_digits", type=int, default=5)
+    parser.add_argument("--ckpt_dir", default="checkpoints/vlm")
+    parser.add_argument("--ckpt_every", type=int, default=100)
+    parser.add_argument("--log_every", type=int, default=10)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--init_from", default=None,
+                        help="checkpoint dir to warm-start params from (curriculum transfer)")
+    parser.add_argument("--pp_microbatches", type=int, default=0,
+                        help="GPipe microbatches: not ported; only 0 runs")
+    args = parser.parse_args(argv)
+    if args.pp_microbatches > 0:
+        parser.error("--pp_microbatches > 0: pipeline-parallel training (GPipe) is not ported; "
+                     "the port trains on one device")
+
+    import torch
+
+    from ..models import get_preset
+    from ..train.checkpoint import load_params, save_checkpoint
+    from ..train.data import device_batch, prefetch_batches, synthetic_batches
+    from ..train.train_step import cosine_lr, make_train_state, train_step
+    from ..weights import params_from_jax
+
+    cfg = get_preset(args.preset)
+    # Warmup-cosine to 10% of peak, as the reference's command line runs it.
+    schedule = cosine_lr(args.lr, args.steps)
+    model, opt, state = make_train_state(cfg, seed=args.seed, lr=schedule)
+    device = next(model.parameters()).device
+    print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
+    if args.init_from:
+        tree = load_params(args.init_from)
+        if tree is None:
+            parser.error(f"--init_from {args.init_from}: no complete checkpoint there")
+        model.load_state_dict(params_from_jax(tree))
+        print(f"warm-started params from {args.init_from}")
+
+    data = prefetch_batches(
+        synthetic_batches(
+            cfg, args.batch, text_len=args.text_len, dpi=args.dpi, seed=args.seed, font_size=args.font_size,
+            lines=args.lines, kind=args.data, code_groups=args.code_groups, code_digits=args.code_digits,
+            jumble_frac=args.jumble_frac, fonts=[f.strip() for f in args.fonts.split(",") if f.strip()],
+            vocab_cap=args.vocab_cap, jumble_plain=bool(args.jumble_plain),
+        )
+    )
+    t_start = time.time()
+    t_last, step_last = t_start, 0
+    for step in range(1, args.steps + 1):
+        batch = device_batch(cfg, next(data), device=device)
+        state, loss = train_step(model, opt, state, batch)
+        if step % args.log_every == 0 or step == 1:
+            loss_v = float(loss)
+            now = time.time()
+            rate = step * args.batch / (now - t_start)
+            # The rate since the last log line: the steady-state number.
+            inst = (step - step_last) * args.batch / max(now - t_last, 1e-9)
+            t_last, step_last = now, step
+            print(f"step {step:5d}  loss {loss_v:.4f}  pages/s {rate:.1f}  (inst {inst:.1f})", flush=True)
+        if args.ckpt_every and step % args.ckpt_every == 0:
+            print(f"checkpoint: {save_checkpoint(args.ckpt_dir, state)}")
+    print(f"final checkpoint: {save_checkpoint(args.ckpt_dir, state)}")
+
+
+if __name__ == "__main__":
+    main()

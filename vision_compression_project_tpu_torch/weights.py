@@ -1,6 +1,8 @@
-"""The one bridge from the JAX package's parameters to this package's
+"""The one bridge between the JAX package's parameters and this package's
 modules: `params_from_jax` maps a flax parameter tree (nested dicts of numpy
-arrays) to a state_dict. It reads no file and writes none.
+arrays) to a state_dict, and `params_to_jax` maps a state_dict (or any tree
+of tensors named like one: gradients, optimizer moments) back. They read no
+file and write none.
 
 Layouts:
   Dense kernel (in, out)                      -> Linear weight (out, in)
@@ -17,7 +19,7 @@ block_<i> -> blocks.<i>, Embed_0 (the neural embedder's unnamed nn.Embed)
 from __future__ import annotations
 
 import re
-from typing import Dict, Mapping
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -72,4 +74,62 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             out[".".join(prefix + [name])] = torch.from_numpy(np.array(arr, order="C"))
 
     walk(tree, [])
+    return out
+
+
+def _head_dims(cfg) -> List[Tuple[str, int]]:
+    """(state_dict prefix, head_dim) of every attention module of a model
+    built from `cfg`: a VLMConfig (OpticalVLM) or an EmbedderConfig
+    (NeuralEmbedderModule)."""
+    if hasattr(cfg, "vision"):
+        v, d = cfg.vision, cfg.decoder
+        return [("vision.local_blocks.", v.dim_local // v.heads_local),
+                ("vision.global_blocks.", v.dim_global // v.heads_global),
+                ("decoder.blocks.", d.head_dim)]
+    return [("blocks.", cfg.dim // cfg.heads)]
+
+
+# state_dict module names -> flax names, on the dotted path.
+_TO_JAX = [
+    (re.compile(r"(^|\.)local_blocks\.(\d+)(?=\.)"), r"\1local_\2"),
+    (re.compile(r"(^|\.)global_blocks\.(\d+)(?=\.)"), r"\1global_\2"),
+    (re.compile(r"(^|\.)blocks\.(\d+)(?=\.)"), r"\1block_\2"),
+]
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg) -> Dict:
+    """A state_dict of OpticalVLM(cfg) or NeuralEmbedderModule(cfg) (or a
+    tree of gradients or moments under the same names) -> the flax parameter
+    tree of the JAX package's model, nested dicts of f32 numpy arrays: the
+    inverse of `params_from_jax`. `cfg` gives each attention module's
+    head_dim, which the (heads * head_dim, embed) weights do not show."""
+    heads = _head_dims(cfg)
+    embedder = not hasattr(cfg, "vision")
+    out: Dict = {}
+    for name, tensor in state_dict.items():
+        value = tensor.detach().to("cpu", torch.float32).numpy()
+        flax_name = name
+        for pattern, repl in _TO_JAX:
+            flax_name = pattern.sub(repl, flax_name)
+        *parts, leaf = flax_name.split(".")
+        if embedder and parts == ["embed"]:
+            parts = ["Embed_0"]
+        if leaf == "weight":
+            parent = parts[-1]
+            if parent in ("embed", "Embed_0"):
+                leaf = "embedding"
+            elif value.ndim == 4:
+                leaf, value = "kernel", value.transpose(2, 3, 1, 0)
+            elif parent in ("wq", "wk", "wv", "wo"):
+                head_dim = next(hd for prefix, hd in heads if name.startswith(prefix))
+                if parent == "wo":
+                    leaf, value = "kernel", value.T.reshape(-1, head_dim, value.shape[0])
+                else:
+                    leaf, value = "kernel", value.T.reshape(value.shape[1], -1, head_dim)
+            else:
+                leaf, value = "kernel", value.T
+        node = out
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[leaf] = np.ascontiguousarray(value)
     return out
