@@ -95,19 +95,23 @@ with the port's own reader. One flushed line per phase, with seconds:
            batch 32 and text_len 511: encoder windows, global, the causal GQA
            decoder over 1534 tokens; the embedder's 64 documents of 256
            bytes, ragged), bf16 and f32: output and dq/dk/dv against autograd
-           through mha_reference on the card, and the forward (K1), the
-           backward (plain tensor code, as the reference's is XLA), SDPA's
-           forward and backward and both bounds timed; (b) the shipped
-           ocr_real's loss on a fixed batch from train/pages.py, the card (f32
+           through mha_reference on the card with exactly one forward and one
+           backward-kernel launch; the forward's log-sum-exp against
+           attention_lse; the backward kernel against the plain
+           flash_attention_bwd on the same inputs, and twice for
+           bit-identical gradients; the forward (K1), the backward kernel,
+           the plain backward, SDPA's forward and backward and both bounds
+           timed; (b) the shipped ocr_real's loss on a fixed batch from train/pages.py, the card (f32
            and bf16) against the CPU's plain path in f32, then the shipped
            weights trained at the curriculum stage mixC (real prose, half the
            pages jumbled, font 24, 14 lines, dpi 93, batch 32, lr 8e-4):
            every parameter with a finite gradient on step 1, exactly 28 K1
            launches per step (8 encoder + 6 decoder blocks, forward and remat
-           recompute), steps/s, pages/s, peak memory and each step's share
-           in data, forward, backward and optimizer; (c) ocr_real from the
-           seed halving its loss on one fixed batch; (d) EmbedderConfig() on a
-           repeated batch of 64 pairs, 4 K1 launches a step, the loss
+           recompute) and 14 of the backward kernel, steps/s, pages/s, peak
+           memory and each step's share in data, forward, backward (K1's
+           backward kernel in it) and optimizer; (c) ocr_real from the seed
+           halving its loss on one fixed batch; (d) EmbedderConfig() on a
+           repeated batch of 64 pairs, 4 K1 and 4 backward launches a step, the loss
            falling, pairs/s; (e) save_checkpoint then load_runner extracting
            the same pages as the model in memory, and both training command
            lines, 2 steps each, each writing a checkpoint.
@@ -625,7 +629,7 @@ def chat_phase(chat_cfg, seed: int, shapes: list):
             got = dict(kernels.launches)
             for name, n in got.items():
                 launches[name] += n
-            want = {"masked_similarity": 1,
+            want = {"masked_similarity": 1, "flash_attention_bwd": 0,
                     "flash_attention": 0 if engine != "lm" else (first_k1 if i == 0 else later_k1)}
             log("chat.question", seconds, engine=engine, launches=json.dumps(got),
                 answer=json.dumps(result["answer_md"][:80]))
@@ -934,7 +938,7 @@ def ingest_phase(seed: int, workdir: Path, k1_per_batch: int) -> dict:
     log("ingest_pdf.runner", sync_s(t0), preset="ocr_real", render=json.dumps(
         {k: meta[k] for k in ("lines", "font_size", "dpi")}), pages=INGEST_PAGES, batch=INGEST_BATCH)
     n_batches = -(-INGEST_PAGES // INGEST_BATCH)
-    want_launches = {"flash_attention": n_batches * k1_per_batch, "masked_similarity": 0}
+    want_launches = {"flash_attention": n_batches * k1_per_batch, "flash_attention_bwd": 0, "masked_similarity": 0}
     out = {}
     routes = (("glyph", {"save_images": False}),
               ("pixel", {"save_images": True, "images_dir": workdir / "png"}))
@@ -1036,7 +1040,7 @@ def chat_shipped_phase(seed: int, workdir: Path, first_k1: int) -> dict:
     finally:
         VLMRunner.answer, VLMRunner.generate = orig_answer, orig_generate
     runner = qa._ANSWER_RUNNER_CACHE.get(resolved)
-    want = {"flash_attention": first_k1, "masked_similarity": 1}
+    want = {"flash_attention": first_k1, "flash_attention_bwd": 0, "masked_similarity": 1}
     log("chat.shipped", seconds, preset=resolved[0], launches=json.dumps(launches), decode_steps=json.dumps(steps),
         retrieved=len(result["retrieved"]), answer=json.dumps(result["answer_md"][:200]))
     if runner is None or calls != [runner]:
@@ -1220,7 +1224,8 @@ def serve_phase(ingest: dict, workdir: Path, k1_per_batch: int, chat_k1: tuple) 
                    ["doc_id", "pages_total", "pages_ingested", "failed_pages", "manifest_path"])
             expect(f"/ingest ({route}) pages", (resp["pages_total"], resp["pages_ingested"], resp["failed_pages"]),
                    (INGEST_PAGES, INGEST_PAGES, []))
-            expect(f"/ingest ({route}) launches", launches, {"flash_attention": k1_ingest, "masked_similarity": 0})
+            expect(f"/ingest ({route}) launches", launches,
+                   {"flash_attention": k1_ingest, "flash_attention_bwd": 0, "masked_similarity": 0})
             pages = base_tmp / resp["doc_id"] / "pages"
             recs = [json.loads((pages / f"page_{i:03d}.json").read_text()) for i in range(1, INGEST_PAGES + 1)]
             sims = [markdown_similarity(g, r) for g, r in zip(ingest["gold"], recs)]
@@ -1265,7 +1270,8 @@ def serve_phase(ingest: dict, workdir: Path, k1_per_batch: int, chat_k1: tuple) 
             for name, n in launches.items():
                 total[name] += n
             expect(f"/chat {i} launches", launches,
-                   {"flash_attention": chat_k1[0] if i == 0 else chat_k1[1], "masked_similarity": 1})
+                   {"flash_attention": chat_k1[0] if i == 0 else chat_k1[1], "flash_attention_bwd": 0,
+                    "masked_similarity": 1})
             if i < len(SERVE_QUESTIONS):
                 sequential[question] = resp
                 out.setdefault("chat_s", []).append(seconds)
@@ -1395,7 +1401,7 @@ def embedder_check(embedder, texts: list) -> dict:
            "max_abs_err": err, "atol": EMBED_ATOL, "embed_s": median_s(lambda: embedder.embed(texts)),
            "plain_embed_s": plain_s, "empty_batch_launches": empty_launches}
     log("retrieval.embedder", out["embed_s"][0], **{k: json.dumps(v) for k, v in out.items()})
-    if launches != {"flash_attention": depth, "masked_similarity": 0}:
+    if launches != {"flash_attention": depth, "flash_attention_bwd": 0, "masked_similarity": 0}:
         fail(f"retrieval.embedder: launches {launches}, expected {depth} flash_attention")
     if not (np.isfinite(got).all() and err <= EMBED_ATOL):
         fail(f"retrieval.embedder: vectors differ from the plain attention's by {err} > {EMBED_ATOL}")
@@ -1447,7 +1453,7 @@ def build_multivector_index(seed: int, embedder):
     index.add(sets, records, memory_ids=[f"target{p:03d}" for p in range(1, TARGET_PAGES + 1)])
     target_s = sync_s(t0)
     launches = dict(kernels.launches)
-    want = {"flash_attention": TARGET_PAGES * embedder.cfg.depth, "masked_similarity": 0}
+    want = {"flash_attention": TARGET_PAGES * embedder.cfg.depth, "flash_attention_bwd": 0, "masked_similarity": 0}
     if launches != want:
         fail(f"retrieval.index: the target's page_vector_set calls launched {launches}, expected {want}")
     return index, target_s, launches["flash_attention"]
@@ -1544,7 +1550,8 @@ def retrieval_serve_phase(ingest: dict, workdir: Path, depth: int) -> dict:
         resp = json.loads(body)
         expect("/ingest pages", (resp["pages_total"], resp["pages_ingested"], resp["failed_pages"]),
                (INGEST_PAGES, INGEST_PAGES, []))
-        expect("/ingest launches", launches, {"flash_attention": depth * INGEST_PAGES, "masked_similarity": 0})
+        expect("/ingest launches", launches,
+               {"flash_attention": depth * INGEST_PAGES, "flash_attention_bwd": 0, "masked_similarity": 0})
         for name, n in launches.items():
             total[name] += n
         doc_id = resp["doc_id"]
@@ -1567,7 +1574,8 @@ def retrieval_serve_phase(ingest: dict, workdir: Path, depth: int) -> dict:
             launches = child.command("counts")
             for name, n in launches.items():
                 total[name] += n
-            expect(f"/chat {i} launches", launches, {"flash_attention": depth, "masked_similarity": 0})
+            expect(f"/chat {i} launches", launches,
+                   {"flash_attention": depth, "flash_attention_bwd": 0, "masked_similarity": 0})
             if i < len(SERVE_QUESTIONS):
                 sequential[question] = resp
                 out.setdefault("chat_s", []).append(seconds)
@@ -1627,6 +1635,7 @@ def retrieval_phase(seed: int, workdir: Path, ingest: dict, sim_rows: int) -> di
     torch.cuda.empty_cache()
     out["serve"] = retrieval_serve_phase(ingest, workdir, embedder.cfg.depth)
     out["launches"] = {"flash_attention": launches + out["serve"]["launches"]["flash_attention"],
+                       "flash_attention_bwd": out["serve"]["launches"]["flash_attention_bwd"],
                        "masked_similarity": out["serve"]["launches"]["masked_similarity"]}
     return out
 
@@ -1648,11 +1657,18 @@ EMBED_BATCH, EMBED_STEPS, EMBED_LR = 64, 20, 3e-4
 # summed in another order, TF32 off); the training dtype (bf16) within
 # 5e-2 x max(loss, 1) (bf16 activations through 14 blocks).
 LOSS_ATOL_F32, LOSS_RTOL_BF16 = 1e-3, 5e-2
-# FlashAttentionFn against autograd through mha_reference on the card, the
-# largest error of the output and of dq, dk, dv over the largest value of
-# the reference's: both backwards are f32 arithmetic on the same inputs (the
-# port's chunked), rounded to the input type at the end.
+# FlashAttentionFn against autograd through mha_reference on the card, and
+# the backward kernel against its plain version (flash_attention_bwd) on the
+# same inputs: the largest error of the output and of dq, dk, dv over the
+# largest value of the reference's. In f32 both sides are f32 arithmetic,
+# rounded to the input type at the end; in bf16 the kernel's products also
+# take P and dS as bf16.
 GRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# The log-sum-exp K1's forward writes for the backward, against attention_lse
+# on the card: the largest error over the largest finite |lse|. f32: the same
+# f32 scores summed in another order. bf16: f32 scores of the same bf16
+# inputs, exponentials through ex2 in log2 units on the tensor-core route.
+LSE_RTOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 
 
 def train_shapes(cfg, embed_kv_len: list) -> list:
@@ -1678,11 +1694,12 @@ def train_shapes(cfg, embed_kv_len: list) -> list:
 
 def backward_bound_ms(sh: AttnShape, dtype: torch.dtype):
     """(least time in ms, "bytes" or "operations") of one attention backward:
-    q, k, v and the output gradient read once, dq, dk, dv written once; 10*D
-    operations per (query, key) pair the masks leave (the recomputed scores
-    and the four products of the backward)."""
+    q, k, v, the output, its gradient, the row log-sum-exp and kv_len read
+    once, dq, dk, dv written once; 10*D operations per (query, key) pair the
+    masks leave (the recomputed scores and the four products of the
+    backward)."""
     item = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * sh.b * sh.h + 4 * sh.b * sh.hkv) * sh.s * sh.d * item
+    nbytes = (4 * sh.b * sh.h + 4 * sh.b * sh.hkv) * sh.s * sh.d * item + 4 * sh.b * sh.h * sh.s + 4 * sh.b
     rows = np.arange(sh.s)
     pairs = sum(int(np.minimum(rows + 1, n).sum()) if sh.causal else n * sh.s for n in sh.kv_len)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1708,13 +1725,33 @@ def train_library_call(q, k, v, g, sh: AttnShape):
     return (lambda: fwd().detach()), (lambda: torch.autograd.grad(fwd(), leaves, g))
 
 
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error over the largest value of the reference."""
+    want = want.float()
+    return (got.float() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+def lse_check(lse: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(error over the largest finite |lse|, +inf exactly where the plain
+    version has a row without keys)."""
+    finite = torch.isfinite(want)
+    same_inf = torch.equal(torch.isposinf(lse), ~finite)
+    if not bool(finite.any()):
+        return 0.0, same_inf
+    return rel_err(lse[finite], want[finite]), same_inf
+
+
 def train_kernel_phase(shapes: list, seed: int) -> dict:
     """FlashAttentionFn at each training shape, bf16 and f32: output and
-    dq/dk/dv against autograd through mha_reference on the card; in bf16 the
-    forward (K1), the backward (plain tensor code), SDPA's forward and
-    backward, and their bounds, timed."""
+    dq/dk/dv against autograd through mha_reference on the card, one forward
+    and one backward launch; then the kernels alone on the same inputs: the
+    forward's log-sum-exp against attention_lse, the backward kernel against
+    the plain flash_attention_bwd, and run twice for bit-identical gradients.
+    In bf16 the forward (K1), the backward kernel, the plain backward, SDPA's
+    forward and backward, and their bounds, timed."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     rows = []
+    want_launches = {"flash_attention": 1, "flash_attention_bwd": 1, "masked_similarity": 0}
     for sh in shapes:
         kv_len = torch.tensor(sh.kv_len, dtype=torch.int32, device=DEVICE)
         scale = sh.d ** -0.5
@@ -1727,27 +1764,50 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
             out = flash_attention(*leaves, kv_len=kv_len, causal=sh.causal)
             grads = torch.autograd.grad(out, leaves, g)
             torch.cuda.synchronize()
-            launched = kernels.launches["flash_attention"]
+            launched = dict(kernels.launches)
             ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             ref = mha_reference(*ref_leaves, kv_len=kv_len, causal=sh.causal)
             ref_grads = torch.autograd.grad(ref, ref_leaves, g)
-            errs = {}
-            for name, got, want in zip(("o", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads)):
-                want = want.float()
-                errs[name] = (got.float() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
-            del ref_leaves, ref, ref_grads
-            ok = (launched == 1 and type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
-                  and all(bool(torch.isfinite(t).all()) for t in (out, *grads))
-                  and max(errs.values()) <= GRAD_RTOL[dtype])
+            errs = {name: rel_err(got, want)
+                    for name, got, want in zip(("o", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads))}
+            del leaves, ref_leaves, ref, ref_grads
+
+            # The kernels alone, on the same inputs.
+            lse = torch.empty((sh.b, sh.h, sh.s), dtype=torch.float32, device=DEVICE)
+            o = kernels.flash_attention_fwd(q, k, v, kv_len, sh.causal, scale, lse=lse)
+            lse_err, lse_inf_ok = lse_check(lse, tattn.attention_lse(q, k, v, kv_len=kv_len, causal=sh.causal))
+            before = kernels.launches["flash_attention_bwd"]
+            kgrads = kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale)
+            again = kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale)
+            torch.cuda.synchronize()
+            bwd_launches = kernels.launches["flash_attention_bwd"] - before
+            identical = all(torch.equal(a, b) for a, b in zip(kgrads, again))
+            plain = tattn.flash_attention_bwd(q, k, v, kv_len, g, sh.causal, scale)
+            plain_errs = {name: rel_err(got, want) for name, got, want in zip(("dq", "dk", "dv"), kgrads, plain)}
+            plain_abs = max((got.float() - want.float()).abs().max().item() for got, want in zip(kgrads, plain))
+            del again, plain
+
+            ok = (launched == want_launches and type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+                  and all(bool(torch.isfinite(t).all()) for t in (out, *grads, *kgrads))
+                  and max(errs.values()) <= GRAD_RTOL[dtype] and max(plain_errs.values()) <= GRAD_RTOL[dtype]
+                  and lse_err <= LSE_RTOL[dtype] and lse_inf_ok and identical and bwd_launches == 2)
             row = dict(kernel="flash_attention", shape=sh.name, dtype=str(dtype).replace("torch.", ""),
-                       route=kernels.FLASH_ROUTES[dtype], q=[sh.b, sh.h, sh.s, sh.d], kv=[sh.b, sh.hkv, sh.s, sh.d],
+                       route=kernels.FLASH_ROUTES[dtype], bwd_route=kernels.FLASH_BWD_ROUTES[dtype],
+                       q=[sh.b, sh.h, sh.s, sh.d], kv=[sh.b, sh.hkv, sh.s, sh.d],
                        causal=sh.causal, kv_len=sh.kv_len if len(set(sh.kv_len)) > 1 else sh.kv_len[0],
                        launches_in_check=launched, rel_err=errs, max_rel_err=max(errs.values()),
-                       tol_rel=GRAD_RTOL[dtype], ok=ok, launches_per_step=sh.launches, path=sh.path)
+                       tol_rel=GRAD_RTOL[dtype], bwd_vs_plain_rel_err=plain_errs, bwd_vs_plain_max_abs_err=plain_abs,
+                       lse_rel_err=lse_err, lse_tol_rel=LSE_RTOL[dtype], lse_inf_rows_equal=lse_inf_ok,
+                       bwd_bit_identical=identical, bwd_launches_for_2_calls=bwd_launches, ok=ok,
+                       launches_per_step=sh.launches, path=sh.path)
             if dtype == torch.bfloat16:
                 with torch.no_grad():
                     row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal), 10)
+                row["fwd_lse_ms"] = cuda_ms(
+                    lambda: kernels.flash_attention_fwd(q, k, v, kv_len, sh.causal, scale, lse=lse), 10)
                 row["bwd_ms"] = cuda_ms(
+                    lambda: kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale), 10)
+                row["bwd_plain_ms"] = cuda_ms(
                     lambda: tattn.flash_attention_bwd(q, k, v, kv_len, g, sh.causal, scale), 3, warmup=1)
                 row["plain_ms"] = cuda_ms(lambda: mha_reference(q, k, v, kv_len=kv_len, causal=sh.causal), 3,
                                           warmup=1)
@@ -1761,8 +1821,10 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
             rows.append(row)
             if not ok:
                 fail(f"FlashAttentionFn {sh.name} {dtype}: launches {launched}, relative errors {errs} "
-                     f"(tol {GRAD_RTOL[dtype]})")
-            del q, k, v, g, leaves, out, grads
+                     f"(tol {GRAD_RTOL[dtype]}); backward kernel against its plain version {plain_errs}, "
+                     f"{bwd_launches} launches for 2 calls, bit-identical {identical}; lse error {lse_err} "
+                     f"(tol {LSE_RTOL[dtype]}), +inf rows equal {lse_inf_ok}")
+            del q, k, v, g, out, grads, o, lse, kgrads
     torch.cuda.empty_cache()
     # Per training step: the forward launches (in ocr_real's blocks the
     # forward and the remat recompute) and one backward per block.
@@ -1772,12 +1834,20 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
         per_block = 2 if path == "train" else 1
         rec[path] = {
             "launches_per_step": sum(r["launches_per_step"] for r in main),
+            "bwd_launches_per_step": sum(r["launches_per_step"] // per_block for r in main),
             **{k: sum(r[k] * r["launches_per_step"] for r in main)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **{k: sum(r[k] * (r["launches_per_step"] // per_block) for r in main)
-               for k in ("bwd_ms", "library_bwd_ms", "bwd_bound_ms")},
+               for k in ("bwd_ms", "bwd_plain_ms", "library_bwd_ms", "bwd_bound_ms")},
         }
+        ops_ms = sum(r["bwd_bound_ms"] * (r["launches_per_step"] // per_block)
+                     for r in main if r["bwd_bound_by"] == "operations")
+        rec[path]["bwd_bound_by"] = "operations" if ops_ms >= rec[path]["bwd_bound_ms"] / 2 else "bytes"
     rec["max_rel_err"] = max(r["max_rel_err"] for r in rows)
+    rec["bwd_max_abs_err"] = max(r["bwd_vs_plain_max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
+    rec["bwd_max_rel_err"] = max(max(r["bwd_vs_plain_rel_err"].values()) for r in rows)
+    rec["lse_max_rel_err"] = {d: max(r["lse_rel_err"] for r in rows if r["dtype"] == d)
+                              for d in ("bfloat16", "float32")}
     return rec
 
 
@@ -1854,10 +1924,19 @@ def check_gradients(model) -> None:
         fail(f"attention projections with an all-zero gradient: {zero[:6]}")
 
 
-def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int) -> dict:
+def step_launches(total: dict) -> tuple:
+    """K1's forward and backward launches since the last reset, added to
+    `total`."""
+    fwd, bwd = kernels.launches["flash_attention"], kernels.launches["flash_attention_bwd"]
+    total["flash_attention"] += fwd
+    total["flash_attention_bwd"] += bwd
+    return fwd, bwd
+
+
+def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int, bwd_per_step: int) -> dict:
     """(b) the shipped ocr_real warm-started and trained at mixC; (c) ocr_real
     from the seed overfitting one fixed batch."""
-    out = {"launches": 0}
+    out = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0}}
     shipped = params_from_jax(load_params(config.shipped_checkpoint_dir("ocr_real")))
     fixed = fixed_pages(seed, LOSS_PAGES, workdir, MIXC["text_len"], get_tokenizer(cfg))
     t0 = time.perf_counter()
@@ -1884,11 +1963,11 @@ def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int) -> dict:
         else:
             t = timed_step(model, opt, state, data, cfg)
             t["step_s"] = t["data_s"] + t["forward_s"] + t["backward_s"] + t["optimizer_s"]
-        launched = kernels.launches["flash_attention"]
-        out["launches"] += launched
-        log("train.mixc_step", t["step_s"], step=step, flash_launches=launched, **t)
-        if launched != k1_per_step:
-            fail(f"ocr_real training step {step}: {launched} flash-attention launches, expected {k1_per_step}")
+        launched, bwd = step_launches(out["launches"])
+        log("train.mixc_step", t["step_s"], step=step, flash_launches=launched, flash_bwd_launches=bwd, **t)
+        if launched != k1_per_step or bwd != bwd_per_step:
+            fail(f"ocr_real training step {step}: {launched} flash-attention and {bwd} backward launches, "
+                 f"expected {k1_per_step} and {bwd_per_step}")
         if not np.isfinite(t["loss"]):
             fail(f"ocr_real training step {step}: loss {t['loss']}")
         steps.append(t)
@@ -1916,10 +1995,9 @@ def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int) -> dict:
         kernels.reset_launch_counts()
         state_s, loss = train_step(model_s, opt_s, state_s, batch)
         loss_v = float(loss)
-        launched = kernels.launches["flash_attention"]
-        out["launches"] += launched
-        if launched != k1_per_step or not np.isfinite(loss_v):
-            fail(f"overfit step {step}: {launched} flash-attention launches, loss {loss_v}")
+        launched, bwd = step_launches(out["launches"])
+        if launched != k1_per_step or bwd != bwd_per_step or not np.isfinite(loss_v):
+            fail(f"overfit step {step}: {launched} flash-attention and {bwd} backward launches, loss {loss_v}")
         first = loss_v if first is None else first
         if loss_v <= first / 2:
             break
@@ -1934,11 +2012,13 @@ def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int) -> dict:
 
 
 def embedder_train_phase(seed: int, k1_per_step: int) -> dict:
-    """(d) EmbedderConfig() trained on one repeated pair batch of 64."""
+    """(d) EmbedderConfig() trained on one repeated pair batch of 64: K1's
+    forward and its backward kernel k1_per_step times each a step."""
     cfg = EmbedderConfig()
     model, opt, params, opt_state = make_embedder_train_state(cfg, lr=EMBED_LR, seed=seed, device=DEVICE)
     batch = pair_batch(next(synthetic_pair_batches(EMBED_BATCH, seed=seed)), DEVICE)
-    losses, launches, t_steady = [], 0, None
+    losses, t_steady = [], None
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
     for step in range(1, EMBED_STEPS + 1):
         if step == 2:
             torch.cuda.synchronize()
@@ -1946,10 +2026,10 @@ def embedder_train_phase(seed: int, k1_per_step: int) -> dict:
         kernels.reset_launch_counts()
         params, opt_state, loss = embedder_train_step(model, opt, params, opt_state, batch)
         losses.append(float(loss))
-        launched = kernels.launches["flash_attention"]
-        launches += launched
-        if launched != k1_per_step:
-            fail(f"embedder step {step}: {launched} flash-attention launches, expected {k1_per_step}")
+        launched, bwd = step_launches(launches)
+        if launched != k1_per_step or bwd != k1_per_step:
+            fail(f"embedder step {step}: {launched} flash-attention and {bwd} backward launches, "
+                 f"expected {k1_per_step} each")
     steady_s = time.perf_counter() - t_steady
     out = {"dim": cfg.dim, "depth": cfg.depth, "batch": EMBED_BATCH, "steps": EMBED_STEPS, "first_loss": losses[0],
            "last_loss": losses[-1], "pairs_per_s": (EMBED_STEPS - 1) * EMBED_BATCH / steady_s,
@@ -2020,13 +2100,24 @@ def train_phase(cfg, seed: int, workdir: Path) -> dict:
     log("train.harvest_wait", time.perf_counter() - t0, sentences=n_sentences)
     k1_vlm = sum(sh.launches for sh in shapes if sh.path == "train")
     k1_embed = sum(sh.launches for sh in shapes if sh.path == "train_embedder")
-    out = vlm_train_phase(cfg, seed, workdir, k1_vlm)
+    out = vlm_train_phase(cfg, seed, workdir, k1_vlm, rec["train"]["bwd_launches_per_step"])
     out["kernel"] = rec
     out["k1_per_step"] = {"ocr_real": k1_vlm, "embedder": k1_embed}
+    out["k1_bwd_per_step"] = {"ocr_real": rec["train"]["bwd_launches_per_step"],
+                              "embedder": rec["train_embedder"]["bwd_launches_per_step"]}
+    # The step's backward: K1's backward kernel (timed alone above) and the rest.
+    backward_s = out["mixc"]["backward_s"]
+    out["mixc"]["k1_bwd_s"] = rec["train"]["bwd_ms"] / 1e3
+    out["mixc"]["k1_bwd_share_of_backward"] = out["mixc"]["k1_bwd_s"] / backward_s
+    out["mixc"]["k1_bwd_share_of_step"] = out["mixc"]["k1_bwd_s"] / sum(
+        out["mixc"][k] for k in ("data_s", "forward_s", "backward_s", "optimizer_s"))
+    log("train.mixc_backward", backward_s, k1_bwd_s=out["mixc"]["k1_bwd_s"],
+        rest_s=backward_s - out["mixc"]["k1_bwd_s"], k1_bwd_share=out["mixc"]["k1_bwd_share_of_backward"])
     t0 = time.perf_counter()
     out["embedder"] = embedder_train_phase(seed, k1_embed)
-    out["launches"] += out["embedder"]["launches"]
-    log("train.embedder", sync_s(t0), **out["embedder"])
+    for name, n in out["embedder"]["launches"].items():
+        out["launches"][name] += n
+    log("train.embedder", sync_s(t0), **{k: json.dumps(v) for k, v in out["embedder"].items()})
     t0 = time.perf_counter()
     out["round_trip"] = train_round_trip(cfg, out.pop("model"), out.pop("state"), out.pop("fixed"), workdir)
     log("train.round_trip", time.perf_counter() - t0, **out["round_trip"])
@@ -2128,9 +2219,12 @@ def main() -> int:
             serve_ingest_s=retrieved["serve"]["ingest_s"], serve_chat_s=json.dumps(retrieved["serve"]["chat_s"]))
         t0 = time.perf_counter()
         trained = train_phase(cfg, args.seed, workdir)
-        log("train", sync_s(t0), launches=trained["launches"], k1_per_step=json.dumps(trained["k1_per_step"]),
+        log("train", sync_s(t0), launches=json.dumps(trained["launches"]),
+            k1_per_step=json.dumps(trained["k1_per_step"]), k1_bwd_per_step=json.dumps(trained["k1_bwd_per_step"]),
             mixc=json.dumps(trained["mixc"]), overfit=json.dumps(trained["overfit"]),
             embedder=json.dumps(trained["embedder"]))
+
+    train_rec = trained["kernel"]["train"]
 
     def entry(name, source, replaces, rec, **extra):
         by_path = {"extract": launches[name], "chat": chat_launches[name],
@@ -2138,7 +2232,7 @@ def main() -> int:
                    "ingest_pdf_pixels": ingest["routes"]["pixel"]["launches"] if name == "flash_attention" else 0,
                    "chat_shipped": shipped["launches"][name], "serve": served["launches"][name],
                    "retrieval": retrieved["launches"][name],
-                   "train": trained["launches"] if name == "flash_attention" else 0}
+                   "train": trained["launches"].get(name, 0)}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2157,6 +2251,20 @@ def main() -> int:
               "vision_compression_project_tpu/ops/topk.py:26", sim_record,
               gemv_no_mask_ms=sim_record["gemv_no_mask_ms"], topk_lowest_first_ms=retrieved["topk"]["ms"],
               torch_topk_ms=retrieved["topk"]["torch_topk_ms"]),
+        # Per ocr_real mixC step (14 calls, one a block): the kernel, the plain
+        # backward, SDPA's backward and the bound; the same per embedder step.
+        entry("flash_attention_bwd", "vision_compression_project_tpu_torch/kernels/flash_attention_bwd.cu",
+              "vision_compression_project_tpu/ops/attention.py:153", {
+                  "max_abs_err": trained["kernel"]["bwd_max_abs_err"], "ms": train_rec["bwd_ms"],
+                  "plain_ms": train_rec["bwd_plain_ms"], "bound_ms": train_rec["bwd_bound_ms"],
+                  "bound_by": train_rec["bwd_bound_by"], "library_ms": train_rec["library_bwd_ms"]},
+              kernel_route=kernels.FLASH_BWD_ROUTES[torch.bfloat16],
+              calls_per_step=trained["k1_bwd_per_step"], embedder_train_step={
+                  k: trained["kernel"]["train_embedder"][k]
+                  for k in ("bwd_ms", "bwd_plain_ms", "library_bwd_ms", "bwd_bound_ms")},
+              max_rel_err=trained["kernel"]["bwd_max_rel_err"], lse_max_rel_err=trained["kernel"]["lse_max_rel_err"],
+              mixc_step_s=sum(trained["mixc"][k] for k in ("data_s", "forward_s", "backward_s", "optimizer_s")),
+              mixc_backward_s=trained["mixc"]["backward_s"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

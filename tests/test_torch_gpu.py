@@ -21,7 +21,9 @@ from vision_compression_project_tpu_torch import kernels
 from vision_compression_project_tpu_torch.models import VLMRunner, get_preset
 from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, TASK_EXTRACT_ID
 from vision_compression_project_tpu_torch.index.vector_index import VectorIndex
-from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
+from vision_compression_project_tpu_torch.ops.attention import (
+    attention_lse, flash_attention, flash_attention_bwd, mha_reference,
+)
 from vision_compression_project_tpu_torch.ops.topk import (
     NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference,
 )
@@ -275,7 +277,8 @@ def test_glyph_render_card_equals_cpu(cuda, tmp_path, dpi):
 def test_extract_pdf_on_the_card(cuda, tmp_path):
     """extract_pdf_to_page_jsons on a 4-page PDF on the card, one batch by
     glyph transport: 14 flash-attention launches (ocr_real's encoder and
-    prefill), one page JSON with the four keys per page."""
+    prefill) and no backward launch, one page JSON with the four keys per
+    page."""
     import json
 
     from vision_compression_project_tpu_torch.pipeline.extract import extract_pdf_to_page_jsons
@@ -288,7 +291,7 @@ def test_extract_pdf_on_the_card(cuda, tmp_path):
     stats = extract_pdf_to_page_jsons(pdf, tmp_path / "pages", dpi=93, engine="vlm", batch_size=4,
                                       runner=runner, save_images=False)
     torch.cuda.synchronize()
-    assert kernels.launches == {"flash_attention": 14, "masked_similarity": 0}
+    assert kernels.launches == {"flash_attention": 14, "flash_attention_bwd": 0, "masked_similarity": 0}
     assert stats == {"pages_total": 4, "processed_pages": [1, 2, 3, 4], "failed_pages": []}
     for i in range(1, 5):
         rec = json.loads((tmp_path / "pages" / f"page_{i:03d}.json").read_text())
@@ -433,11 +436,12 @@ def test_eval_retrieval_40_pages_on_the_card(cuda, monkeypatch, capsys):
     ],
 )
 def test_flash_attention_gradient_matches_plain_autograd(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
-    """FlashAttentionFn on the card (K1 forward, the port's chunked backward)
-    against autograd through mha_reference on the card: the largest error of
-    the output and of dq, dk, dv over the reference's largest value, 2e-2 in
-    bf16 and 1e-4 in f32 (both backwards are f32 arithmetic on the same
-    inputs, rounded to the input type at the end)."""
+    """FlashAttentionFn on the card (K1 forward with its log-sum-exp, the
+    backward kernel, one launch each) against autograd through mha_reference
+    on the card: the largest error of the output and of dq, dk, dv over the
+    reference's largest value, 2e-2 in bf16 (P and dS enter the kernel's
+    products as bf16) and 1e-4 in f32 (f32 arithmetic on the same inputs,
+    rounded to the input type at the end)."""
     g = torch.Generator(device=cuda).manual_seed(1)
     q, k, v = (torch.randn((b, heads, s, d), generator=g, device=cuda).to(dtype) for heads in (h, hkv, hkv))
     w = torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
@@ -448,6 +452,7 @@ def test_flash_attention_gradient_matches_plain_autograd(cuda, dtype, b, h, hkv,
     grads = torch.autograd.grad(out, leaves, w)
     torch.cuda.synchronize()
     assert kernels.launches["flash_attention"] == 1
+    assert kernels.launches["flash_attention_bwd"] == 1
     assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     ref = mha_reference(*ref_leaves, kv_len=kv, causal=causal)
@@ -465,7 +470,8 @@ def test_ocr_real_train_step_card_equals_cpu(cuda):
     of its largest value plus 1e-6, the loss within 1e-4, the parameters after
     the step within 2 x lr (a gradient near 0 may change sign between the two
     and move its parameter by lr either way). The step launches K1 28 times
-    (8 encoder + 6 decoder blocks, forward and remat recompute)."""
+    (8 encoder + 6 decoder blocks, forward and remat recompute) and its
+    backward kernel 14 times, once a block."""
     from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID
     from vision_compression_project_tpu_torch.train.train_step import make_train_state, train_step
 
@@ -486,12 +492,109 @@ def test_ocr_real_train_step_card_equals_cpu(cuda):
         state, loss = train_step(model, opt, state, batch)
         grads = {k: p.grad.float().cpu() for k, p in state.params.items()}
         params = {k: p.detach().cpu() for k, p in state.params.items()}
-        results[str(device)] = (float(loss), grads, params, kernels.launches["flash_attention"])
+        results[str(device)] = (float(loss), grads, params,
+                                (kernels.launches["flash_attention"], kernels.launches["flash_attention_bwd"]))
     (cpu_loss, cpu_grads, cpu_params, _), (loss, grads, params, launches) = results["cpu"], results["cuda"]
-    assert launches == 28
+    assert launches == (28, 14)
     assert abs(loss - cpu_loss) <= 1e-4
     for name, want in cpu_grads.items():
         got = grads[name]
         assert bool(torch.isfinite(got).all()), name
         assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item() + 1e-6, name
         assert (params[name] - cpu_params[name]).abs().max().item() <= 2 * lr, name
+
+
+# The backward kernel against its plain version at the training shapes (small
+# batches) and ragged ones: key lengths 0 and 1, GQA 3:1, S not a multiple of
+# 16 or 64.
+BWD_CASES = [
+    (4, 6, 6, 256, 32, None, False),
+    (2, 6, 6, 1024, 64, None, False),
+    (2, 6, 2, 1534, 64, None, True),
+    (4, 8, 8, 256, 64, [256, 17, 130, 1], False),
+    (3, 6, 2, 130, 64, [130, 0, 77], True),
+    (3, 3, 1, 77, 32, [77, 1, 0], False),
+]
+
+
+def _bwd_inputs(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, w = (torch.randn((b, heads, s, d), generator=g, device=cuda).to(dtype) for heads in (h, hkv, hkv, h))
+    kv = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda)
+    o = kernels.flash_attention_fwd(q, k, v, kv, causal, d ** -0.5, lse=lse)
+    return q, k, v, w, kv, o, lse
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,kv_len,causal", BWD_CASES)
+def test_backward_kernel_matches_plain(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
+    """kernels.flash_attention_bwd against the plain flash_attention_bwd on
+    the same inputs, the same relative limits as the gradient test above; one
+    launch; a batch row with kv_len == 0 gets exactly zero gradients."""
+    q, k, v, w, kv, o, lse = _bwd_inputs(cuda, dtype, b, h, hkv, s, d, kv_len, causal)
+    kernels.reset_launch_counts()
+    got = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attention_bwd"] == 1
+    want = flash_attention_bwd(q, k, v, kv, w, causal, d ** -0.5)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for gt, wt in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        err = (gt.float() - wt.float()).abs().max().item()
+        assert bool(torch.isfinite(gt).all()) and err <= tol * wt.float().abs().max().item()
+    for i, n in enumerate(kv_len or []):
+        if n == 0:
+            assert all(float(gt[i].abs().max()) == 0.0 for gt in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,s,d,kv_len,causal", BWD_CASES)
+def test_forward_lse_matches_plain(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
+    """The log-sum-exp K1's forward writes against attention_lse on the same
+    inputs, within 1e-5 of the largest |lse| in f32 and 1e-4 in bf16 (the
+    same f32 scores of bf16 inputs, summed in another order, through ex2 in
+    log2 units); +inf exactly where a row has no key. The output is the one
+    the kernel gives without lse."""
+    q, k, v, _, kv, o, lse = _bwd_inputs(cuda, dtype, b, h, hkv, s, d, kv_len, causal)
+    want = attention_lse(q, k, v, kv_len=kv, causal=causal)
+    torch.cuda.synchronize()
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all())
+    scale = want[~inf].abs().max().item()
+    tol = 1e-4 if dtype == torch.bfloat16 else 1e-5
+    assert (lse[~inf] - want[~inf]).abs().max().item() <= tol * scale
+    assert torch.equal(o, flash_attention(q, k, v, kv_len=kv, causal=causal))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_kernel_is_deterministic(cuda, dtype):
+    """Two runs on the same inputs give bit-identical dq, dk and dv: every
+    element is summed by one thread in a fixed order, with no atomics."""
+    q, k, v, w, kv, o, lse = _bwd_inputs(cuda, dtype, 4, 6, 2, 1534, 64, [1534, 700, 1, 1200], True)
+    first = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, True, 0.125)
+    second = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, True, 0.125)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_backward_kernel_refuses(cuda):
+    """head_dim 48, mixed dtypes and a misaligned view are refused with a
+    ValueError before any launch."""
+    q, k, v, w, kv, o, lse = _bwd_inputs(cuda, torch.bfloat16, 2, 4, 2, 128, 64, None, False)
+    before = dict(kernels.launches)
+    q48 = torch.zeros((2, 4, 128, 48), dtype=torch.bfloat16, device=cuda)
+    k48 = torch.zeros((2, 2, 128, 48), dtype=torch.bfloat16, device=cuda)
+    lse48 = torch.zeros((2, 4, 128), device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        kernels.flash_attention_bwd(q48, k48, k48, q48, q48, lse48, None, False, 0.125)
+    with pytest.raises(ValueError, match="dtypes"):
+        kernels.flash_attention_bwd(q, k.float(), v, o, w, lse, None, False, 0.125)
+    with pytest.raises(ValueError, match="must match q"):
+        kernels.flash_attention_bwd(q, k, v, o, w.float(), lse, None, False, 0.125)
+    wide = torch.zeros((2, 4, 128, 65), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        kernels.flash_attention_bwd(q, k, v, o, wide[..., 1:], lse, None, False, 0.125)
+    with pytest.raises(ValueError, match="lse"):
+        kernels.flash_attention_bwd(q, k, v, o, w, lse.half(), None, False, 0.125)
+    assert kernels.launches == before

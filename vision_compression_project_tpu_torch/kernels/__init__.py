@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"flash_attention": 0, "masked_similarity": 0}
+launches = {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 0}
 # One build of a kernel at a time within the process: threads of one process
 # share the temporary file name, which carries the pid.
 _build_locks = {name: threading.Lock() for name in launches}
@@ -105,7 +105,16 @@ def _raise_on(lib: ctypes.CDLL, name: str, err: int) -> None:
 def _flash_lib() -> ctypes.CDLL:
     lib = _load("flash_attention")
     fn = lib.vcp_flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_float]  # 24 packed int64 (see the source), scale
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float]  # 25 packed int64 (see the source), scale
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _flash_bwd_lib() -> ctypes.CDLL:
+    lib = _load("flash_attention_bwd")
+    fn = lib.vcp_flash_attention_bwd
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float]  # 45 packed int64 (see the source), scale
     fn.restype = ctypes.c_int
     return lib
 
@@ -121,8 +130,11 @@ def _similarity_lib() -> ctypes.CDLL:
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_HEAD_DIMS = (32, 64)
-# Which kernel each input type takes (kernels/flash_attention.cu).
+# Which kernel each input type takes (kernels/flash_attention.cu and, for the
+# gradient, kernels/flash_attention_bwd.cu).
 FLASH_ROUTES = {torch.bfloat16: "tensor-core bf16 (mma.sync)", torch.float32: "scalar f32"}
+FLASH_BWD_ROUTES = {torch.bfloat16: "tensor-core bf16 (mma.sync), dK/dV pass + dQ pass",
+                    torch.float32: "scalar f32, dK/dV pass + dQ pass"}
 
 
 def flash_layout_ok(t: torch.Tensor) -> bool:
@@ -134,15 +146,9 @@ def flash_layout_ok(t: torch.Tensor) -> bool:
     return st[3] == 1 and not (st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16)
 
 
-def flash_attention_fwd(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: Optional[torch.Tensor],
-    causal: bool, scale: float,
-) -> torch.Tensor:
-    """Launch the flash-attention kernel: q (B, H, Sq, D), k/v (B, Hkv, Sk, D)
-    CUDA tensors on one device in a layout `flash_layout_ok` accepts, kv_len
-    (B,) int32 or None (every key valid). Returns O shaped like q, a
-    (B, H, Sq, D) view of a contiguous (B, Sq, H, D) tensor. Raises on
-    anything the kernel does not take and on a launch that CUDA refuses."""
+def _check_flash_operands(q, k, v, kv_len, scale) -> tuple:
+    """The checks K1's forward and backward share; returns (b, h, hkv, sq, sk,
+    d, dtype code)."""
     b, h, sq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad k/v shapes {tuple(k.shape)} {tuple(v.shape)} for q {tuple(q.shape)}")
@@ -167,17 +173,81 @@ def flash_attention_fwd(
     if not (flash_layout_ok(q) and flash_layout_ok(k) and flash_layout_ok(v)):
         raise ValueError("q/k/v need a contiguous last dimension, strides that are multiples of 8 "
                          "and 16-byte aligned data")
+    return b, h, hkv, sq, sk, d, dtype
+
+
+def _check_lse(lse: torch.Tensor, b: int, h: int, sq: int, dev: torch.device) -> None:
+    if lse.dtype != torch.float32 or lse.shape != (b, h, sq) or not lse.is_contiguous() or lse.device != dev:
+        raise ValueError(f"lse must be a contiguous float32 ({b}, {h}, {sq}) tensor on {dev}")
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: Optional[torch.Tensor],
+    causal: bool, scale: float, lse: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the flash-attention kernel: q (B, H, Sq, D), k/v (B, Hkv, Sk, D)
+    CUDA tensors on one device in a layout `flash_layout_ok` accepts, kv_len
+    (B,) int32 or None (every key valid). Returns O shaped like q, a
+    (B, H, Sq, D) view of a contiguous (B, Sq, H, D) tensor. With `lse`, a
+    contiguous (B, H, Sq) float32 tensor, the kernel also writes each row's
+    log-sum-exp of its scaled, masked scores there (+inf for a row without
+    keys), which the backward reads. Raises on anything the kernel does not
+    take and on a launch that CUDA refuses."""
+    b, h, hkv, sq, sk, d, dtype = _check_flash_operands(q, k, v, kv_len, scale)
+    dev = q.device
+    if lse is not None:
+        _check_lse(lse, b, h, sq, dev)
     lib = _flash_lib()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     params = array.array("q", (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), 0 if kv_len is None else kv_len.data_ptr(), out.data_ptr(),
         b, h, hkv, sq, sk, d, causal, dtype, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        dev.index, _raw_stream(dev.index),
+        dev.index, _raw_stream(dev.index), 0 if lse is None else lse.data_ptr(),
     ))
     err = lib.vcp_flash_attention_fwd(params.buffer_info()[0], scale)
     _raise_on(lib, "flash_attention", err)
     launches["flash_attention"] += 1
     return out.transpose(1, 2)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, g: torch.Tensor,
+    lse: torch.Tensor, kv_len: Optional[torch.Tensor], causal: bool, scale: float,
+) -> tuple:
+    """Launch the flash-attention backward (kernels/flash_attention_bwd.cu):
+    q, k, v, kv_len, causal and scale as the forward took them, o its output,
+    lse the row log-sum-exp it wrote, g the output gradient (shaped and typed
+    like q, in a layout `flash_layout_ok` accepts, as o must be). Returns
+    (dq, dk, dv) in the inputs' dtype, shaped like q, k and v: (B, H, S, D)
+    views of contiguous (B, S, H, D) tensors, the layout of the projections
+    they flow back into. One call, one count, whatever the passes it takes.
+    Raises on anything the kernel does not take and on a launch that CUDA
+    refuses."""
+    b, h, hkv, sq, sk, d, dtype = _check_flash_operands(q, k, v, kv_len, scale)
+    dev = q.device
+    for name, t in (("o", o), ("g", g)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != dev:
+            raise ValueError(f"{name} must match q: {tuple(t.shape)} {t.dtype} {t.device}")
+        if not flash_layout_ok(t):
+            raise ValueError(f"{name} needs a contiguous last dimension, strides that are multiples of 8 "
+                             "and 16-byte aligned data")
+    _check_lse(lse, b, h, sq, dev)
+    lib = _flash_bwd_lib()
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    dk = torch.empty((b, sk, hkv, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    dv = torch.empty((b, sk, hkv, d), dtype=q.dtype, device=dev).transpose(1, 2)
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    params = array.array("q", (
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        0 if kv_len is None else kv_len.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+        b, h, hkv, sq, sk, d, causal, dtype,
+        *(st for t in (q, k, v, o, g, dq, dk, dv) for st in t.stride()[:3]),
+        dev.index, _raw_stream(dev.index),
+    ))
+    err = lib.vcp_flash_attention_bwd(params.buffer_info()[0], scale)
+    _raise_on(lib, "flash_attention_bwd", err)
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
 
 
 _SIMILARITY_DTYPES = {torch.float32: 0, torch.bfloat16: 1}

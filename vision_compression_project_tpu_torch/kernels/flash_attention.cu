@@ -47,6 +47,12 @@
 // the bf16 route needs those strides to be multiples of 8 and the bases
 // 16-byte aligned (cp.async). o is written as a contiguous (B, Sq, H, D)
 // tensor, the layout the output projection reads.
+//
+// Given an lse address (the forward of a gradient), both routes also write
+// the row log-sum-exp, lse = log sum_valid exp(scale * s) in natural-log
+// units, as a contiguous (B, H, Sq) f32 tensor, +inf for a row with no valid
+// key; the backward (flash_attention_bwd.cu) recomputes the weights from it.
+// Serving passes 0 and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -59,6 +65,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 struct Strides {
   long long b, h, s;
@@ -73,7 +80,7 @@ constexpr int SC_CHUNK = 16;  // keys scored at a time in registers
 template <int D>
 __global__ void __launch_bounds__(SC_BM) flash_fwd_scalar_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const int* __restrict__ kv_len, float* __restrict__ o,
+    const int* __restrict__ kv_len, float* __restrict__ o, float* __restrict__ lse,
     int H, int Hkv, int Sq, int Sk, float scale, int causal, Strides qs, Strides ks, Strides vs) {
   __shared__ __align__(16) float ksm[SC_BN][D];
   __shared__ __align__(16) float vsm[SC_BN][D];
@@ -152,6 +159,7 @@ __global__ void __launch_bounds__(SC_BM) flash_fwd_scalar_kernel(
     float* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D;
 #pragma unroll
     for (int d = 0; d < D; ++d) op[d] = acc[d] * inv;
+    if (lse) lse[(static_cast<long long>(b) * H + h) * Sq + row] = l > 0.f ? m + logf(l) : INFINITY;
   }
 }
 
@@ -237,7 +245,7 @@ constexpr int tc_smem_bytes() {
 template <int D, int WARPS>
 __global__ void __launch_bounds__(WARPS * 32) flash_fwd_tc_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ kv_len, bf16* __restrict__ o,
+    const int* __restrict__ kv_len, bf16* __restrict__ o, float* __restrict__ lse,
     int H, int Hkv, int Sq, int Sk, float scale_log2, int causal, Strides qs, Strides ks, Strides vs) {
   constexpr int BM = 16 * WARPS;
   constexpr int BN = TC_BN;
@@ -414,6 +422,10 @@ __global__ void __launch_bounds__(WARPS * 32) flash_fwd_tc_kernel(
       for (int n = 0; n < ND; ++n) {
         *reinterpret_cast<uint32_t*>(op + n * 8) = pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
       }
+      // m is in log2 units: lse = (m + log2(sum)) ln 2.
+      if (lse && (lane & 3) == 0) {
+        lse[(static_cast<long long>(b) * H + h) * Sq + row] = sum > 0.f ? (m[i] + log2f(sum)) * LN2 : INFINITY;
+      }
     }
   }
 }
@@ -431,7 +443,7 @@ int sm_count() {
 }
 
 template <int D, int WARPS>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* kv_len, void* o,
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* kv_len, void* o, float* lse,
                       int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
                       Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
   constexpr int BM = 16 * WARPS;
@@ -440,34 +452,34 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* kv
   const dim3 grid(B * H, (Sq + BM - 1) / BM);
   flash_fwd_tc_kernel<D, WARPS><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_len,
-      static_cast<bf16*>(o), H, Hkv, Sq, Sk, scale * LOG2E, causal, qs, ks, vs);
+      static_cast<bf16*>(o), lse, H, Hkv, Sq, Sk, scale * LOG2E, causal, qs, ks, vs);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const int* kv_len, void* o,
+cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const int* kv_len, void* o, float* lse,
                         int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
                         Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
   // Most rows per block that still gives every SM a block.
   const long long heads = static_cast<long long>(B) * H;
   const long long sms = sm_count();
   if (heads * ((Sq + 63) / 64) >= sms) {
-    return launch_tc<D, 4>(q, k, v, kv_len, o, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
+    return launch_tc<D, 4>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
   }
   if (heads * ((Sq + 31) / 32) >= sms) {
-    return launch_tc<D, 2>(q, k, v, kv_len, o, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
+    return launch_tc<D, 2>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
   }
-  return launch_tc<D, 1>(q, k, v, kv_len, o, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
+  return launch_tc<D, 1>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
 }
 
 template <int D>
-cudaError_t launch_scalar(const void* q, const void* k, const void* v, const int* kv_len, void* o,
+cudaError_t launch_scalar(const void* q, const void* k, const void* v, const int* kv_len, void* o, float* lse,
                           int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
                           Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
   const dim3 grid((Sq + SC_BM - 1) / SC_BM, H, B);
   flash_fwd_scalar_kernel<D><<<grid, SC_BM, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v), kv_len,
-      static_cast<float*>(o), H, Hkv, Sq, Sk, scale, causal, qs, ks, vs);
+      static_cast<float*>(o), lse, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs);
   return cudaGetLastError();
 }
 
@@ -475,11 +487,12 @@ cudaError_t launch_scalar(const void* q, const void* k, const void* v, const int
 
 extern "C" {
 
-// One launch. p holds 24 integers (packed so that a caller pays one argument
-// conversion, not 24): q, k, v, kv_len, o (device addresses; kv_len 0 for
+// One launch. p holds 25 integers (packed so that a caller pays one argument
+// conversion, not 25): q, k, v, kv_len, o (device addresses; kv_len 0 for
 // "every key valid"), B, H, Hkv, Sq, Sk, D, causal, dtype, the element
-// strides (batch, head, sequence) of q, of k and of v, the CUDA device and
-// the stream. q: (B, H, Sq, D), k and v: (B, Hkv, Sk, D), each with its last
+// strides (batch, head, sequence) of q, of k and of v, the CUDA device, the
+// stream, and lse (the device address of a contiguous (B, H, Sq) f32 tensor
+// for the row log-sum-exp, or 0 for "do not write"). q: (B, H, Sq, D), k and v: (B, Hkv, Sk, D), each with its last
 // dimension contiguous; for bf16 the strides are multiples of 8 and the bases
 // 16-byte aligned. kv_len: (B,) int32. o: a contiguous (B, Sq, H, D) tensor.
 // dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor cores). The kernel
@@ -497,6 +510,7 @@ int vcp_flash_attention_fwd(const long long* p, float scale) {
   const Strides qs{p[13], p[14], p[15]}, ks{p[16], p[17], p[18]}, vs{p[19], p[20], p[21]};
   const int device = static_cast<int>(p[22]);
   cudaStream_t s = reinterpret_cast<cudaStream_t>(p[23]);
+  float* lse = reinterpret_cast<float*>(p[24]);
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv != 0 || Sq <= 0 || Sk <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -506,13 +520,13 @@ int vcp_flash_attention_fwd(const long long* p, float scale) {
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaErrorInvalidValue;
   if (dtype == 0 && D == 32) {
-    err = launch_scalar<32>(q, k, v, kv_len, o, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
+    err = launch_scalar<32>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
   } else if (dtype == 0 && D == 64) {
-    err = launch_scalar<64>(q, k, v, kv_len, o, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
+    err = launch_scalar<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
   } else if (dtype == 1 && D == 32) {
-    err = launch_tc_d<32>(q, k, v, kv_len, o, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
+    err = launch_tc_d<32>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
   } else if (dtype == 1 && D == 64) {
-    err = launch_tc_d<64>(q, k, v, kv_len, o, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
+    err = launch_tc_d<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
   }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);

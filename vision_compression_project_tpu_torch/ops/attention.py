@@ -13,12 +13,16 @@ returns a (B, H, S, D) view of a (B, S, H, D) tensor, the layout the output
 projection reads.
 
 The gradient: `FlashAttentionFn` is the port of the reference's custom_vjp
-(`_flash_core`). Its forward is the routing above; its backward,
-`flash_attention_bwd`, recomputes the attention weights in plain tensor code,
-a chunk of query rows at a time, as the reference's `core_bwd` does in XLA
-(the JAX package has no backward kernel). `flash_attention` takes it only when
-grad is enabled and an input requires it, so inference calls the forward
-directly.
+(`_flash_core`). On a CUDA tensor its forward asks the kernel for each row's
+log-sum-exp as well, and its backward is the hand-written backward kernel
+(kernels/flash_attention_bwd.cu), which recomputes the weights from it. On a
+CPU tensor the forward is `mha_reference` and the backward
+`flash_attention_bwd`, plain tensor code that recomputes the weights a chunk
+of query rows at a time, as the reference's `core_bwd` does in XLA (the JAX
+package has no backward kernel); it is the backward kernel's plain version,
+and `attention_lse` the log-sum-exp's. `flash_attention` takes the autograd
+function only when grad is enabled and an input requires it, so inference
+calls the forward directly and writes no log-sum-exp.
 
 Single-token decode attention is plain tensor code in models/layers.py, as it
 is XLA einsums, not a kernel, in the reference.
@@ -33,6 +37,19 @@ import torch
 from .. import kernels
 
 NEG_INF = -1e30
+
+
+def _key_mask(b: int, sq: int, sk: int, kv_len: Optional[torch.Tensor], causal: bool,
+              device: torch.device) -> torch.Tensor:
+    """Which keys each query row attends to, broadcastable to (B, H, Sq, Sk):
+    key < kv_len[b], and key <= query when causal."""
+    k_idx = torch.arange(sk, device=device)[None, None, None, :]
+    mask = torch.ones((b, 1, 1, sk), dtype=torch.bool, device=device)
+    if kv_len is not None:
+        mask = k_idx < kv_len.to(device)[:, None, None, None]
+    if causal:
+        mask = mask & (k_idx <= torch.arange(sq, device=device)[None, None, :, None])
+    return mask
 
 
 def mha_reference(
@@ -56,13 +73,7 @@ def mha_reference(
     if scale is None:
         scale = d ** -0.5
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    k_idx = torch.arange(sk, device=q.device)[None, None, None, :]
-    mask = torch.ones((b, 1, 1, sk), dtype=torch.bool, device=q.device)
-    if kv_len is not None:
-        mask = k_idx < kv_len.to(q.device)[:, None, None, None]
-    if causal:
-        q_idx = torch.arange(sq, device=q.device)[None, None, :, None]
-        mask = mask & (k_idx <= q_idx)
+    mask = _key_mask(b, sq, sk, kv_len, causal, q.device)
     s = torch.where(mask, s, torch.tensor(NEG_INF, dtype=s.dtype, device=s.device))
     p = torch.softmax(s, dim=-1)
     if kv_len is not None:
@@ -70,18 +81,53 @@ def mha_reference(
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
+def attention_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    kv_len: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """(B, H, Sq) f32: each query row's log-sum-exp of its scaled, masked
+    scores, log sum_valid exp(scale * q.k), +inf for a row with no valid key;
+    the plain version of the log-sum-exp the kernel's forward writes for the
+    backward. `v` is unused: it is there so that the call reads as
+    `mha_reference`'s."""
+    del v
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    kr = k.float().repeat_interleave(h // hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kr) * scale
+    mask = _key_mask(b, sq, sk, kv_len, causal, q.device)
+    lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
+    return torch.where(mask.any(dim=-1), lse, torch.tensor(float("inf"), device=q.device))
+
+
+def _kernel_operands(q, k, v, kv_len):
+    """q, k, v and kv_len as the kernels take them: kv_len int32 on q's
+    device, and a contiguous copy of any tensor whose layout they cannot read
+    in place."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device.type}")
+    if kv_len is not None and (kv_len.dtype != torch.int32 or kv_len.device != q.device):
+        kv_len = kv_len.to(device=q.device, dtype=torch.int32)
+    q, k, v = (_readable(t) for t in (q, k, v))
+    return q, k, v, kv_len
+
+
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    return t if kernels.flash_layout_ok(t) else t.clone(memory_format=torch.contiguous_format)
+
+
 def _forward(q, k, v, kv_len, causal: bool, scale: float) -> torch.Tensor:
     """The kernel on a CUDA tensor and nothing else; the plain version on a
     CPU tensor."""
     if q.device.type == "cpu":
         return mha_reference(q, k, v, kv_len=kv_len, causal=causal, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device.type}")
-    if kv_len is not None and (kv_len.dtype != torch.int32 or kv_len.device != q.device):
-        kv_len = kv_len.to(device=q.device, dtype=torch.int32)
-    q, k, v = (t if kernels.flash_layout_ok(t) else t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
-    return kernels.flash_attention_fwd(q, k, v, kv_len, causal, scale)
+    return kernels.flash_attention_fwd(*_kernel_operands(q, k, v, kv_len), causal, scale)
 
 
 def flash_attention_bwd(
@@ -147,21 +193,30 @@ def flash_attention_bwd(
 
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a gradient, the port of the reference's custom_vjp
-    (`_flash_core`): the forward is `_forward` (the kernel on the card, the
-    plain version on the CPU), the backward `flash_attention_bwd` on either
-    device."""
+    (`_flash_core`). On the card: the forward kernel, which also writes each
+    row's log-sum-exp, and the backward kernel, which starts from it; nothing
+    else. On the CPU: `mha_reference` and `flash_attention_bwd`."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len, causal: bool, scale: float):
-        ctx.save_for_backward(q, k, v, kv_len)
         ctx.causal, ctx.scale = causal, scale
-        return _forward(q, k, v, kv_len, causal, scale)
+        if q.device.type != "cuda":
+            ctx.save_for_backward(q, k, v, None, None, kv_len)
+            return _forward(q, k, v, kv_len, causal, scale)
+        q, k, v, kv_len = _kernel_operands(q, k, v, kv_len)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+        out = kernels.flash_attention_fwd(q, k, v, kv_len, causal, scale, lse=lse)
+        ctx.save_for_backward(q, k, v, out, lse, kv_len)
+        return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        q, k, v, kv_len = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, kv_len, g, ctx.causal, ctx.scale)
+        q, k, v, o, lse, kv_len = ctx.saved_tensors
+        if o is None:
+            dq, dk, dv = flash_attention_bwd(q, k, v, kv_len, g, ctx.causal, ctx.scale)
+        else:
+            dq, dk, dv = kernels.flash_attention_bwd(q, k, v, o, _readable(g), lse, kv_len, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None, None
 
 
