@@ -177,7 +177,7 @@ from vision_compression_project_tpu_torch.train.checkpoint import (
 )
 from vision_compression_project_tpu_torch.train.corpus import corpus_sentences
 from vision_compression_project_tpu_torch.train.data import (
-    device_batch, prefetch_batches, synthetic_batches, target_tokens,
+    device_batch, prefetch_batches, qa_batches, stack_pages, synthetic_batches, target_tokens,
 )
 from vision_compression_project_tpu_torch.train.embedder_train import (
     embedder_train_step, make_embedder_train_state, pair_batch, synthetic_pair_batches,
@@ -1671,14 +1671,19 @@ GRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_RTOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 
 
-def train_shapes(cfg, embed_kv_len: list) -> list:
+def train_shapes(cfg, embed_kv_len: list, answer_cfg) -> list:
     """K1's calls in one ocr_real training step at mixC's batch and text_len
-    (each launched in the forward and again in the remat recompute), and in
-    one embedder step (the documents: S 256, non-causal, ragged)."""
+    (each launched in the forward and again in the remat recompute), in one
+    embedder step (the documents: S 256, non-causal, ragged), and in one
+    ocr_bpe train_answer step at its defaults (batch 32, text_len 320: the
+    global encoder and the causal GQA 8:4 decoder over 256 + 319 tokens; its
+    64-token windows take the plain path)."""
     v, dec = cfg.vision, cfg.decoder
     win = v.window
     s_dec = v.tokens_out + MIXC["text_len"] - 1
     e = EmbedderConfig()
+    av, adec = answer_cfg.vision, answer_cfg.decoder
+    s_ans = av.tokens_out + ANSWER_TEXT_LEN - 1
     return [
         AttnShape("train_encoder_local", TRAIN_BATCH * (v.grid // win) ** 2, v.heads_local, v.heads_local, win * win,
                   v.dim_local // v.heads_local, False, [win * win] * (TRAIN_BATCH * (v.grid // win) ** 2),
@@ -1689,6 +1694,11 @@ def train_shapes(cfg, embed_kv_len: list) -> list:
                   [s_dec] * TRAIN_BATCH, 2 * dec.depth, "train"),
         AttnShape("train_embedder_docs", EMBED_BATCH, e.heads, e.heads, 256, e.dim // e.heads, False,
                   list(embed_kv_len), e.depth, "train_embedder"),
+        AttnShape("train_answer_encoder_global", ANSWER_BATCH, av.heads_global, av.heads_global, av.tokens_out,
+                  av.dim_global // av.heads_global, False, [av.tokens_out] * ANSWER_BATCH, 2 * av.depth_global,
+                  "train_answer"),
+        AttnShape("train_answer_decoder", ANSWER_BATCH, adec.heads, adec.kv_heads, s_ans, adec.head_dim, True,
+                  [s_ans] * ANSWER_BATCH, 2 * adec.depth, "train_answer"),
     ]
 
 
@@ -1826,12 +1836,12 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
                      f"(tol {LSE_RTOL[dtype]}), +inf rows equal {lse_inf_ok}")
             del q, k, v, g, out, grads, o, lse, kgrads
     torch.cuda.empty_cache()
-    # Per training step: the forward launches (in ocr_real's blocks the
+    # Per training step: the forward launches (in the VLMs' blocks the
     # forward and the remat recompute) and one backward per block.
     rec = {}
-    for path in ("train", "train_embedder"):
+    for path in ("train", "train_embedder", "train_answer"):
         main = [r for r in rows if r["dtype"] == "bfloat16" and r["path"] == path]
-        per_block = 2 if path == "train" else 1
+        per_block = 1 if path == "train_embedder" else 2
         rec[path] = {
             "launches_per_step": sum(r["launches_per_step"] for r in main),
             "bwd_launches_per_step": sum(r["launches_per_step"] // per_block for r in main),
@@ -1857,18 +1867,14 @@ def fixed_pages(seed: int, n: int, workdir: Path, text_len: int, tok):
     texts = ingest_texts(seed, n, MIXC["lines"], MIXC["font_size"])
     pdf = make_pdf(texts, workdir / f"fixed_{n}.pdf", font_size=MIXC["font_size"])
     with PdfDocument(pdf) as doc:
-        rasters = doc.render_batch(0, n - 1, dpi=MIXC["dpi"])
-    h, w = max(r.shape[0] for r in rasters), max(r.shape[1] for r in rasters)
-    pages = np.full((n, h, w, 3), 255, np.uint8)
-    for i, r in enumerate(rasters):
-        pages[i, : r.shape[0], : r.shape[1]] = r
+        pages = stack_pages(doc.render_batch(0, n - 1, dpi=MIXC["dpi"]))
     tokens = np.stack([target_tokens(t, i + 1, text_len, tok=tok) for i, t in enumerate(texts)])
     return {"pages_u8": pages, "token_ids": tokens}
 
 
-def shipped_loss_check(cfg, shipped: dict, fixed: dict) -> dict:
-    """The shipped ocr_real's loss on the fixed batch: the card in the
-    training dtype and in f32 against the CPU's plain path in f32."""
+def shipped_loss_check(cfg, shipped: dict, fixed: dict, name: str = "ocr_real") -> dict:
+    """The shipped model's loss on the fixed batch: the card in the training
+    dtype and in f32 against the CPU's plain path in f32."""
     losses = {}
     for name, c, device in (("cpu_f32", f32_config(cfg), "cpu"), ("card_f32", f32_config(cfg), DEVICE),
                             ("card_bf16", cfg, DEVICE)):
@@ -1883,7 +1889,7 @@ def shipped_loss_check(cfg, shipped: dict, fixed: dict) -> dict:
                f32_atol=LOSS_ATOL_F32, bf16_atol=LOSS_RTOL_BF16 * max(ref, 1.0))
     if not (np.isfinite(list(losses.values())).all() and out["f32_err"] <= out["f32_atol"]
             and out["bf16_err"] <= out["bf16_atol"]):
-        fail(f"shipped ocr_real loss on the fixed batch: {out}")
+        fail(f"shipped {name} loss on the fixed batch: {out}")
     return out
 
 
@@ -2089,7 +2095,7 @@ def train_phase(cfg, seed: int, workdir: Path) -> dict:
     # The corpus harvest (reading the installed packages' documentation) runs
     # while K1 is checked.
     pair = next(synthetic_pair_batches(EMBED_BATCH, seed=seed))
-    shapes = train_shapes(cfg, [int(n) for n in pair["d_len"]])
+    shapes = train_shapes(cfg, [int(n) for n in pair["d_len"]], get_preset(CHAT_PRESET))
     with ThreadPoolExecutor(1) as pool:
         harvest = pool.submit(corpus_sentences, "train")
         t0 = time.perf_counter()
@@ -2124,16 +2130,279 @@ def train_phase(cfg, seed: int, workdir: Path) -> dict:
     return out
 
 
+# --------------------------------------------------------------- [answer]
+# The answer task, its evaluation and the answer hop with the shipped ocr_bpe
+# (meta.json: font 24, dpi 46, 6 lines, words; tasks extract + answer):
+# train_answer at its defaults (batch 32, text_len 320, answer_every 2) with
+# the hop's answer data (agg_frac 0.5, mixed evidence), eval_extract at both
+# shipped gates' renders, eval_answer, and run_answer_hop's command line.
+ANSWER_BATCH, ANSWER_TEXT_LEN, ANSWER_LR = 32, 320, 4e-4
+ANSWER_RENDER = dict(font_size=24, lines=6, dpi=46)
+ANSWER_STEPS = 4            # train_answer steps in-process: extract, answer, extract, answer; 3-4 timed
+ANSWER_LOSS_BATCH, ANSWER_LOSS_SEED = 8, 1234  # the fixed answer batch (words evidence: the same anywhere)
+HOP_ARGS = ["--steps", "8", "--batch", "32", "--eval_examples", "4"]
+HOP_TIMEOUT_S = 600
+# (e) the shipped weights' quality, eval_extract at each gate's render and
+# eval_answer, in-process; floors: run_answer_hop's --min_extract (ocr_bpe)
+# and run_curriculum's --ship_at (ocr_real).
+EXTRACT_GATES = {
+    "ocr_bpe": dict(args=["--data", "words", "--pages", "16", "--seed", "12345", "--dpi", "46", "--font_size", "24",
+                          "--lines", "6", "--max_new", "256"], floor=0.3, pages=16, gate="extract_eval.json"),
+    "ocr_real": dict(args=["--data", "real", "--pages", "12", "--dpi", "93", "--font_size", "24", "--lines", "14",
+                           "--max_new", "1024"], floor=0.8, pages=12, gate="eval.json"),
+}
+K1_PER_EXTRACT_CHUNK = {"ocr_bpe": 6, "ocr_real": 14}  # global encoder + decoder prefill (+ ocr_real's windows)
+ANSWER_EVAL_EXAMPLES = 8
+SUSPECT_EXAMPLES = 4
+AGG_KEYS = ["analytic_keyfact_accuracy", "auto_citation_coverage", "auto_keyfact_accuracy", "examples",
+            "extractive_keyfact_accuracy", "lm_citation_coverage", "lm_keyfact_accuracy", "task"]
+IMITATE_KEYS = ["citation_rate", "examples", "similarity_mean", "similarity_min", "task"]
+EXTRACT_KEYS = ["data", "entities_similarity_mean", "markdown_similarity_mean", "markdown_similarity_min", "pages",
+                "render", "summary_similarity_mean"]
+_HOP_STEP = re.compile(r"^step +(\d+)  extract (\S+)  answer (\S+)  ex/s (\S+)$")
+
+
+def port_command(name: str, *args) -> list:
+    return [sys.executable, "-m", f"vision_compression_project_tpu_torch.scripts.{name}", *map(str, args)]
+
+
+def eval_answer_child(argv: list) -> int:
+    """`chip_smoke.py --eval-answer-child ANSWERS_JSON EVAL_ANSWER_ARGS...`:
+    the eval_answer command line in this process, every generated answer
+    also written, in order, to ANSWERS_JSON."""
+    from vision_compression_project_tpu_torch.scripts import eval_answer
+
+    answers = []
+    original = VLMRunner.answer
+
+    def answer(self, *a, **k):
+        answers.append(original(self, *a, **k))
+        return answers[-1]
+
+    VLMRunner.answer = answer
+    eval_answer.main(argv[1:])
+    Path(argv[0]).write_text(json.dumps(answers))
+    return 0
+
+
+def answer_train_steps(chat_cfg, seed: int, shipped: dict, workdir: Path, k1_per_step: int, bwd_per_step: int):
+    """(c) train_answer's loop in-process from the shipped ocr_bpe: the
+    extraction and answer streams, alternating, exact launch counts every
+    step, every parameter with a finite gradient after step 1."""
+    model, opt, state = make_train_state(chat_cfg, device=DEVICE, seed=seed,
+                                         lr=cosine_lr(ANSWER_LR, ANSWER_STEPS))
+    model.load_state_dict(shipped)  # what --init_from checkpoints/default/ocr_bpe loads
+    streams = {
+        "extract": prefetch_batches(synthetic_batches(chat_cfg, ANSWER_BATCH, text_len=ANSWER_TEXT_LEN, seed=seed,
+                                                      workdir=workdir, **ANSWER_RENDER)),
+        "answer": prefetch_batches(qa_batches(chat_cfg, ANSWER_BATCH, text_len=ANSWER_TEXT_LEN, seed=seed + 7,
+                                              agg_frac=0.5, data_kind="mixed")),
+    }
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    steps = []
+    for step in range(1, ANSWER_STEPS + 1):
+        task = "answer" if step % 2 == 0 else "extract"
+        kernels.reset_launch_counts()
+        t = timed_step(model, opt, state, streams[task], chat_cfg)
+        t["step_s"] = t["data_s"] + t["forward_s"] + t["backward_s"] + t["optimizer_s"]
+        if step == 1:
+            check_gradients(model)
+        fwd, bwd = step_launches(launches)
+        log("answer.train_step", t["step_s"], step=step, task=task, flash_launches=fwd, flash_bwd_launches=bwd, **t)
+        if fwd != k1_per_step or bwd != bwd_per_step or not np.isfinite(t["loss"]):
+            fail(f"train_answer step {step} ({task}): {fwd} flash-attention and {bwd} backward launches "
+                 f"(expected {k1_per_step} and {bwd_per_step}), loss {t['loss']}")
+        steps.append(dict(t, task=task))
+    timed = steps[2:]
+    out = {"steps": ANSWER_STEPS, "batch": ANSWER_BATCH, "text_len": ANSWER_TEXT_LEN,
+           "losses": {f"{t['task']}_{i + 1}": t["loss"] for i, t in enumerate(steps)},
+           "launches": launches, "first_steps_s": [t["step_s"] for t in steps[:2]]}
+    for t in timed:
+        out[t["task"]] = {k: t[k] for k in ("data_s", "forward_s", "backward_s", "optimizer_s", "step_s")}
+    out["examples_per_s"] = len(timed) * ANSWER_BATCH / sum(t["step_s"] for t in timed)
+    del model, opt, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_eval(module, name: str, args: list, json_out: Path, want_k1: int) -> dict:
+    """A port eval command line in this process on the card, with its launch
+    counts zeroed before and read after: K1 exactly want_k1 times, its
+    backward never."""
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    module.main([*args, "--json_out", str(json_out)])
+    seconds = sync_s(t0)
+    launched = dict(kernels.launches)
+    result = json.loads(json_out.read_text())
+    log(f"answer.{name}", seconds, flash_launches=launched["flash_attention"], **{
+        k: json.dumps(v) for k, v in result.items()})
+    if launched["flash_attention"] != want_k1 or launched["flash_attention_bwd"] != 0:
+        fail(f"{name}: launches {launched}, expected {want_k1} flash-attention and no backward")
+    return dict(result, seconds=seconds, launches=launched)
+
+
+def hop_checks(hop_dir: Path, ship_root: Path) -> dict:
+    """(d) run_answer_hop's record: a terminal state, every eval JSON with its
+    keys, every logged loss finite (the answer loss once an answer step has
+    run: step 1 logs the placeholder nan), and a ship that loads."""
+    status = json.loads((hop_dir / "answer_hop.json").read_text())
+    if status.get("status") not in ("shipped", "not_shipped_gate_failed"):
+        fail(f"run_answer_hop ended in {status.get('status')!r}: {json.dumps(status)[:2000]}")
+    evals = status["evals"]
+    for name, keys in (("agg_real", AGG_KEYS), ("imitate_real", IMITATE_KEYS), ("imitate_words", IMITATE_KEYS),
+                       ("extract", EXTRACT_KEYS)):
+        if sorted(evals.get(name, {})) != keys:
+            fail(f"run_answer_hop's {name} eval JSON has keys {sorted(evals.get(name, {}))}, expected {keys}")
+    if sorted(status["gate"]) != ["agg_beats_extractive", "extract_floor", "imitate_floor"]:
+        fail(f"run_answer_hop's gate keys: {sorted(status['gate'])}")
+    logged = [m.groups() for m in map(_HOP_STEP.match, (hop_dir / "train.log").read_text().splitlines()) if m]
+    if not logged:
+        fail("run_answer_hop's train.log has no step line")
+    for step, extract, answer, _ in logged:
+        if not np.isfinite(float(extract)) or (int(step) >= 2 and not np.isfinite(float(answer))):
+            fail(f"run_answer_hop's step {step}: extract loss {extract}, answer loss {answer}")
+    out = {"status": status["status"], "gate": status["gate"], "steps_logged": [list(x) for x in logged],
+           **{name: {k: v for k, v in evals[name].items() if k.endswith(("mean", "accuracy", "rate"))}
+              for name in evals}}
+    if status["status"] == "shipped":
+        ship = ship_root / CHAT_PRESET
+        meta = json.loads((ship / "meta.json").read_text())
+        if meta["tasks"] != ["extract", "answer"] or not (ship / "gate" / "answer_hop.json").is_file():
+            fail(f"the hop's ship: meta tasks {meta['tasks']}, gate files {sorted(os.listdir(ship / 'gate'))}")
+        runner = load_runner(get_preset(CHAT_PRESET), ship, device=DEVICE)
+        out["ship_answer"] = runner.answer("What about the audit team?",
+                                           "[Page 1 | memory_id=m01]\nThe audit team reviewed the invoices.",
+                                           max_new=32)
+        del runner
+    return out
+
+
+def shipped_unchanged() -> None:
+    """checkpoints/default/ still holds the committed weights."""
+    want = shipped_digests()
+    for preset in SHIPPED:
+        if param_digests(load_params(config.shipped_checkpoint_dir(preset))) != want[preset]:
+            fail(f"checkpoints/default/{preset} no longer matches the committed digests")
+
+
+def answer_phase(seed: int, workdir: Path, train_kernel: dict) -> dict:
+    """[answer]: (b) the shipped ocr_bpe's loss on a fixed answer batch, card
+    against CPU; (c) train_answer's steps in-process; then, while (d) the
+    answer hop's command line and two separate eval_answer processes (suspect
+    1) run in child processes, (e) the shipped weights' quality in-process;
+    then the hop's record and the two processes' outputs are checked."""
+    from vision_compression_project_tpu_torch.scripts import eval_answer, eval_extract
+
+    chat_cfg = get_preset(CHAT_PRESET)
+    out = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0}}
+    shipped = params_from_jax(load_params(config.shipped_checkpoint_dir(CHAT_PRESET)))
+    fixed = next(qa_batches(chat_cfg, ANSWER_LOSS_BATCH, text_len=ANSWER_TEXT_LEN, seed=ANSWER_LOSS_SEED,
+                            data_kind="words"))
+    t0 = time.perf_counter()
+    out["loss_check"] = shipped_loss_check(chat_cfg, shipped, fixed, name=CHAT_PRESET)
+    log("answer.loss_check", time.perf_counter() - t0, **out["loss_check"])
+
+    k1 = train_kernel["train_answer"]["launches_per_step"]
+    bwd = train_kernel["train_answer"]["bwd_launches_per_step"]
+    t0 = time.perf_counter()
+    out["train"] = answer_train_steps(chat_cfg, seed, shipped, workdir, k1, bwd)
+    for name, n in out["train"]["launches"].items():
+        out["launches"][name] += n
+    log("answer.train", time.perf_counter() - t0, **{k: json.dumps(v) for k, v in out["train"].items()})
+    del shipped
+
+    # (d) and suspect 1 in child processes, started together.
+    repo = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(repo))
+    hop_dir, ship_root = workdir / "hop", workdir / "ship"
+    logs = {name: open(workdir / f"{name}.out", "w") for name in ("hop", "suspect_a", "suspect_b")}
+    shipped_bpe = config.shipped_checkpoint_dir(CHAT_PRESET)
+    suspect_args = ["--ckpt_dir", shipped_bpe, "--task", "imitate", "--data", "words",
+                    "--examples", str(SUSPECT_EXAMPLES)]
+    procs = {
+        "hop": subprocess.Popen(port_command("run_answer_hop", "--init_from", shipped_bpe, *HOP_ARGS, "--out",
+                                             hop_dir, "--ship_root", ship_root),
+                                cwd=repo, env=env, stdout=logs["hop"], stderr=subprocess.STDOUT),
+        **{name: subprocess.Popen([sys.executable, str(repo / "chip_smoke.py"), "--eval-answer-child",
+                                   str(workdir / f"{name}_answers.json"), *suspect_args, "--json_out",
+                                   str(workdir / f"{name}.json")],
+                                  cwd=repo, env=env, stdout=logs[name], stderr=subprocess.STDOUT)
+           for name in ("suspect_a", "suspect_b")},
+    }
+    t_children = time.perf_counter()
+    try:
+        # (e) the shipped weights' quality, in this process meanwhile.
+        out["quality"] = {}
+        for preset, gate in EXTRACT_GATES.items():
+            ckpt = config.shipped_checkpoint_dir(preset)
+            chunks = -(-gate["pages"] // 4)
+            res = run_eval(eval_extract, f"eval_extract.{preset}", ["--preset", preset, "--ckpt_dir", ckpt,
+                                                                   *gate["args"]],
+                           workdir / f"extract_{preset}.json", chunks * K1_PER_EXTRACT_CHUNK[preset])
+            shipped_gate = json.loads((Path(ckpt) / "gate" / gate["gate"]).read_text())
+            out["quality"][f"extract_{preset}"] = {
+                "markdown_similarity_mean": res["markdown_similarity_mean"], "floor": gate["floor"],
+                "shipped_gate": shipped_gate["markdown_similarity_mean"], "seconds": res["seconds"]}
+            out["launches"]["flash_attention"] += res["launches"]["flash_attention"]
+            if not res["markdown_similarity_mean"] >= gate["floor"]:
+                fail(f"eval_extract {preset}: markdown similarity {res['markdown_similarity_mean']} under the "
+                     f"floor {gate['floor']}")
+        gates = {"imitate": "imitate_real_eval.json", "agg": "agg_real_eval.json"}
+        for task, gate_file in gates.items():
+            res = run_eval(eval_answer, f"eval_answer.{task}", ["--ckpt_dir", shipped_bpe, "--task", task, "--data",
+                                                                "words", "--examples", str(ANSWER_EVAL_EXAMPLES)],
+                           workdir / f"answer_{task}.json", 6 + 4 * (ANSWER_EVAL_EXAMPLES - 1))
+            out["quality"][f"answer_{task}"] = dict(
+                {k: v for k, v in res.items() if k not in ("launches", "task")},
+                shipped_gate_real_data=json.loads((Path(shipped_bpe) / "gate" / gate_file).read_text()))
+            out["launches"]["flash_attention"] += res["launches"]["flash_attention"]
+        for name, proc in procs.items():
+            proc.wait(timeout=max(1.0, HOP_TIMEOUT_S - (time.perf_counter() - t_children)))
+    except subprocess.TimeoutExpired:
+        fail(f"the hop or the suspect-1 processes did not finish in {HOP_TIMEOUT_S} s")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs.values():
+            f.close()
+    out["children_s"] = time.perf_counter() - t_children
+    for name, proc in procs.items():
+        text = (workdir / f"{name}.out").read_text()
+        print(f"-- {name} (rc {proc.returncode})\n{text[-3000:].strip()}", flush=True)
+        if proc.returncode != 0:
+            fail(f"{name} exited with {proc.returncode}")
+    print("-- hop train.log\n" + (hop_dir / "train.log").read_text()[-3000:].strip(), flush=True)
+    out["hop"] = hop_checks(hop_dir, ship_root)
+    log("answer.hop", out["children_s"], **{k: json.dumps(v) for k, v in out["hop"].items()})
+    shipped_unchanged()
+
+    # Suspect 1: the same eval_answer in two processes. Reported, not checked.
+    runs = [json.loads((workdir / f"{n}.json").read_text()) for n in ("suspect_a", "suspect_b")]
+    answers = [json.loads((workdir / f"{n}_answers.json").read_text()) for n in ("suspect_a", "suspect_b")]
+    first = next((i for i, (a, b) in enumerate(zip(*answers)) if a != b), None)
+    out["suspect_1"] = {"json_equal": runs[0] == runs[1], "answers_equal": answers[0] == answers[1],
+                        "runs": runs, "first_differing_example": first,
+                        "answers": None if first is None else [a[first] for a in answers]}
+    log("answer.suspect_1", 0.0, **{k: json.dumps(v) for k, v in out["suspect_1"].items()})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--serve-child", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--eval-answer-child", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 2
     if args.serve_child:
         return serve_child()
+    if args.eval_answer_child:
+        return eval_answer_child(args.eval_answer_child)
     # A reference in f32 means f32: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2223,8 +2492,14 @@ def main() -> int:
             k1_per_step=json.dumps(trained["k1_per_step"]), k1_bwd_per_step=json.dumps(trained["k1_bwd_per_step"]),
             mixc=json.dumps(trained["mixc"]), overfit=json.dumps(trained["overfit"]),
             embedder=json.dumps(trained["embedder"]))
+        t0 = time.perf_counter()
+        answered = answer_phase(args.seed, workdir, trained["kernel"])
+        log("answer", sync_s(t0), launches=json.dumps(answered["launches"]),
+            train=json.dumps(answered["train"]), quality=json.dumps(answered["quality"]),
+            hop_status=answered["hop"]["status"], suspect_1=json.dumps(answered["suspect_1"]["json_equal"]))
 
     train_rec = trained["kernel"]["train"]
+    answer_rec = trained["kernel"]["train_answer"]
 
     def entry(name, source, replaces, rec, **extra):
         by_path = {"extract": launches[name], "chat": chat_launches[name],
@@ -2232,7 +2507,7 @@ def main() -> int:
                    "ingest_pdf_pixels": ingest["routes"]["pixel"]["launches"] if name == "flash_attention" else 0,
                    "chat_shipped": shipped["launches"][name], "serve": served["launches"][name],
                    "retrieval": retrieved["launches"][name],
-                   "train": trained["launches"].get(name, 0)}
+                   "train": trained["launches"].get(name, 0), "answer": answered["launches"].get(name, 0)}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2246,6 +2521,8 @@ def main() -> int:
               kernel_route=kernels.FLASH_ROUTES[torch.bfloat16], graph_ms=record["graph_ms"],
               library_graph_ms=record["library_graph_ms"], embed_call=record["embed_call"],
               train_step=trained["kernel"]["train"], embedder_train_step=trained["kernel"]["train_embedder"],
+              answer_train_step={k: answer_rec[k] for k in ("launches_per_step", "ms", "plain_ms", "library_ms",
+                                                            "bound_ms")},
               train_max_rel_err=trained["kernel"]["max_rel_err"]),
         entry("masked_similarity", "vision_compression_project_tpu_torch/kernels/masked_similarity.cu",
               "vision_compression_project_tpu/ops/topk.py:26", sim_record,
@@ -2262,6 +2539,8 @@ def main() -> int:
               calls_per_step=trained["k1_bwd_per_step"], embedder_train_step={
                   k: trained["kernel"]["train_embedder"][k]
                   for k in ("bwd_ms", "bwd_plain_ms", "library_bwd_ms", "bwd_bound_ms")},
+              answer_train_step={k: answer_rec[k] for k in ("bwd_launches_per_step", "bwd_ms", "bwd_plain_ms",
+                                                            "library_bwd_ms", "bwd_bound_ms", "bwd_bound_by")},
               max_rel_err=trained["kernel"]["bwd_max_rel_err"], lse_max_rel_err=trained["kernel"]["lse_max_rel_err"],
               mixc_step_s=sum(trained["mixc"][k] for k in ("data_s", "forward_s", "backward_s", "optimizer_s")),
               mixc_backward_s=trained["mixc"]["backward_s"]),

@@ -3,7 +3,8 @@ their plain versions on CUDA tensors, the vector index's search and the glyph
 renderer on the card against the same on the CPU, the shipped weights read on
 the card's machine, /ingest from a PDF on the card, the HTTP server's
 /chat on the card, the neural embedder and MaxSim retrieval on the card, and
-the retrieval harness's 40-page hit@3. They skip without a CUDA device.
+the retrieval harness's 40-page hit@3, and the train_answer command line at
+ocr_bpe's training shapes. They skip without a CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed. On the GPU machine, from the repository root:
@@ -433,6 +434,11 @@ def test_eval_retrieval_40_pages_on_the_card(cuda, monkeypatch, capsys):
         (2, 6, 2, 1534, 64, None, True),
         (4, 8, 8, 256, 64, [256, 17, 130, 1], False),
         (3, 6, 2, 130, 64, [130, 2, 77], True),
+        # ocr_bpe's training shapes at a small batch (train_answer, text_len
+        # 320): the global encoder, and the decoder over 256 + 319 tokens,
+        # causal at head_dim 32 with GQA 8:4.
+        (2, 4, 4, 256, 64, None, False),
+        (2, 8, 4, 575, 32, None, True),
     ],
 )
 def test_flash_attention_gradient_matches_plain_autograd(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
@@ -514,6 +520,8 @@ BWD_CASES = [
     (4, 8, 8, 256, 64, [256, 17, 130, 1], False),
     (3, 6, 2, 130, 64, [130, 0, 77], True),
     (3, 3, 1, 77, 32, [77, 1, 0], False),
+    (2, 4, 4, 256, 64, None, False),
+    (2, 8, 4, 575, 32, None, True),
 ]
 
 
@@ -598,3 +606,32 @@ def test_backward_kernel_refuses(cuda):
     with pytest.raises(ValueError, match="lse"):
         kernels.flash_attention_bwd(q, k, v, o, w, lse.half(), None, False, 0.125)
     assert kernels.launches == before
+
+
+def test_train_answer_two_steps_on_the_card(cuda, tmp_path, monkeypatch, capsys):
+    """The train_answer command line in-process on the card: the shipped
+    ocr_bpe warm-started, an extraction step then an answer step at batch 2.
+    Each step launches K1 12 times (2 global + 4 decoder blocks, forward and
+    remat recompute; the 64-token windows take the plain path) and its
+    backward kernel 6 times; both losses are finite and the checkpoint
+    loads."""
+    import re
+
+    from vision_compression_project_tpu_torch import config
+    from vision_compression_project_tpu_torch.scripts import train_answer
+    from vision_compression_project_tpu_torch.train import checkpoint
+
+    monkeypatch.setattr(config, "RUNTIME", dataclasses.replace(config.RUNTIME, device="cuda"))
+    kernels.reset_launch_counts()
+    train_answer.main(["--preset", "ocr_bpe", "--steps", "2", "--batch", "2", "--log_every", "1",
+                       "--init_from", config.shipped_checkpoint_dir("ocr_bpe"), "--ckpt_dir", str(tmp_path / "ck")])
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attention"] == 24 and kernels.launches["flash_attention_bwd"] == 12
+    lines = capsys.readouterr().out.splitlines()
+    step2 = [line for line in lines if line.startswith("step     2")]
+    assert len(step2) == 1
+    extract, answer = (float(x) for x in re.findall(r"(?:extract|answer) (\S+)", step2[0]))
+    assert np.isfinite(extract) and np.isfinite(answer)
+    runner = checkpoint.load_runner(get_preset("ocr_bpe"), tmp_path / "ck", device="cuda")
+    reply = runner.answer("What about the audit?", "[Page 1 | memory_id=m01]\nThe audit team met.", max_new=8)
+    assert isinstance(reply, str)

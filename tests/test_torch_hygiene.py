@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every module of it, and what
 chip_smoke.py imports, loads nothing of JAX, flax, optax, orbax, tensorstore,
-zstandard, safetensors, triton, pydantic, fastapi or the JAX package; building its host
+zstandard, safetensors, triton, pydantic, fastapi, PIL or the JAX package; building its host
 libraries writes nothing into the JAX package; and asking for the card where
 there is none raises instead of running on the CPU."""
 
@@ -19,11 +19,11 @@ import importlib, importlib.abc, json, pkgutil, sys
 
 class Blocked(importlib.abc.MetaPathFinder):
     # Importing JAX, flax, optax, orbax, tensorstore, zstandard, safetensors,
-    # triton, pydantic, fastapi or the JAX package fails here.
+    # triton, pydantic, fastapi, PIL or the JAX package fails here.
     def find_spec(self, name, path=None, target=None):
         top = name.split(".")[0]
         if top in ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore", "zstandard", "safetensors", "triton",
-                   "pydantic", "pydantic_core", "fastapi", "starlette", "vision_compression_project_tpu"):
+                   "pydantic", "pydantic_core", "fastapi", "starlette", "PIL", "vision_compression_project_tpu"):
             raise ImportError(f"blocked import of {name}")
         return None
 
@@ -37,7 +37,7 @@ print(json.dumps(sorted(sys.modules)))
 """
 
 BANNED_PREFIXES = ("jax", "flax", "optax", "orbax", "tensorstore", "zstandard", "safetensors", "triton", "pydantic",
-                   "fastapi", "starlette")
+                   "fastapi", "starlette", "PIL")
 JAX_PACKAGE = "vision_compression_project_tpu"
 
 
@@ -64,6 +64,9 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         "scripts.extract_page", "scripts.ingest_to_index", "scripts.qa_query",
         "scripts.eval_retrieval", "ops.attention", "train.train_step", "train.data", "train.corpus",
         "train.embedder_train", "weights", "scripts.train_vlm", "scripts.train_embedder",
+        "raster.png", "scripts.eval_extract", "scripts.eval_ocr", "scripts.train_answer", "scripts.eval_answer",
+        "scripts.ship_checkpoint", "scripts.run_answer_hop", "scripts.export_stage_params",
+        "scripts.run_curriculum",
     ):
         assert f"vision_compression_project_tpu_torch.{name}" in modules
     assert [m for m in modules if _banned(m)] == []

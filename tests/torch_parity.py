@@ -108,3 +108,22 @@ def prose_pages(seed, n_pages, sentences=6):
             out.append(f"{subj} {verb} {int(rng.integers(2, 999))} {obj} in section {p}.{s}.")
         pages.append(" ".join(out))
     return pages
+
+
+def jax_script(name):
+    """The repository's scripts/<name>.py as a module, imported as its
+    command line imports it (scripts/ on the path for its _bootstrap), under
+    the name jax_<name>."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    scripts = Path(__file__).resolve().parents[1] / "scripts"
+    sys.path.insert(0, str(scripts))
+    try:
+        spec = importlib.util.spec_from_file_location(f"jax_{name}", scripts / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+    finally:
+        sys.path.remove(str(scripts))

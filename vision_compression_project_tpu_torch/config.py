@@ -78,6 +78,10 @@ RUNTIME = RuntimeConfig()
 
 # Shipped (in-repo) checkpoints: checkpoints/default/<preset>/params_NNNNNNNN/.
 SHIPPED_CHECKPOINT_ROOT = Path(__file__).resolve().parents[1] / "checkpoints" / "default"
+# Where the port's ship step (scripts/ship_checkpoint.py) writes by default:
+# the port saves checkpoint.pt, which the JAX package cannot read, so it never
+# writes into SHIPPED_CHECKPOINT_ROOT.
+PORT_SHIP_ROOT = SHIPPED_CHECKPOINT_ROOT.parent / "torch"
 
 # Resolution order for VCP_MODEL_PRESET=auto: the largest preset shipped.
 _PRESET_PREFERENCE = ("prod", "base", "ocr_real", "ocr_bpe", "ocr_demo", "tiny")

@@ -9,14 +9,16 @@ realistic layout: width-aware word wrapping (make_pdf does not wrap; clipped
 words poison targets), titles, paragraph breaks and occasional bullets, so
 the textmd gold targets exercise headings and lists. The pool depends on the
 machine, as the reference's does; on one machine both packages harvest the
-same files. The reference's held-out golden split is not ported (its eval
-scripts are not yet).
+same files. The golden split (`golden_sentences`) reads the reference
+pipeline's own extracted document, which no training pool draws from, so the
+eval numbers on it are uncontaminated real prose.
 """
 
 from __future__ import annotations
 
 import glob
 import hashlib
+import os
 import re
 import sysconfig
 from pathlib import Path
@@ -123,6 +125,18 @@ def _sentence_ok(s: str) -> bool:
     return wordish / len(words) >= 0.8
 
 
+def _add_sentences(body: str, seen: set, out: List[str]) -> None:
+    """Append the acceptable sentences of `body`, paragraph by paragraph, to
+    `out`, each once: `seen` holds the lowercased sentences so far."""
+    for para in re.split(r"\n\s*\n", body):
+        text = _clean_line(para.replace("\n", " "))
+        for sent in _SENT_SPLIT.split(text):
+            sent = sent.strip()
+            if _sentence_ok(sent) and sent.lower() not in seen:
+                seen.add(sent.lower())
+                out.append(sent)
+
+
 def _harvest(budget_bytes: int = 30_000_000) -> List[str]:
     files: List[str] = []
     site = sysconfig.get_paths()["purelib"]
@@ -140,17 +154,7 @@ def _harvest(budget_bytes: int = 30_000_000) -> List[str]:
         except OSError:
             continue
         used += len(body)
-        for para in re.split(r"\n\s*\n", body):
-            text = _clean_line(para.replace("\n", " "))
-            for sent in _SENT_SPLIT.split(text):
-                sent = sent.strip()
-                if not _sentence_ok(sent):
-                    continue
-                key = sent.lower()
-                if key in seen:
-                    continue
-                seen.add(key)
-                out.append(sent)
+        _add_sentences(body, seen, out)
         if used > budget_bytes:
             break
     if not out:  # pathological environment: fall back to repo docs
@@ -161,10 +165,35 @@ def _harvest(budget_bytes: int = 30_000_000) -> List[str]:
     return out
 
 
+GOLDEN_MD_ENV = "VCP_GOLDEN_MD"
+# The reference pipeline's combined.md of its real 22-page PDF, where its
+# output directory sits under the home directory; VCP_GOLDEN_MD overrides.
+_DEFAULT_GOLDEN_MD = Path.home() / "reference" / "output" / "combined.md"
+
+
+def golden_sentences() -> List[str]:
+    """Sentences of the reference's golden document (the combined.md its
+    pipeline extracted), never in the training pool. The path is
+    VCP_GOLDEN_MD's, else the default; a missing file raises
+    FileNotFoundError."""
+    path = Path(os.environ.get(GOLDEN_MD_ENV, _DEFAULT_GOLDEN_MD))
+    if not path.exists():
+        raise FileNotFoundError(f"golden document not found at {path}; set {GOLDEN_MD_ENV}")
+    out: List[str] = []
+    _add_sentences(path.read_text(errors="ignore"), set(), out)
+    return out
+
+
 def corpus_sentences(split: str = "train") -> List[str]:
-    """Deterministic 95/5 train/heldout split by sentence content hash."""
+    """Deterministic 95/5 train/heldout split by sentence content hash;
+    split="golden" draws from the reference's golden document instead
+    (golden_sentences)."""
+    if split == "golden":
+        if "golden" not in _sentences_cache:
+            _sentences_cache["golden"] = golden_sentences()
+        return _sentences_cache["golden"]
     if split not in ("train", "heldout"):
-        raise ValueError(f"unknown split {split!r}: 'train' or 'heldout'")
+        raise ValueError(f"unknown split {split!r}: 'train', 'heldout' or 'golden'")
     if split not in _sentences_cache:
         all_sents = _sentences_cache.get("_all")
         if all_sents is None:
