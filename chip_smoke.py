@@ -3,8 +3,9 @@
 extraction with ocr_real, /chat (retrieval and a cited answer) with the hash
 embedder and ocr_bpe, /ingest from a PDF with the shipped weights, the HTTP
 service with its command line, the retrieval settings (the neural embedder
-and multi-vector MaxSim retrieval, over HTTP too), and training: ocr_real
-extraction training and the embedder's contrastive training.
+and multi-vector MaxSim retrieval, over HTTP too), training: ocr_real
+extraction training and the embedder's contrastive training, the answer
+task, and the prod preset (11.1B parameters, Switch-MoE) serving pages.
 
     python3 chip_smoke.py [--seed N]
 
@@ -23,7 +24,8 @@ with the port's own reader. One flushed line per phase, with seconds:
            seconds; every tensor's SHA-256 equal to the committed digests
            (train/shipped_digests.json); a strict load into its model;
   kernel   hold each kernel against its plain PyTorch version on the card at
-           the shapes its paths give it (and ragged cases: K1 with key
+           the shapes its paths give it (prod's page batch among them: K1 at
+           head_dim 64, 96 and 128), and ragged cases (K1 with key
            lengths 0 and 1, K2 with 32 queries, scored in chunks), and time
            the kernel, the plain version, a one-call PyTorch yardstick and
            the card's bound for the same work; K1 and its yardstick also as
@@ -114,7 +116,24 @@ with the port's own reader. One flushed line per phase, with seconds:
            repeated batch of 64 pairs, 4 K1 and 4 backward launches a step, the loss
            falling, pairs/s; (e) save_checkpoint then load_runner extracting
            the same pages as the model in memory, and both training command
-           lines, 2 steps each, each writing a checkpoint.
+           lines, 2 steps each, each writing a checkpoint;
+  answer   the answer task with the shipped ocr_bpe: its training steps, the
+           hop's command line, the evaluations and their gates;
+  prod     with every earlier runner freed, VLMRunner(prod, seed) built on
+           the card (seconds, parameters, peak memory), extract_batch on the
+           4 pages of the slice phase with max_new=256 and exactly 48 K1
+           launches (12 windowed, 12 global at head_dim 96, 24 decoder
+           prefill at 128), the page dicts' keys and types, then the path
+           timed by stage (PROD_TIMED_REPEATS times);
+  prod.logits  prod at full width cut to 1 + 1 vision blocks and 2 decoder
+           blocks (the first a MoE block of all 16 experts), in f32, with the
+           same seed on the card and on the CPU: first-step logits within
+           LOGITS_ATOL, and whether every token took the same expert;
+  prod.serve  the port's server in a child process with
+           VCP_MODEL_PRESET=prod, VCP_EXTRACT_ENGINE=vlm, VCP_EXTRACT_BATCH=4
+           and no checkpoint (seeded weights): POST /ingest of a 4-page PDF,
+           200 with 4 pages, 48 K1 launches, every page JSON's keys and
+           types; then the child is stopped.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -128,6 +147,7 @@ import argparse
 import dataclasses
 import difflib
 import functools
+import gc
 import http.client
 import json
 import os
@@ -217,6 +237,12 @@ EXTRACTIVE_QUESTION = "What did the night shift reject?"
 # K2 against its plain version (and the card's search against the CPU's):
 # scores of unit vectors, the same f32 products summed in another order.
 SIM_ATOL = 1e-5
+
+# prod: the 11.1B-parameter MoE preset served on one card. Its stages are
+# timed PROD_TIMED_REPEATS times (each repeat decodes up to MAX_NEW steps).
+PROD_PRESET = "prod"
+PROD_TIMED_REPEATS = 2
+PAGE_KEYS = {"page_number", "markdown", "entities", "summary"}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; FLOP/s by input type.
 HBM_BYTES_PER_S = 3.35e12
@@ -341,6 +367,20 @@ def path_shapes(cfg, chat_cfg, texts: list) -> list:
     ]
 
 
+def prod_shapes(cfg) -> list:
+    """Every flash-attention call of one prod page batch of N_PAGES pages:
+    12 windowed calls at head_dim 64, 12 global calls at 96, 24 causal GQA
+    4:1 decoder prefill calls at 128 over the vision tokens and the 2-token
+    prompt padded to one bucket."""
+    v, dec = cfg.vision, cfg.decoder
+    vis = v.tokens_out
+    s_dec = vis + PROMPT_BUCKET
+    return encoder_shapes(v, N_PAGES, "prod") + [
+        AttnShape("prod_decoder_prefill", N_PAGES, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
+                  [vis + 2] * N_PAGES, dec.depth, "prod"),
+    ]
+
+
 def embed_shape(texts: list) -> AttnShape:
     """The neural embedder's attention call on `texts` at full width: one per
     block, non-causal, each text's byte length (cut at max_seq) as kv_len."""
@@ -398,7 +438,7 @@ def library_call(q, k, v, sh: AttnShape):
 
 
 LAUNCH_KEYS = {"extract": "launches_per_batch", "chat": "launches_first_question",
-               "retrieval": "launches_per_embed_call"}
+               "retrieval": "launches_per_embed_call", "prod": "launches_per_prod_batch"}
 
 
 def kernel_phase(shapes: list, seed: int):
@@ -462,6 +502,13 @@ def kernel_phase(shapes: list, seed: int):
         key: sum(r[key] * r["launches_per_embed_call"] for r in embed)
         for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms", "bound_full_ms")
     }
+    # One prod page batch's worth (48 launches at head_dim 64, 96 and 128).
+    prod = [r for r in rows if r.get("launches_per_prod_batch")]
+    record["prod_batch"] = {
+        key: sum(r[key] * r["launches_per_prod_batch"] for r in prod)
+        for key in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")
+    }
+    record["prod_batch"]["launches"] = sum(r["launches_per_prod_batch"] for r in prod)
     return record
 
 
@@ -752,10 +799,21 @@ def slice_phase(cfg, seed: int, expected_launches: int):
     log("slice.extract_batch", first_s, launches=launches["flash_attention"])
     if launches["flash_attention"] != expected_launches:
         fail(f"flash_attention launched {launches['flash_attention']} times, expected {expected_launches}")
-    if len(result) != N_PAGES or [r["page_number"] for r in result] != page_numbers:
+    check_pages(result, page_numbers)
+
+    timing = time_extract_stages(runner, pages, MAX_NEW)
+    timing["first_extract_batch_s"] = first_s
+    log("slice.timed", timing.pop("seconds"), **timing)
+    return launches, timing
+
+
+def check_pages(result: list, page_numbers: list) -> None:
+    """One page dict per page number, in order, with the four keys and their
+    types; printed cut to 60 characters a field."""
+    if [r.get("page_number") for r in result] != page_numbers:
         fail(f"bad page list: {[r.get('page_number') for r in result]}")
     for r in result:
-        if set(r) != {"page_number", "markdown", "entities", "summary"}:
+        if set(r) != PAGE_KEYS:
             fail(f"bad page keys {sorted(r)}")
         if not isinstance(r["markdown"], str) or not isinstance(r["summary"], str) or not all(
             isinstance(e, str) for e in r["entities"]
@@ -764,20 +822,15 @@ def slice_phase(cfg, seed: int, expected_launches: int):
     print("pages " + json.dumps([{k: (v[:60] if isinstance(v, str) else v) for k, v in r.items()}
                                   for r in result]), flush=True)
 
-    timing = time_extract_stages(runner, pages, MAX_NEW)
-    timing["first_extract_batch_s"] = first_s
-    log("slice.timed", timing.pop("seconds"), **timing)
-    return launches, timing
 
-
-def time_extract_stages(runner, pages: np.ndarray, max_new: int) -> dict:
-    """One extraction batch, warm, timed by stage TIMED_REPEATS times:
-    each stage's median, min and max, and the decode steps."""
+def time_extract_stages(runner, pages: np.ndarray, max_new: int, repeats: int = TIMED_REPEATS) -> dict:
+    """One extraction batch, warm, timed by stage `repeats` times: each
+    stage's median, min and max, and the decode steps."""
     n = pages.shape[0]
     prompts = [[BOS_ID, TASK_EXTRACT_ID]] * n
     samples = {"encode_s": [], "prefill_s": [], "decode_s": []}
     t_all = time.perf_counter()
-    for _ in range(TIMED_REPEATS):
+    for _ in range(repeats):
         t0 = time.perf_counter()
         vis = runner.encode(runner.preprocess_patches(pages))
         samples["encode_s"].append(sync_s(t0))
@@ -795,7 +848,7 @@ def time_extract_stages(runner, pages: np.ndarray, max_new: int) -> dict:
         toks = runner.generate(prompts, vis, max_new)
         samples["decode_s"].append(max(sync_s(t0) - prefill_s, 1e-9))
     steps = decode_steps(toks)  # after the first token, which prefill gives
-    timing = {"repeats": TIMED_REPEATS, "pages": n, "decode_steps": steps}
+    timing = {"repeats": repeats, "pages": n, "decode_steps": steps}
     for key, vals in samples.items():
         timing[key] = float(np.median(vals))
         timing[f"{key[:-2]}_min_s"] = min(vals)
@@ -2390,6 +2443,136 @@ def answer_phase(seed: int, workdir: Path, train_kernel: dict) -> dict:
     return out
 
 
+GB = 1e9
+
+
+def free_card() -> None:
+    """Drop what earlier phases left on the card, so prod's 25 GB of weights
+    and its activations start from an empty allocator."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def prod_phase(cfg, seed: int, expected_launches: int):
+    """[prod]: VLMRunner(prod, seed) on the card and one page batch through
+    extract_batch with exact K1 launches, then the path timed by stage."""
+    free_card()
+    t0 = time.perf_counter()
+    runner = VLMRunner(cfg, seed=seed)
+    init_s = sync_s(t0)
+    params = list(runner.model.parameters())
+    init = {"params": sum(p.numel() for p in params), "param_gb": sum(p.numel() * p.element_size() for p in params) / GB,
+            "bf16_params": sum(p.numel() for p in params if p.dtype == torch.bfloat16),
+            "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / GB}
+    log("prod.init", init_s, preset=PROD_PRESET, **init)
+    pages = make_pages(seed)
+    page_numbers = list(range(1, N_PAGES + 1))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = runner.extract_batch(pages, page_numbers, max_new=MAX_NEW)
+    first_s = sync_s(t0)
+    launches = dict(kernels.launches)
+    log("prod.extract_batch", first_s, launches=json.dumps(launches))
+    want = {"flash_attention": expected_launches, "flash_attention_bwd": 0, "masked_similarity": 0}
+    if launches != want:
+        fail(f"prod extract_batch launched {launches}, expected {want}")
+    check_pages(result, page_numbers)
+    timing = time_extract_stages(runner, pages, MAX_NEW, repeats=PROD_TIMED_REPEATS)
+    timing.update(init_s=init_s, first_extract_batch_s=first_s, **init,
+                  peak_gb=torch.cuda.max_memory_allocated() / GB)
+    log("prod.timed", timing.pop("seconds"), **timing)
+    del runner, params
+    free_card()
+    return launches, timing
+
+
+def prod_logits_config(cfg):
+    """prod at full width in f32, cut in depth only: one windowed and one
+    global vision block, two decoder blocks (block 0 a MoE block with all 16
+    experts, block 1 dense)."""
+    cut = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, depth_local=1, depth_global=1),
+                              decoder=dataclasses.replace(cfg.decoder, depth=2))
+    return f32_config(cut)
+
+
+def prod_logits_phase(cfg, seed: int) -> dict:
+    """[prod.logits]: the depth-cut f32 prod, seeded alike, on the card (K1 at
+    96 and 128, the f32 route) and on the CPU (plain attention): first-step
+    logits on one page, and each MoE block's expert for every token."""
+    cfg32 = prod_logits_config(cfg)
+    page = make_pages(seed)[:1]
+    logits, experts = {}, {}
+    for device in ("cuda", "cpu"):
+        runner = VLMRunner(cfg32, seed=seed, device=device)
+        routed = []
+
+        def record(module, args, _out):
+            x = args[0]
+            probs = torch.softmax(module.router(x.to(torch.float32)).reshape(-1, module.num_experts), dim=-1)
+            routed.append(torch.argmax(probs, dim=-1).cpu())
+
+        hooks = [m.register_forward_hook(record) for m in runner.model.modules() if isinstance(m, layers.SwitchMoE)]
+        vis = runner.encode(runner.preprocess_patches(page))
+        ids, lens = runner.pad_prompts([[BOS_ID, TASK_EXTRACT_ID]])
+        out, _, _ = runner.first_logits(ids, lens, vis, vis.shape[1] + ids.shape[1])
+        logits[device], experts[device] = out.float().cpu(), routed
+        for h in hooks:
+            h.remove()
+        del runner, vis, out
+        free_card()
+    agree = [int((a == b).sum()) for a, b in zip(experts["cuda"], experts["cpu"])]
+    return {"max_abs_err": (logits["cuda"] - logits["cpu"]).abs().max().item(),
+            "logits_absmax": float(logits["cpu"].abs().max()), "moe_blocks": len(experts["cpu"]),
+            "tokens": [int(e.numel()) for e in experts["cpu"]], "tokens_same_expert": agree,
+            "experts_equal": len(experts["cuda"]) == len(experts["cpu"]) > 0
+            and all(torch.equal(a, b) for a, b in zip(experts["cuda"], experts["cpu"]))}
+
+
+def prod_serve_phase(seed: int, workdir: Path, k1_per_batch: int) -> dict:
+    """[prod.serve]: the port's server in a child process serving prod with
+    seeded weights (no checkpoint), one 4-page PDF through POST /ingest."""
+    free_card()
+    tmp = workdir / "prod_serve_tmp"
+    env = {**os.environ, "VCP_MODEL_PRESET": PROD_PRESET, "VCP_EXTRACT_ENGINE": "vlm",
+           "VCP_EXTRACT_BATCH": str(N_PAGES), "VCP_TMP_DIR": str(tmp),
+           "VCP_INDEX_ROOT": str(workdir / "prod_serve_index")}
+    env.pop("VCP_CHECKPOINT_DIR", None)
+    pdf = workdir / "prod_serve.pdf"
+    make_pdf(prose_pages(seed, N_PAGES), pdf)
+    t0 = time.perf_counter()
+    child = ServeChild(env, workdir / "prod_serve_child.log")
+    out = {}
+    try:
+        status, _, body = request(child.port, "GET", "/health")
+        if (status, body) != (200, b'{"ok": true}'):
+            child.fail(f"GET /health: {status} {body[:200]!r}")
+        child.command("warm")
+        out["start_s"] = time.perf_counter() - t0
+        child.command("reset")
+        t0 = time.perf_counter()
+        status, _, body = request(child.port, "POST", "/ingest", *multipart("prod.pdf", pdf.read_bytes(),
+                                                                            {"dpi": "93"}))
+        out["ingest_s"] = time.perf_counter() - t0
+        out["launches"] = child.command("counts")
+        if status != 200:
+            child.fail(f"POST /ingest: {status} {body[:300]!r}")
+        resp = json.loads(body)
+        if list(resp) != ["doc_id", "pages_total", "pages_ingested", "failed_pages", "manifest_path"] or (
+                resp["pages_total"], resp["pages_ingested"], resp["failed_pages"]) != (N_PAGES, N_PAGES, []):
+            child.fail(f"/ingest response {resp}")
+        want = {"flash_attention": k1_per_batch, "flash_attention_bwd": 0, "masked_similarity": 0}
+        if out["launches"] != want:
+            child.fail(f"/ingest launched {out['launches']}, expected {want}")
+        pages = tmp / resp["doc_id"] / "pages"
+        check_pages([json.loads((pages / f"page_{i:03d}.json").read_text()) for i in range(1, N_PAGES + 1)],
+                    list(range(1, N_PAGES + 1)))
+    finally:
+        child.stop()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2408,6 +2591,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_preset(PRESET)
     chat_cfg = get_preset(CHAT_PRESET)
+    prod_cfg = get_preset(PROD_PRESET)
 
     t0 = time.perf_counter()
     smi = subprocess.run(
@@ -2428,13 +2612,14 @@ def main() -> int:
     weights_phase()
     log("weights.all", time.perf_counter() - t0)
 
-    shapes = path_shapes(cfg, chat_cfg, embed_texts(args.seed))
+    shapes = path_shapes(cfg, chat_cfg, embed_texts(args.seed)) + prod_shapes(prod_cfg)
     t0 = time.perf_counter()
     record = kernel_phase(shapes, args.seed)
     log("kernel.flash_attention", sync_s(t0),
         **{k: record[k]
            for k in ("ms", "graph_ms", "plain_ms", "library_ms", "library_graph_ms", "bound_ms")},
-        chat_first_question=json.dumps(record["chat_first_question"]), embed_call=json.dumps(record["embed_call"]))
+        chat_first_question=json.dumps(record["chat_first_question"]), embed_call=json.dumps(record["embed_call"]),
+        prod_batch=json.dumps(record["prod_batch"]))
     capacity = 1024  # VectorIndex's first capacity, doubled until the chat index fits
     while capacity < OTHER_DOCS * OTHER_PAGES + TARGET_PAGES:
         capacity *= 2
@@ -2498,6 +2683,19 @@ def main() -> int:
             train=json.dumps(answered["train"]), quality=json.dumps(answered["quality"]),
             hop_status=answered["hop"]["status"], suspect_1=json.dumps(answered["suspect_1"]["json_equal"]))
 
+        prod_expected = sum(sh.launches for sh in shapes if sh.path == "prod")
+        t0 = time.perf_counter()
+        prod_launches, prod_timing = prod_phase(prod_cfg, args.seed, prod_expected)
+        log("prod", sync_s(t0), expected_flash_launches=prod_expected)
+        t0 = time.perf_counter()
+        prod_logits = prod_logits_phase(prod_cfg, args.seed)
+        log("prod.logits", time.perf_counter() - t0, atol=LOGITS_ATOL, **prod_logits)
+        if not prod_logits["max_abs_err"] <= LOGITS_ATOL:
+            fail(f"prod first-step logits differ by {prod_logits['max_abs_err']} > {LOGITS_ATOL}")
+        t0 = time.perf_counter()
+        prod_served = prod_serve_phase(args.seed, workdir, prod_expected)
+        log("prod.serve", time.perf_counter() - t0, **prod_served)
+
     train_rec = trained["kernel"]["train"]
     answer_rec = trained["kernel"]["train_answer"]
 
@@ -2507,7 +2705,8 @@ def main() -> int:
                    "ingest_pdf_pixels": ingest["routes"]["pixel"]["launches"] if name == "flash_attention" else 0,
                    "chat_shipped": shipped["launches"][name], "serve": served["launches"][name],
                    "retrieval": retrieved["launches"][name],
-                   "train": trained["launches"].get(name, 0), "answer": answered["launches"].get(name, 0)}
+                   "train": trained["launches"].get(name, 0), "answer": answered["launches"].get(name, 0),
+                   "prod": prod_launches[name], "prod_serve": prod_served["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2520,6 +2719,7 @@ def main() -> int:
               "vision_compression_project_tpu/ops/attention.py:30", record,
               kernel_route=kernels.FLASH_ROUTES[torch.bfloat16], graph_ms=record["graph_ms"],
               library_graph_ms=record["library_graph_ms"], embed_call=record["embed_call"],
+              prod_batch=record["prod_batch"],
               train_step=trained["kernel"]["train"], embedder_train_step=trained["kernel"]["train_embedder"],
               answer_train_step={k: answer_rec[k] for k in ("launches_per_step", "ms", "plain_ms", "library_ms",
                                                             "bound_ms")},

@@ -33,6 +33,12 @@ CASES = [
     (2, 8, 2, 128, 32, [128, 57], False),
     (2, 4, 2, 128, 32, [0, 100], False),
     (2, 6, 2, 200, 64, [200, 131], True),
+    # prod's head dims: 96 (the global vision stage), 128 (the decoder), causal
+    # and not, GQA 4:1, ragged key lengths (0 among them).
+    (2, 4, 4, 256, 96, None, False),
+    (2, 8, 2, 200, 96, [200, 77], True),
+    (2, 8, 2, 160, 128, [160, 0], False),
+    (2, 8, 2, 320, 128, [258, 131], True),
 ]
 
 
@@ -70,6 +76,19 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(d, dtype, device, 
     before = dict(kernels.launches)
     with pytest.raises(ValueError, match=match):
         kernels.flash_attention_fwd(q, q, q, kv_len, causal=False, scale=1.0)
+    assert kernels.launches == before
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_backward_kernel_refuses_prod_head_dims(d):
+    """The forward kernel takes head_dim 96 and 128 (prod); its backward does
+    not yet, and raises before it builds or launches."""
+    assert d in kernels.FLASH_HEAD_DIMS and d not in kernels.FLASH_BWD_HEAD_DIMS
+    q = torch.zeros((1, 4, 128, d), dtype=torch.bfloat16)
+    lse = torch.zeros((1, 4, 128))
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        kernels.flash_attention_bwd(q, q, q, q, q, lse, None, False, 0.1)
     assert kernels.launches == before
 
 

@@ -69,6 +69,15 @@ def cuda():
         (2, 6, 2, 77, 64, [77, 1], False),
         (3, 3, 1, 333, 32, [0, 1, 250], True),
         (2, 6, 2, 130, 64, [1, 0], True),
+        # prod's page batch: windows, the global stage at head_dim 96, the
+        # decoder prefill at 128 (GQA 4:1, 258 keys of 320); and ragged cases
+        # at both new head dims.
+        (64, 12, 12, 256, 64, None, False),
+        (4, 16, 16, 256, 96, None, False),
+        (4, 16, 4, 320, 128, [258] * 4, True),
+        (3, 8, 2, 333, 96, [0, 1, 333], True),
+        (3, 8, 2, 333, 128, [0, 1, 200], True),
+        (2, 4, 1, 77, 128, [77, 5], False),
     ],
 )
 def test_kernel_matches_plain(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
@@ -113,6 +122,19 @@ def test_kernel_refuses_unsupported_head_dim(cuda):
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention(q, q, q)
     assert kernels.launches == before
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_backward_kernel_refuses_prod_head_dims(cuda, d):
+    """prod's head dims run forward on the card; a gradient through them
+    raises in the backward, before any launch of the backward kernel."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((1, 4, 128, d), generator=g, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    out = flash_attention(q, q, q, causal=True)
+    before = kernels.launches["flash_attention_bwd"]
+    with pytest.raises(ValueError, match="head_dim"):
+        out.float().sum().backward()
+    assert kernels.launches["flash_attention_bwd"] == before
 
 
 def test_runner_first_logits_card_vs_cpu(cuda):

@@ -129,7 +129,9 @@ def _similarity_lib() -> ctypes.CDLL:
 
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-FLASH_HEAD_DIMS = (32, 64)
+FLASH_HEAD_DIMS = (32, 64, 96, 128)
+# The backward kernel's head dims: prod's 96 and 128 are served, not trained, so far.
+FLASH_BWD_HEAD_DIMS = (32, 64)
 # Which kernel each input type takes (kernels/flash_attention.cu and, for the
 # gradient, kernels/flash_attention_bwd.cu).
 FLASH_ROUTES = {torch.bfloat16: "tensor-core bf16 (mma.sync)", torch.float32: "scalar f32"}
@@ -146,17 +148,17 @@ def flash_layout_ok(t: torch.Tensor) -> bool:
     return st[3] == 1 and not (st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16)
 
 
-def _check_flash_operands(q, k, v, kv_len, scale) -> tuple:
-    """The checks K1's forward and backward share; returns (b, h, hkv, sq, sk,
-    d, dtype code)."""
+def _check_flash_operands(q, k, v, kv_len, scale, head_dims) -> tuple:
+    """The checks K1's forward and backward share, `head_dims` the kernel's;
+    returns (b, h, hkv, sq, sk, d, dtype code)."""
     b, h, sq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad k/v shapes {tuple(k.shape)} {tuple(v.shape)} for q {tuple(q.shape)}")
     hkv, sk = k.shape[1], k.shape[2]
     if h % hkv:
         raise ValueError(f"kv heads {hkv} do not divide heads {h}")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not supported by the kernel (have {FLASH_HEAD_DIMS})")
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not supported by the kernel (have {head_dims})")
     dtype = _FLASH_DTYPES.get(q.dtype)
     if dtype is None or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need one of float32, bfloat16")
@@ -193,7 +195,7 @@ def flash_attention_fwd(
     log-sum-exp of its scaled, masked scores there (+inf for a row without
     keys), which the backward reads. Raises on anything the kernel does not
     take and on a launch that CUDA refuses."""
-    b, h, hkv, sq, sk, d, dtype = _check_flash_operands(q, k, v, kv_len, scale)
+    b, h, hkv, sq, sk, d, dtype = _check_flash_operands(q, k, v, kv_len, scale, FLASH_HEAD_DIMS)
     dev = q.device
     if lse is not None:
         _check_lse(lse, b, h, sq, dev)
@@ -223,7 +225,7 @@ def flash_attention_bwd(
     they flow back into. One call, one count, whatever the passes it takes.
     Raises on anything the kernel does not take and on a launch that CUDA
     refuses."""
-    b, h, hkv, sq, sk, d, dtype = _check_flash_operands(q, k, v, kv_len, scale)
+    b, h, hkv, sq, sk, d, dtype = _check_flash_operands(q, k, v, kv_len, scale, FLASH_BWD_HEAD_DIMS)
     dev = q.device
     for name, t in (("o", o), ("g", g)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != dev:

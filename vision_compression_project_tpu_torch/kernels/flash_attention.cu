@@ -32,7 +32,16 @@
 //   block, the most that still gives at least one block per SM.
 // * f32 (the f32 checks only): the scalar kernel. One thread owns one query
 //   row and keeps q and the accumulator in registers; f32 tensor-core math
-//   (TF32) would not hold the f32 limit. It is not on the bf16 path.
+//   (TF32) would not hold the f32 limit. It is not on the bf16 path. At
+//   D = 96 and 128 its key tile is 32 rows (static shared memory stays under
+//   48 KB), and q plus the accumulator (2 * D floats a thread) may spill to
+//   local memory: nvcc's -Xptxas -v report says how much.
+//
+// Head dims: 32 and 64 (ocr_real, ocr_bpe, the embedder), 96 (prod's global
+// vision stage) and 128 (prod's decoder). At 96 and 128 a bf16 block needs
+// 56-87 KB of shared memory, above the 48 KB a launch gets by default; the
+// host opts each such kernel in with cudaFuncSetAttribute before its first
+// launch on a device (Hopper allows 227 KB a block).
 //
 // Bound on this card: in bf16 the ocr_real encoder's global calls and the
 // decoder prefill are bound by the tensor cores (4 * D operations per
@@ -57,6 +66,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 
@@ -74,7 +84,6 @@ struct Strides {
 // ---------------------------------------------------------------- f32 route
 
 constexpr int SC_BM = 64;     // query rows per block (one thread per row)
-constexpr int SC_BN = 64;     // keys staged in shared memory per tile
 constexpr int SC_CHUNK = 16;  // keys scored at a time in registers
 
 template <int D>
@@ -82,6 +91,9 @@ __global__ void __launch_bounds__(SC_BM) flash_fwd_scalar_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ kv_len, float* __restrict__ o, float* __restrict__ lse,
     int H, int Hkv, int Sq, int Sk, float scale, int causal, Strides qs, Strides ks, Strides vs) {
+  // Keys staged per tile: the K and V tiles (SC_BN x D f32 each) stay within
+  // the 48 KB of static shared memory.
+  constexpr int SC_BN = D <= 64 ? 64 : 32;
   __shared__ __align__(16) float ksm[SC_BN][D];
   __shared__ __align__(16) float vsm[SC_BN][D];
 
@@ -442,13 +454,31 @@ int sm_count() {
   return sms;
 }
 
+// Above 48 KB of dynamic shared memory a kernel must be opted in, once per
+// device (the attribute is per function and per device context). `device`
+// is the current device at the call. Races between threads only repeat the
+// same call.
+template <int D, int WARPS>
+cudaError_t allow_smem(int device, int bytes) {
+  static std::atomic<unsigned long long> done{0};  // bit i: opted in on device i
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const unsigned long long bit = device >= 0 && device < 64 ? 1ull << device : 0ull;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, WARPS>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
 template <int D, int WARPS>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* kv_len, void* o, float* lse,
                       int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
-                      Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
+                      Strides qs, Strides ks, Strides vs, int device, cudaStream_t stream) {
   constexpr int BM = 16 * WARPS;
   constexpr int smem = tc_smem_bytes<D, WARPS>();
-  static_assert(smem <= 48 * 1024, "more than the default dynamic shared memory limit");
+  static_assert(smem <= 227 * 1024, "more shared memory than a Hopper block can have");
+  const cudaError_t err = allow_smem<D, WARPS>(device, smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + BM - 1) / BM);
   flash_fwd_tc_kernel<D, WARPS><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_len,
@@ -459,17 +489,21 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* kv
 template <int D>
 cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const int* kv_len, void* o, float* lse,
                         int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
-                        Strides qs, Strides ks, Strides vs, cudaStream_t stream) {
-  // Most rows per block that still gives every SM a block.
+                        Strides qs, Strides ks, Strides vs, int device, cudaStream_t stream) {
+  // Most rows per block that still gives every SM a block. The K/V tiles
+  // dominate a block's shared memory (256 of its 272-320 rows), so fewer
+  // warps save little of it: at D = 128 a 4-warp block takes 87 KB and two
+  // fit an SM, a 1-warp block 74 KB and three fit. The rule therefore
+  // counts blocks, not shared memory, at every D.
   const long long heads = static_cast<long long>(B) * H;
   const long long sms = sm_count();
   if (heads * ((Sq + 63) / 64) >= sms) {
-    return launch_tc<D, 4>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
+    return launch_tc<D, 4>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, stream);
   }
   if (heads * ((Sq + 31) / 32) >= sms) {
-    return launch_tc<D, 2>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
+    return launch_tc<D, 2>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, stream);
   }
-  return launch_tc<D, 1>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, stream);
+  return launch_tc<D, 1>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, stream);
 }
 
 template <int D>
@@ -495,7 +529,8 @@ extern "C" {
 // for the row log-sum-exp, or 0 for "do not write"). q: (B, H, Sq, D), k and v: (B, Hkv, Sk, D), each with its last
 // dimension contiguous; for bf16 the strides are multiples of 8 and the bases
 // 16-byte aligned. kv_len: (B,) int32. o: a contiguous (B, Sq, H, D) tensor.
-// dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor cores). The kernel
+// dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor cores). D: 32, 64, 96
+// or 128; anything else returns cudaErrorInvalidValue. The kernel
 // runs on `stream` of `device` (the current device is switched for the launch
 // and restored). Returns the cudaError_t of the launch (0 on success).
 int vcp_flash_attention_fwd(const long long* p, float scale) {
@@ -518,15 +553,16 @@ int vcp_flash_attention_fwd(const long long* p, float scale) {
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaErrorInvalidValue;
-  if (dtype == 0 && D == 32) {
-    err = launch_scalar<32>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
-  } else if (dtype == 0 && D == 64) {
-    err = launch_scalar<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
-  } else if (dtype == 1 && D == 32) {
-    err = launch_tc_d<32>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
-  } else if (dtype == 1 && D == 64) {
-    err = launch_tc_d<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s);
+  switch (dtype * 1000 + D) {  // dtype 0 = f32 (scalar), 1 = bf16 (tensor cores)
+    case 32: err = launch_scalar<32>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s); break;
+    case 64: err = launch_scalar<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s); break;
+    case 96: err = launch_scalar<96>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s); break;
+    case 128: err = launch_scalar<128>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s); break;
+    case 1032: err = launch_tc_d<32>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
+    case 1064: err = launch_tc_d<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
+    case 1096: err = launch_tc_d<96>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
+    case 1128: err = launch_tc_d<128>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
+    default: err = cudaErrorInvalidValue;
   }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);

@@ -1,9 +1,13 @@
-"""Causal LM decoder (RMSNorm + RoPE + GQA + SwiGLU) with a KV cache. The
-port of vision_compression_project_tpu/models/decoder.py; the unembed runs in
-f32. The full-sequence forward rematerialises every block in training, as the
-reference's `nn.remat(DecoderBlock)` does for `__call__`; prefill and decode
-are not. Switch-MoE blocks are not ported yet: a config with experts is
-refused."""
+"""Causal LM decoder (RMSNorm + RoPE + GQA + SwiGLU / Switch-MoE) with a KV
+cache. The port of vision_compression_project_tpu/models/decoder.py; the
+unembed runs in f32. With experts, every `expert_every`-th block (block 0
+first) takes a SwitchMoE for its MLP, as in the reference. The full-sequence
+forward rematerialises every block in training, as the reference's
+`nn.remat(DecoderBlock)` does for `__call__`; prefill and decode are not.
+
+The MoE's load-balancing term leaves a block through its return value, not
+as module state, so the remat recompute in the backward cannot overwrite or
+repeat it: `forward(..., aux_losses=[])` appends one term per MoE block."""
 
 from __future__ import annotations
 
@@ -14,11 +18,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from .configs import DecoderConfig
-from .layers import Attention, Cache, Dense, RMSNorm, SwiGLU, remat, torch_dtype
+from .layers import Attention, Cache, Dense, RMSNorm, SwiGLU, SwitchMoE, remat, torch_dtype
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: DecoderConfig):
+    def __init__(self, cfg: DecoderConfig, use_moe: bool = False):
         super().__init__()
         self.norm1 = RMSNorm(cfg.dim)
         self.attn = Attention(
@@ -26,32 +30,45 @@ class DecoderBlock(nn.Module):
             rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype,
         )
         self.norm2 = RMSNorm(cfg.dim)
-        self.mlp = SwiGLU(cfg.dim, cfg.mlp_dim, dtype=cfg.dtype)
+        self.use_moe = use_moe
+        if use_moe:
+            self.mlp = SwitchMoE(cfg.dim, cfg.num_experts, cfg.mlp_dim, cfg.capacity_factor, dtype=cfg.dtype)
+        else:
+            self.mlp = SwiGLU(cfg.dim, cfg.mlp_dim, dtype=cfg.dtype)
+
+    def _mlp(self, x) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the MLP's output on norm2(x), the MoE's aux term or None)."""
+        if self.use_moe:
+            return self.mlp(self.norm2(x))
+        return self.mlp(self.norm2(x)), None
 
     def forward(self, x, kv_len=None):
+        """(output, the MoE's aux term or None)."""
         x = x + self.attn(self.norm1(x), kv_len=kv_len)
-        return x + self.mlp(self.norm2(x))
+        h, aux = self._mlp(x)
+        return x + h, aux
 
     def prefill(self, x, kv_len=None, cache_len=None):
         h, cache = self.attn.prefill(self.norm1(x), kv_len=kv_len, cache_len=cache_len)
         x = x + h
-        return x + self.mlp(self.norm2(x)), cache
+        return x + self._mlp(x)[0], cache
 
     def decode(self, x, cache, pos):
         h, cache = self.attn.decode(self.norm1(x), cache, pos)
         x = x + h
-        return x + self.mlp(self.norm2(x)), cache
+        return x + self._mlp(x)[0], cache
 
 
 class Decoder(nn.Module):
     def __init__(self, cfg: DecoderConfig):
         super().__init__()
-        if cfg.num_experts > 0:
-            raise NotImplementedError("Switch-MoE decoder blocks are not ported yet")
         self.cfg = cfg
         self.dt = torch_dtype(cfg.dtype)
         self.embed = nn.Embedding(cfg.vocab, cfg.dim)
-        self.blocks = nn.ModuleList(DecoderBlock(cfg) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(
+            DecoderBlock(cfg, use_moe=cfg.num_experts > 0 and i % max(cfg.expert_every, 1) == 0)
+            for i in range(cfg.depth)
+        )
         self.norm_f = RMSNorm(cfg.dim)
         self.unembed = Dense(cfg.dim, cfg.vocab, False, torch.float32)
 
@@ -61,11 +78,18 @@ class Decoder(nn.Module):
     def hidden_to_logits(self, h: torch.Tensor) -> torch.Tensor:
         return self.unembed(self.norm_f(h).to(torch.float32))
 
-    def forward(self, x_emb: torch.Tensor, kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Full-sequence forward: (B, S, dim) embeddings -> (B, S, vocab)."""
+    def forward(
+        self, x_emb: torch.Tensor, kv_len: Optional[torch.Tensor] = None,
+        aux_losses: Optional[List[torch.Tensor]] = None,
+    ) -> torch.Tensor:
+        """Full-sequence forward: (B, S, dim) embeddings -> (B, S, vocab).
+        Each MoE block's load-balancing term is appended to `aux_losses`
+        when it is a list."""
         h = x_emb
         for block in self.blocks:
-            h = remat(block, h, kv_len=kv_len)
+            h, aux = remat(block, h, kv_len=kv_len)
+            if aux is not None and aux_losses is not None:
+                aux_losses.append(aux)
         return self.hidden_to_logits(h)
 
     def prefill(

@@ -1,5 +1,6 @@
 """Transformer building blocks: RMSNorm, RoPE, attention with GQA and a KV
-cache, SwiGLU. The port of vision_compression_project_tpu/models/layers.py.
+cache, SwiGLU, the Switch mixture of SwiGLU experts. The port of
+vision_compression_project_tpu/models/layers.py.
 
 Numeric contract, as in the reference: parameters are stored in f32 and cast
 to the compute dtype at use (flax's `Dense(dtype=...)`), RMSNorm computes in
@@ -55,18 +56,38 @@ def remat(block: nn.Module, *args, **kwargs):
     )
 
 
+@torch.no_grad()
+def fill_(w: torch.Tensor, g: torch.Generator, draw) -> None:
+    """draw(t, g) fills t with f32 values: in place on an f32 tensor on the
+    generator's device, else into an f32 tensor there, copied (and cast) in
+    after. So the same generator gives the same values on any device and in
+    any storage dtype, and the host holds one tensor at a time."""
+    if w.device == g.device and w.dtype == torch.float32:
+        draw(w, g)
+        return
+    buf = torch.empty(w.shape, dtype=torch.float32, device=g.device)
+    draw(buf, g)
+    w.copy_(buf)
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, g: torch.Generator) -> None:
     # flax's lecun_normal: truncated normal at two std, std corrected for the truncation.
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    torch.nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std, generator=g)
+    fill_(w, g, lambda t, gen: torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen))
+
+
+def normal_(w: torch.Tensor, std: float, g: torch.Generator) -> None:
+    fill_(w, g, lambda t, gen: t.normal_(0.0, std, generator=gen))
 
 
 @torch.no_grad()
 def init_weights_(model: nn.Module, g: torch.Generator) -> None:
     """Seeded random weights for every submodule, in module order, with the
-    JAX package's initializers: lecun-normal Linear and Conv2d kernels, zero
-    biases, unit RMSNorm scales, N(0, 0.02) embeddings. Parameters held
-    outside these modules (position embeddings) are the caller's."""
+    JAX package's initializers: lecun-normal Linear and Conv2d kernels and
+    expert weights, zero biases, unit RMSNorm scales, N(0, 0.02) embeddings.
+    Parameters held outside these modules (position embeddings) are the
+    caller's. The model may lie on any device: draws are made on the
+    generator's (`fill_`)."""
     for module in model.modules():
         if isinstance(module, RMSNorm):
             module.scale.fill_(1.0)
@@ -79,7 +100,9 @@ def init_weights_(model: nn.Module, g: torch.Generator) -> None:
             _lecun_normal_(w, w.shape[1] * w.shape[2] * w.shape[3], g)
             module.bias.zero_()
         elif isinstance(module, nn.Embedding):
-            module.weight.normal_(0.0, 0.02, generator=g)
+            normal_(module.weight, 0.02, g)
+        elif isinstance(module, SwitchMoE):
+            module.init_experts_(g)
 
 
 class Dense(nn.Linear):
@@ -110,9 +133,10 @@ class RMSNorm(nn.Module):
 
 
 def rope_table(head_dim: int, max_seq: int, theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(max_seq, head_dim//2) f32 cos/sin tables."""
-    freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim))
-    t = torch.arange(max_seq, dtype=torch.float32)
+    """(max_seq, head_dim//2) f32 cos/sin tables, computed on the CPU
+    whatever the default device, so every device reads the same tables."""
+    freqs = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device="cpu") / head_dim))
+    t = torch.arange(max_seq, dtype=torch.float32, device="cpu")
     angles = torch.outer(t, freqs)
     return torch.cos(angles), torch.sin(angles)
 
@@ -253,3 +277,72 @@ class SwiGLU(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.down(F.silu(self.gate(x)) * self.up(x))
+
+
+class SwitchMoE(nn.Module):
+    """Top-1 (Switch) mixture of SwiGLU experts with capacity dispatch: the
+    port of vision_compression_project_tpu/models/layers.py::SwitchMoE.
+
+    The router is an f32 Dense on x in f32, then softmax; each token goes to
+    its argmax expert (ties to the first) with the top probability as gate.
+    capacity = max(1, int(capacity_factor * T / E)) over the T = b * s tokens
+    in (b, s) order, PAD positions included; a token's slot is the running
+    count of its expert before it, and a token whose slot is at or past the
+    capacity is dropped: the MoE gives it 0, so only its residual passes.
+
+    The reference dispatches and combines with dense (T, E, C) one-hot
+    einsums; here kept tokens are scattered into an (E * C, d) buffer and
+    gathered back, which gives the same values (a one-hot sum adds one term
+    to zeros) with static shapes and no host sync. Expert weights are stored
+    in the config dtype, as the reference stores them, and the three
+    products run in it as batched matmuls over the (E, C, d) buffer; the
+    combine gathers in f32, scales by the gate in f32 and casts to x's
+    dtype. Every expert's weights are read on every call, however few
+    tokens it holds.
+
+    `forward` returns (y, aux): aux = E * sum_e density_e * mean_prob_e, the
+    Switch load-balancing term the reference sows for its train step."""
+
+    def __init__(self, dim: int, num_experts: int, hidden: int, capacity_factor: float = 1.25,
+                 dtype: str = "bfloat16"):
+        super().__init__()
+        dt = torch_dtype(dtype)
+        self.num_experts, self.capacity_factor, self.compute_dtype = num_experts, capacity_factor, dt
+        self.router = Dense(dim, num_experts, False, torch.float32)
+        self.w_gate = nn.Parameter(torch.empty(num_experts, dim, hidden, dtype=dt))
+        self.w_up = nn.Parameter(torch.empty(num_experts, dim, hidden, dtype=dt))
+        self.w_down = nn.Parameter(torch.empty(num_experts, hidden, dim, dtype=dt))
+
+    @torch.no_grad()
+    def init_experts_(self, g: torch.Generator) -> None:
+        """Lecun-normal expert weights at the reference's scale (flax's
+        lecun_normal of an (E, in, out) kernel takes fan_in = E * in), drawn
+        one expert at a time in f32 (`fill_`) and cast into place."""
+        for w in (self.w_gate, self.w_up, self.w_down):
+            for e in range(w.shape[0]):
+                _lecun_normal_(w[e], w.shape[0] * w.shape[1], g)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, s, d = x.shape
+        t, e = b * s, self.num_experts
+        capacity = max(1, int(self.capacity_factor * t / e))
+        probs = torch.softmax(self.router(x.to(torch.float32)).reshape(t, e), dim=-1)
+        expert = torch.argmax(probs, dim=-1)                                # (T,)
+        gate = probs.gather(1, expert[:, None])[:, 0]                       # (T,)
+        onehot = F.one_hot(expert, e)                                       # (T, E) int64
+        pos = (torch.cumsum(onehot, dim=0) * onehot).sum(dim=-1) - 1        # (T,)
+        keep = pos < capacity
+        # Slot of each kept token in the (E * C) buffer; dropped tokens go to
+        # one spare row past the end, which reads back as 0.
+        slot = torch.where(keep, expert * capacity + pos, torch.full_like(pos, e * capacity))
+        dt = self.compute_dtype
+        buf = x.new_zeros((e * capacity + 1, d), dtype=dt)
+        buf.index_copy_(0, slot, x.reshape(t, d).to(dt))
+        expert_in = buf[: e * capacity].view(e, capacity, d)
+        h = F.silu(torch.bmm(expert_in, self.w_gate)) * torch.bmm(expert_in, self.w_up)
+        expert_out = torch.bmm(h, self.w_down).view(e * capacity, d)
+        out = torch.cat([expert_out.to(torch.float32), expert_out.new_zeros((1, d), dtype=torch.float32)])
+        combined = out.index_select(0, slot) * gate[:, None]
+        density = onehot.to(torch.float32).mean(dim=0)
+        aux = e * torch.sum(density * probs.mean(dim=0))
+        return combined.reshape(b, s, d).to(x.dtype), aux

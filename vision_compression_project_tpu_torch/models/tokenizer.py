@@ -4,14 +4,16 @@ the merges files.
 
 Token ids 0..255 are raw UTF-8 bytes; specials follow at 256..265; BPE merge
 tokens start at 266. Byte fallback is structural: every text encodes, and
-every token decodes to bytes. Training new merges stays with the JAX
-package's scripts; this module loads and applies them.
+every token decodes to bytes. `BPETokenizer.train` learns a merge table
+(scripts/train_bpe.py), `save` writes one.
 """
 
 from __future__ import annotations
 
+import heapq
 import json
 import re
+from collections import Counter, defaultdict
 from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
 
@@ -103,10 +105,92 @@ class BPETokenizer:
         self.cache_key = f"bpe-{len(self.merges)}"
         self._word_cache: Dict[bytes, Tuple[int, ...]] = {}
 
+    def save(self, path=None) -> Path:
+        path = Path(path or DEFAULT_MERGES_PATH)
+        path.write_text(json.dumps({"merges": self.merges}))
+        return path
+
     @classmethod
     def load(cls, path=None) -> "BPETokenizer":
         path = Path(path or DEFAULT_MERGES_PATH)
         return cls(json.loads(path.read_text())["merges"])
+
+    @classmethod
+    def train(cls, texts: Iterable[str], vocab_size: int = 4096, merge_digits: bool = False) -> "BPETokenizer":
+        """Classic BPE with incremental pair counts and a lazy-deletion heap:
+        the reference's algorithm, so the same texts give the same merges.
+
+        merge_digits=False (the default) bans merges whose expansion is all
+        ASCII digits (and spaces, with at least two digits): digit sequences
+        are content (codes, measurements, years) that OCR must read digit by
+        digit from the pixels."""
+        word_counts: Counter = Counter()
+        for t in texts:
+            for m in cls._WORD_RE.finditer(t.encode("utf-8")):
+                word_counts[m.group(0)] += 1
+        words: Dict[bytes, List[int]] = {w: list(w) for w in word_counts}
+
+        pair_counts: Counter = Counter()
+        pair_words = defaultdict(set)
+        for w, ids in words.items():
+            c = word_counts[w]
+            for p in zip(ids, ids[1:]):
+                pair_counts[p] += c
+                pair_words[p].add(w)
+        heap = [(-c, p) for p, c in pair_counts.items()]
+        heapq.heapify(heap)
+
+        n_merges = max(0, vocab_size - FIRST_MERGE_ID)
+        merges: List[Tuple[int, int]] = []
+        expand: Dict[int, bytes] = {i: bytes([i]) for i in range(256)}
+        next_id = FIRST_MERGE_ID
+        while len(merges) < n_merges and heap:
+            negc, pair = heapq.heappop(heap)
+            if pair_counts.get(pair, 0) != -negc:  # a stale heap entry
+                continue
+            if -negc < 2:
+                break
+            if not merge_digits:
+                exp = expand.get(pair[0], b"") + expand.get(pair[1], b"")
+                n_digits = sum(0x30 <= b <= 0x39 for b in exp)
+                if n_digits >= 2 and all(0x30 <= b <= 0x39 or b == 0x20 for b in exp):
+                    pair_counts.pop(pair, None)  # banned: a multi-digit merge
+                    pair_words.pop(pair, None)
+                    continue
+            merges.append(pair)
+            expand[next_id] = expand.get(pair[0], b"") + expand.get(pair[1], b"")
+            a, b = pair
+            touched: Counter = Counter()
+            for w in list(pair_words.get(pair, ())):
+                ids = words[w]
+                c = word_counts[w]
+                out: List[int] = []
+                j = 0
+                while j < len(ids):
+                    if j + 1 < len(ids) and ids[j] == a and ids[j + 1] == b:
+                        out.append(next_id)
+                        j += 2
+                    else:
+                        out.append(ids[j])
+                        j += 1
+                for p in zip(ids, ids[1:]):
+                    touched[p] -= c
+                for p in zip(out, out[1:]):
+                    touched[p] += c
+                    pair_words[p].add(w)
+                words[w] = out
+            del pair_counts[pair]
+            pair_words.pop(pair, None)
+            for p, dc in touched.items():
+                if dc == 0 or p == pair:
+                    continue
+                pair_counts[p] = pair_counts.get(p, 0) + dc
+                if pair_counts[p] <= 0:
+                    pair_counts.pop(p, None)
+                else:
+                    heapq.heappush(heap, (-pair_counts[p], p))
+            next_id += 1
+        return cls(merges)
 
     def _encode_word(self, wb: bytes) -> Tuple[int, ...]:
         cached = self._word_cache.get(wb)

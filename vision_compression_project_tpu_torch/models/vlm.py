@@ -25,7 +25,7 @@ from ..ops.glyph_render import pack_primitives, render_pages_from_glyphs
 from ..ops.preprocess import preprocess_pages
 from .configs import VLMConfig
 from .decoder import Decoder
-from .layers import Dense, init_weights_, torch_dtype
+from .layers import Dense, init_weights_, normal_, torch_dtype
 from .tokenizer import BOS_ID, EOS_ID, PAD_ID, SEP_ID, TASK_ANSWER_ID, TASK_EXTRACT_ID, get_tokenizer
 from .vit import VisionEncoder
 
@@ -80,14 +80,16 @@ class OpticalVLM(nn.Module):
         return self.proj(self.vision(patch_tokens))
 
     def forward(
-        self, patch_tokens: torch.Tensor, token_ids: torch.Tensor, kv_len: Optional[torch.Tensor] = None
+        self, patch_tokens: torch.Tensor, token_ids: torch.Tensor, kv_len: Optional[torch.Tensor] = None,
+        aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
-        """Training/eval forward: logits over the [vision ; text] sequence."""
+        """Training/eval forward: logits over the [vision ; text] sequence;
+        the decoder's MoE terms go to `aux_losses` (Decoder.forward)."""
         vis = self.encode_pages(patch_tokens)
         txt = self.decoder.embed_tokens(token_ids)
         x = torch.cat([vis, txt.to(vis.dtype)], dim=1)
         total_len = None if kv_len is None else kv_len + vis.shape[1]
-        return self.decoder(x, kv_len=total_len)
+        return self.decoder(x, kv_len=total_len, aux_losses=aux_losses)
 
     def prefill_mixed(
         self,
@@ -109,11 +111,12 @@ class OpticalVLM(nn.Module):
 def init_params(model: OpticalVLM, seed: int) -> None:
     """Fill `model` with seeded random weights, with the initializers the JAX
     package uses: lecun-normal kernels, zero biases, unit norm scales, N(0,
-    0.02) position and token embeddings. Same seed, same weights on any
-    device when the model lies on the CPU (the generator's device)."""
+    0.02) position and token embeddings. The draws come from one CPU
+    generator, a tensor at a time, and are copied to wherever the model
+    lies: same seed, same weights on any device."""
     g = torch.Generator().manual_seed(seed)
     init_weights_(model, g)
-    model.vision.pos_embed.normal_(0.0, 0.02, generator=g)
+    normal_(model.vision.pos_embed, 0.02, g)
 
 
 class VLMRunner:
@@ -139,7 +142,10 @@ class VLMRunner:
         self.cfg = cfg
         self.max_new_default = max_new_default
         self.tok = get_tokenizer(cfg)
-        model = OpticalVLM(cfg)
+        # Parameters are made on the runner's device and filled there, so a
+        # model as large as prod (25 GB) never lies whole in host memory.
+        with torch.device(self.device):
+            model = OpticalVLM(cfg)
         if params is None:
             init_params(model, seed)
         else:

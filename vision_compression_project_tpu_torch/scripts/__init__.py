@@ -2,7 +2,7 @@
 scripts/{serve,extract_pdf,extract_page,ingest_to_index,qa_query,
 eval_retrieval,train_vlm,train_embedder,eval_extract,eval_ocr,train_answer,
 eval_answer,ship_checkpoint,run_answer_hop,export_stage_params,
-run_curriculum}.py, with their arguments, stdout lines and output files.
+run_curriculum,train_bpe}.py, with their arguments, stdout lines and output files.
 The drivers (run_answer_hop, run_curriculum) run the others as
 `python -m vision_compression_project_tpu_torch.scripts.<name>`;
 ship_checkpoint writes under checkpoints/torch/ by default and refuses

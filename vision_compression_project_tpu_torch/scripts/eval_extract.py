@@ -17,7 +17,6 @@ reader (raster/png.py); nothing here imports PIL.
 import argparse
 import difflib
 import json
-import os
 import tempfile
 import time
 from pathlib import Path
@@ -56,10 +55,11 @@ def _eval_golden_png(args):
     pixels); the ground truth is the markdown its pipeline extracted
     (pages/page_NNN.json's raw_response)."""
     from ..raster.png import read_png, to_rgb
+    from ..train.corpus import golden_pages_dir
     from ..train.data import stack_pages
     from ..utils.json_utils import safe_json_loads
 
-    pages_dir = Path(os.environ.get("VCP_GOLDEN_PAGES", Path.home() / "reference" / "output" / "pages"))
+    pages_dir = golden_pages_dir()
     pngs = sorted(pages_dir.glob("page_*.png"))[: args.pages]
     if not pngs:
         raise SystemExit(f"no golden page PNGs under {pages_dir}")

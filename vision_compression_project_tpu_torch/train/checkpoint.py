@@ -30,7 +30,7 @@ from typing import Dict, List, Mapping, Optional
 import numpy as np
 import torch
 
-from ..weights import params_from_jax, params_to_jax
+from ..weights import leaf_tensor, params_from_jax, params_to_jax
 from .ocdbt import read_checkpoint
 
 # A TrainState saves as the sequence (params, opt_state, step); params is child "0".
@@ -71,7 +71,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, torch.Tensor]:
         if isinstance(value, Mapping):
             out.update(_flatten(value, f"{prefix}{key}."))
         else:
-            out[f"{prefix}{key}"] = torch.tensor(np.asarray(value))
+            out[f"{prefix}{key}"] = leaf_tensor(value)
     return out
 
 
@@ -82,7 +82,8 @@ def _unflatten(flat: Mapping[str, torch.Tensor]) -> dict:
         node = tree
         for part in parts:
             node = node.setdefault(part, {})
-        node[leaf] = value.numpy()
+        # numpy has no bfloat16 of its own: such leaves stay tensors (weights.py).
+        node[leaf] = value if value.dtype == torch.bfloat16 else value.numpy()
     return tree
 
 
@@ -181,6 +182,13 @@ def load_params(ckpt_dir) -> Optional[dict]:
     return None
 
 
+def _leaf_bytes(value) -> bytes:
+    if isinstance(value, torch.Tensor):
+        t = value.detach().to("cpu").contiguous()
+        return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes()
+    return np.ascontiguousarray(value).tobytes()
+
+
 def param_digests(tree: Mapping, prefix: str = "") -> Dict[str, str]:
     """{dotted name: SHA-256 hex of the array's C-order bytes} of a params tree."""
     out: Dict[str, str] = {}
@@ -189,7 +197,7 @@ def param_digests(tree: Mapping, prefix: str = "") -> Dict[str, str]:
         if isinstance(value, Mapping):
             out.update(param_digests(value, name + "."))
         else:
-            out[name] = hashlib.sha256(np.ascontiguousarray(value).tobytes()).hexdigest()
+            out[name] = hashlib.sha256(_leaf_bytes(value)).hexdigest()
     return out
 
 

@@ -171,6 +171,12 @@ GOLDEN_MD_ENV = "VCP_GOLDEN_MD"
 _DEFAULT_GOLDEN_MD = Path.home() / "reference" / "output" / "combined.md"
 
 
+def golden_pages_dir() -> Path:
+    """The reference pipeline's page directory of the same run (page_NNN.json
+    and page_NNN.png): VCP_GOLDEN_PAGES, else beside the default combined.md."""
+    return Path(os.environ.get("VCP_GOLDEN_PAGES", _DEFAULT_GOLDEN_MD.parent / "pages"))
+
+
 def golden_sentences() -> List[str]:
     """Sentences of the reference's golden document (the combined.md its
     pipeline extracted), never in the training pool. The path is

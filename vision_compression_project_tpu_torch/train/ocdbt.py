@@ -1,6 +1,7 @@
 """Reader of the orbax checkpoints the repo ships, with no jax, orbax,
 tensorstore or zstandard: the counterpart of
-`ocp.StandardCheckpointer().restore` for a checkpoint of f32 arrays.
+`ocp.StandardCheckpointer().restore` for a checkpoint of f32 and bfloat16
+arrays.
 
 A checkpoint directory holds an OCDBT key-value store (`manifest.ocdbt`, B-tree
 nodes and data files) of zarr v2 arrays, one per parameter: `<name>/.zarray`
@@ -46,6 +47,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..native import ZstdError, crc32c, zstd_decompress
 
@@ -236,9 +238,19 @@ class OcdbtStore:
         return self._read(*ref)
 
 
-def _read_array(store: OcdbtStore, name: str) -> np.ndarray:
-    """One f32 array as orbax writes it: zarr v2, C order, one chunk holding
-    the whole array, zstd-compressed."""
+# zarr dtypes this reader takes: (bytes an element, how the bytes become an array).
+_ZARR_DTYPES = {
+    "<f4": (4, lambda data, shape: np.frombuffer(data, np.float32).reshape(shape)),
+    # numpy has no bfloat16 of its own: a torch tensor, from the 16-bit patterns.
+    "bfloat16": (2, lambda data, shape: torch.from_numpy(
+        np.frombuffer(data, np.int16).reshape(shape).copy()).view(torch.bfloat16)),
+}
+
+
+def _read_array(store: OcdbtStore, name: str):
+    """One array as orbax writes it: zarr v2, C order, one chunk holding the
+    whole array, zstd-compressed; f32 as a numpy array, bfloat16 (a bf16
+    model's expert weights) as a CPU torch.bfloat16 tensor."""
     meta_raw = store.read(f"{name}/.zarray")
     if meta_raw is None:
         raise CheckpointError(f"no array {name!r} in the checkpoint")
@@ -246,17 +258,18 @@ def _read_array(store: OcdbtStore, name: str) -> np.ndarray:
     shape = tuple(meta["shape"])
     layout = (meta.get("zarr_format"), meta.get("dtype"), meta.get("order"), meta.get("filters"),
               (meta.get("compressor") or {}).get("id"), tuple(meta["chunks"]))
-    if layout != (2, "<f4", "C", None, "zstd", shape):
+    if layout[1] not in _ZARR_DTYPES or layout[:1] + layout[2:] != (2, "C", None, "zstd", shape):
         raise CheckpointError(f"{name}: zarr layout {layout} is not one this reader takes")
+    itemsize, to_array = _ZARR_DTYPES[layout[1]]
     key = meta.get("dimension_separator", ".").join("0" * len(shape)) if shape else "0"
     raw = store.read(f"{name}/{key}")
     if raw is None:
         raise CheckpointError(f"{name}: chunk {key} is missing")
     try:
-        data = zstd_decompress(raw, 4 * int(np.prod(shape, dtype=np.int64)))
+        data = zstd_decompress(raw, itemsize * int(np.prod(shape, dtype=np.int64)))
     except ZstdError as exc:
         raise CheckpointError(f"{name}/{key}: {exc}") from None
-    return np.frombuffer(data, np.float32).reshape(shape)
+    return to_array(data, shape)
 
 
 def read_checkpoint(path, subtree: Tuple[str, ...] = ()) -> Dict:

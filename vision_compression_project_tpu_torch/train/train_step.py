@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +26,8 @@ from ..models.vlm import OpticalVLM, init_params
 
 Schedule = Callable[[int], float]
 Params = Dict[str, torch.Tensor]
+# Weight of the Switch-MoE load-balancing term in the loss (the reference's).
+MOE_AUX_WEIGHT = 0.01
 
 
 @dataclasses.dataclass
@@ -111,10 +113,12 @@ def cosine_lr(peak: float, total_steps: int, warmup: int = 100, end_frac: float 
 def vlm_loss(model: OpticalVLM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross-entropy in f32 over the text segment (the vision
     prefix has no targets), averaged over the targets that are not PAD and,
-    where the batch has a loss_mask, that it supervises. (The Switch-MoE
-    auxiliary term is not ported: the port's Decoder refuses experts.)"""
+    where the batch has a loss_mask, that it supervises; plus MOE_AUX_WEIGHT
+    times the sum of the Switch-MoE blocks' load-balancing terms, which the
+    forward returns (one per MoE block, none without experts)."""
     ids = batch["token_ids"]
-    logits = model(batch["patch_tokens"], ids[:, :-1])
+    aux_losses: List[torch.Tensor] = []
+    logits = model(batch["patch_tokens"], ids[:, :-1], aux_losses=aux_losses)
     vis_len = logits.shape[1] - (ids.shape[1] - 1)
     text_logits = logits[:, vis_len:].float()
     targets = ids[:, 1:].long()
@@ -123,7 +127,10 @@ def vlm_loss(model: OpticalVLM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         mask = mask * batch["loss_mask"][:, 1:].float()
     ce = F.cross_entropy(text_logits.reshape(-1, text_logits.shape[-1]), targets.reshape(-1),
                          reduction="none").view_as(mask)
-    return (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    loss = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    if aux_losses:
+        loss = loss + MOE_AUX_WEIGHT * sum(aux_losses)
+    return loss
 
 
 @dataclasses.dataclass

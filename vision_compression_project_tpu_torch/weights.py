@@ -11,9 +11,18 @@ Layouts:
   Conv kernel HWIO                            -> Conv2d weight OIHW
   bias, RMSNorm scale, pos_embed              -> unchanged
   Embed embedding (vocab, dim)                -> Embedding weight (vocab, dim)
+  SwitchMoE w_gate/w_up (E, dim, hidden), w_down (E, hidden, dim) -> unchanged
+  (the router is a Dense kernel (dim, E))
 Names: local_<i> -> local_blocks.<i>, global_<i> -> global_blocks.<i>,
 block_<i> -> blocks.<i>, Embed_0 (the neural embedder's unnamed nn.Embed)
 -> embed.
+
+Dtypes: every leaf keeps its own. The JAX package stores the experts'
+weights in the config's dtype, so a bf16 model has bf16 leaves. numpy has no
+bfloat16 of its own (JAX's comes from ml_dtypes, which the port does not
+import), so a bf16 leaf is read from any array whose dtype is named
+"bfloat16" through its 16-bit pattern, and `params_to_jax` returns it as a
+CPU torch.bfloat16 tensor; `leaf_tensor` reads either kind.
 """
 
 from __future__ import annotations
@@ -39,29 +48,45 @@ def _module_name(part: str) -> str:
     return part
 
 
-def _leaf(parent: str, name: str, value: np.ndarray):
-    """(torch leaf name, array in torch layout) for one flax leaf."""
+def leaf_tensor(value) -> torch.Tensor:
+    """A params-tree leaf as a CPU tensor of its own dtype, sharing nothing
+    with `value`: a torch tensor, or anything np.array takes (a JAX array, a
+    numpy array, a bfloat16 one included)."""
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu").clone()
+    arr = np.array(value, order="C")
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+_EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def _leaf(parent: str, name: str, value: torch.Tensor):
+    """(torch leaf name, tensor in torch layout) for one flax leaf."""
     if name == "kernel":
-        if value.ndim == 2:
-            return "weight", value.T
-        if value.ndim == 3 and parent == "wo":
-            return "weight", value.reshape(-1, value.shape[-1]).T
-        if value.ndim == 3:
-            return "weight", value.reshape(value.shape[0], -1).T
-        if value.ndim == 4:
-            return "weight", value.transpose(3, 2, 0, 1)
-        raise ValueError(f"unexpected kernel rank {value.ndim} under {parent!r}")
+        if value.dim() == 2:
+            return "weight", value.t()
+        if value.dim() == 3 and parent == "wo":
+            return "weight", value.reshape(-1, value.shape[-1]).t()
+        if value.dim() == 3:
+            return "weight", value.reshape(value.shape[0], -1).t()
+        if value.dim() == 4:
+            return "weight", value.permute(3, 2, 0, 1)
+        raise ValueError(f"unexpected kernel rank {value.dim()} under {parent!r}")
     if name == "embedding":
         return "weight", value
-    if name in ("bias", "scale", "pos_embed"):
+    if name in ("bias", "scale", "pos_embed") + _EXPERT_WEIGHTS:
         return name, value
     raise ValueError(f"unknown parameter {name!r} under {parent!r}")
 
 
 def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
-    """Flax params (nested mappings of arrays) -> state_dict of contiguous
-    CPU tensors in the arrays' dtype, for OpticalVLM or any of its
-    submodules, or for NeuralEmbedderModule."""
+    """Flax params (nested mappings of arrays, or of tensors as
+    `params_to_jax` and train/ocdbt.py give bf16 leaves) -> state_dict of
+    contiguous CPU tensors in the leaves' dtype, for OpticalVLM or any of
+    its submodules, or for NeuralEmbedderModule."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(node: Mapping, path: list) -> None:
@@ -69,9 +94,9 @@ def params_from_jax(tree: Mapping) -> Dict[str, torch.Tensor]:
             if isinstance(value, Mapping):
                 walk(value, path + [key])
                 continue
-            name, arr = _leaf(path[-1] if path else "", key, np.asarray(value))
+            name, t = _leaf(path[-1] if path else "", key, leaf_tensor(value))
             prefix = [_module_name(p) for p in path]
-            out[".".join(prefix + [name])] = torch.from_numpy(np.array(arr, order="C"))
+            out[".".join(prefix + [name])] = t.contiguous()
 
     walk(tree, [])
     return out
@@ -100,14 +125,19 @@ _TO_JAX = [
 def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg) -> Dict:
     """A state_dict of OpticalVLM(cfg) or NeuralEmbedderModule(cfg) (or a
     tree of gradients or moments under the same names) -> the flax parameter
-    tree of the JAX package's model, nested dicts of f32 numpy arrays: the
-    inverse of `params_from_jax`. `cfg` gives each attention module's
-    head_dim, which the (heads * head_dim, embed) weights do not show."""
+    tree of the JAX package's model, nested dicts of f32 numpy arrays and,
+    for bf16 tensors (a bf16 model's expert weights), CPU torch.bfloat16
+    tensors: the inverse of `params_from_jax`. `cfg` gives each attention
+    module's head_dim, which the (heads * head_dim, embed) weights do not
+    show."""
     heads = _head_dims(cfg)
     embedder = not hasattr(cfg, "vision")
     out: Dict = {}
     for name, tensor in state_dict.items():
-        value = tensor.detach().to("cpu", torch.float32).numpy()
+        if tensor.dtype == torch.bfloat16:
+            value = leaf_tensor(tensor)
+        else:
+            value = tensor.detach().to("cpu", torch.float32).numpy()
         flax_name = name
         for pattern, repl in _TO_JAX:
             flax_name = pattern.sub(repl, flax_name)
@@ -131,5 +161,5 @@ def params_to_jax(state_dict: Mapping[str, torch.Tensor], cfg) -> Dict:
         node = out
         for part in parts:
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(value)
+        node[leaf] = value.contiguous() if isinstance(value, torch.Tensor) else np.ascontiguousarray(value)
     return out
