@@ -5,7 +5,8 @@ embedder and ocr_bpe, /ingest from a PDF with the shipped weights, the HTTP
 service with its command line, the retrieval settings (the neural embedder
 and multi-vector MaxSim retrieval, over HTTP too), training: ocr_real
 extraction training and the embedder's contrastive training, the answer
-task, and the prod preset (11.1B parameters, Switch-MoE) serving pages.
+task, the prod preset (11.1B parameters, Switch-MoE) serving pages, and
+Switch-MoE training (tiny_moe whole, prod at every width cut in depth).
 
     python3 chip_smoke.py [--seed N]
 
@@ -133,7 +134,26 @@ with the port's own reader. One flushed line per phase, with seconds:
            VCP_MODEL_PRESET=prod, VCP_EXTRACT_ENGINE=vlm, VCP_EXTRACT_BATCH=4
            and no checkpoint (seeded weights): POST /ingest of a 4-page PDF,
            200 with 4 pages, 48 K1 launches, every page JSON's keys and
-           types; then the child is stopped.
+           types; then the child is stopped;
+  moe_train  Switch-MoE training: (b) tiny_moe, 3 train_steps in f32 on the
+           card and on the CPU from one seed and batches (losses within 1e-5,
+           router gradients within 1e-4, 4 K1 and 2 backward launches a
+           step), then `train_vlm --preset tiny_moe --steps 2` in a child
+           process on the card, its checkpoint's bf16 expert leaves (params,
+           mu, nu) restored bit-equal; (c) prod_train: prod at every width
+           cut to 2 + 2 vision and 4 decoder blocks (2 MoE), bf16 with bf16
+           experts, from the seed on one mixC batch of 8 pages at text_len
+           511 (6,128 routed tokens, capacity 478): 4 steps with 16 K1 and 8
+           backward launches each, finite losses falling, finite gradients,
+           expert gradients exactly where the layer kept a token the loss
+           reaches, the step by stage, peak memory beside the reckoned
+           state; (d) prod cut as in
+           prod.logits, one f32 step of one page on the card against the
+           CPU: loss within 1e-5, router, expert and wq/wk/wv gradients
+           within 1e-3 of their largest value, every token on the same
+           expert. (a), the backward kernel at prod_train's shapes (128
+           windows at head_dim 64, the global stage at 96, the decoder at
+           128 with GQA 16:4, eager and graph-timed), runs in train.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -149,6 +169,7 @@ import difflib
 import functools
 import gc
 import http.client
+import itertools
 import json
 import os
 import queue
@@ -173,9 +194,9 @@ from vision_compression_project_tpu_torch.models import VLMRunner, get_preset, l
 from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
 from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedder, NeuralEmbedder
 from vision_compression_project_tpu_torch.models.layers import use_flash
-from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, TASK_EXTRACT_ID
+from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, PAD_ID, TASK_EXTRACT_ID
 from vision_compression_project_tpu_torch.models.vlm import (
-    ANSWER_DECODE_RESERVE, CACHE_BUCKET, PROMPT_BUCKET, OpticalVLM,
+    ANSWER_DECODE_RESERVE, CACHE_BUCKET, PROMPT_BUCKET, OpticalVLM, init_params,
 )
 from vision_compression_project_tpu_torch.models.tokenizer import get_tokenizer
 from vision_compression_project_tpu_torch.ops import attention as tattn
@@ -193,7 +214,8 @@ from vision_compression_project_tpu_torch.raster.rasterizer import build_library
 from vision_compression_project_tpu_torch.serve.httpd import API_INFO, CORS_HEADERS, create_server, warmup
 from vision_compression_project_tpu_torch.serve.ui import UI_HTML
 from vision_compression_project_tpu_torch.train.checkpoint import (
-    load_params, load_runner, param_digests, save_checkpoint, shipped_digests,
+    _flatten as flatten_checkpoint, load_params, load_runner, param_digests, restore_checkpoint, save_checkpoint,
+    shipped_digests,
 )
 from vision_compression_project_tpu_torch.train.corpus import corpus_sentences
 from vision_compression_project_tpu_torch.train.data import (
@@ -204,7 +226,7 @@ from vision_compression_project_tpu_torch.train.embedder_train import (
 )
 from vision_compression_project_tpu_torch.train.pages import ingest_texts, prose_pages
 from vision_compression_project_tpu_torch.train.train_step import cosine_lr, make_train_state, train_step, vlm_loss
-from vision_compression_project_tpu_torch.weights import params_from_jax
+from vision_compression_project_tpu_torch.weights import params_from_jax, params_to_jax
 
 PRESET = "ocr_real"
 N_PAGES = 4
@@ -1724,13 +1746,31 @@ GRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_RTOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 
 
-def train_shapes(cfg, embed_kv_len: list, answer_cfg) -> list:
+def model_train_shapes(cfg, batch: int, text_len: int, path: str) -> list:
+    """K1's calls in one training step of the VLM `cfg` at `batch` and
+    `text_len`: the encoder's (the reference's routing rule) and the causal
+    decoder's over the vision tokens and text_len - 1 targets, each launched
+    in the forward and again in the remat recompute (one backward each)."""
+    v, dec = cfg.vision, cfg.decoder
+    shapes = encoder_shapes(v, batch, path)
+    for sh in shapes:
+        sh.launches *= 2
+    s_dec = v.tokens_out + text_len - 1
+    if use_flash(s_dec, dec.head_dim):
+        shapes.append(AttnShape(f"{path}_decoder", batch, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
+                                [s_dec] * batch, 2 * dec.depth, path))
+    return shapes
+
+
+def train_shapes(cfg, embed_kv_len: list, answer_cfg, prod_train_cfg) -> list:
     """K1's calls in one ocr_real training step at mixC's batch and text_len
     (each launched in the forward and again in the remat recompute), in one
-    embedder step (the documents: S 256, non-causal, ragged), and in one
+    embedder step (the documents: S 256, non-causal, ragged), in one
     ocr_bpe train_answer step at its defaults (batch 32, text_len 320: the
     global encoder and the causal GQA 8:4 decoder over 256 + 319 tokens; its
-    64-token windows take the plain path)."""
+    64-token windows take the plain path), and in one prod_train step
+    (batch 8, text_len 511: 128 windows at head_dim 64, the global stage at
+    96, the causal GQA 16:4 decoder over 256 + 510 tokens at 128)."""
     v, dec = cfg.vision, cfg.decoder
     win = v.window
     s_dec = v.tokens_out + MIXC["text_len"] - 1
@@ -1752,6 +1792,7 @@ def train_shapes(cfg, embed_kv_len: list, answer_cfg) -> list:
                   "train_answer"),
         AttnShape("train_answer_decoder", ANSWER_BATCH, adec.heads, adec.kv_heads, s_ans, adec.head_dim, True,
                   [s_ans] * ANSWER_BATCH, 2 * adec.depth, "train_answer"),
+        *model_train_shapes(prod_train_cfg, PROD_TRAIN_BATCH, MIXC["text_len"], "prod_train"),
     ]
 
 
@@ -1880,6 +1921,9 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
                 row["library_bwd_ms"] = row["library_fwd_bwd_ms"] - row["library_ms"]
                 row["bound_ms"], row["bound_by"] = bound_ms(sh, dtype)
                 row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(sh, dtype)
+                if sh.path == "prod_train":
+                    row["bwd_graph_ms"] = graph_ms(
+                        lambda: kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale), iters=10)
             print("kernel " + json.dumps(row), flush=True)
             rows.append(row)
             if not ok:
@@ -1892,7 +1936,7 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
     # Per training step: the forward launches (in the VLMs' blocks the
     # forward and the remat recompute) and one backward per block.
     rec = {}
-    for path in ("train", "train_embedder", "train_answer"):
+    for path in ("train", "train_embedder", "train_answer", "prod_train"):
         main = [r for r in rows if r["dtype"] == "bfloat16" and r["path"] == path]
         per_block = 1 if path == "train_embedder" else 2
         rec[path] = {
@@ -1903,6 +1947,10 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
             **{k: sum(r[k] * (r["launches_per_step"] // per_block) for r in main)
                for k in ("bwd_ms", "bwd_plain_ms", "library_bwd_ms", "bwd_bound_ms")},
         }
+        if path == "prod_train":
+            rec[path]["bwd_graph_ms"] = sum(r["bwd_graph_ms"] * (r["launches_per_step"] // per_block) for r in main)
+            rec[path]["bwd_ms_per_call"] = {r["shape"]: r["bwd_ms"] for r in main}
+            rec[path]["bwd_graph_ms_per_call"] = {r["shape"]: r["bwd_graph_ms"] for r in main}
         ops_ms = sum(r["bwd_bound_ms"] * (r["launches_per_step"] // per_block)
                      for r in main if r["bwd_bound_by"] == "operations")
         rec[path]["bwd_bound_by"] = "operations" if ops_ms >= rec[path]["bwd_bound_ms"] / 2 else "bytes"
@@ -2148,7 +2196,8 @@ def train_phase(cfg, seed: int, workdir: Path) -> dict:
     # The corpus harvest (reading the installed packages' documentation) runs
     # while K1 is checked.
     pair = next(synthetic_pair_batches(EMBED_BATCH, seed=seed))
-    shapes = train_shapes(cfg, [int(n) for n in pair["d_len"]], get_preset(CHAT_PRESET))
+    shapes = train_shapes(cfg, [int(n) for n in pair["d_len"]], get_preset(CHAT_PRESET),
+                          prod_train_config(get_preset(PROD_PRESET)))
     with ThreadPoolExecutor(1) as pool:
         harvest = pool.submit(corpus_sentences, "train")
         t0 = time.perf_counter()
@@ -2488,13 +2537,34 @@ def prod_phase(cfg, seed: int, expected_launches: int):
     return launches, timing
 
 
+def prod_cut(cfg, depth_local: int, depth_global: int, depth: int):
+    """prod at every width, cut in depth only (every expert_every-th decoder
+    block from block 0 a MoE block of all 16 experts)."""
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, depth_local=depth_local,
+                                                               depth_global=depth_global),
+                               decoder=dataclasses.replace(cfg.decoder, depth=depth))
+
+
 def prod_logits_config(cfg):
     """prod at full width in f32, cut in depth only: one windowed and one
     global vision block, two decoder blocks (block 0 a MoE block with all 16
     experts, block 1 dense)."""
-    cut = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, depth_local=1, depth_global=1),
-                              decoder=dataclasses.replace(cfg.decoder, depth=2))
-    return f32_config(cut)
+    return f32_config(prod_cut(cfg, 1, 1, 2))
+
+
+def record_routes(model) -> tuple:
+    """(hooks, routed): forward hooks on every SwitchMoE of `model` that
+    append each call's expert per token (the argmax of the f32 router's
+    softmax, as the layer routes) to `routed`, on the host. Under remat the
+    backward's recompute can append again, after the forward's entries."""
+    routed = []
+
+    def record(module, args, _out):
+        with torch.no_grad():
+            probs = torch.softmax(module.router(args[0].to(torch.float32)).reshape(-1, module.num_experts), dim=-1)
+        routed.append(torch.argmax(probs, dim=-1).cpu())
+
+    return [m.register_forward_hook(record) for m in model.modules() if isinstance(m, layers.SwitchMoE)], routed
 
 
 def prod_logits_phase(cfg, seed: int) -> dict:
@@ -2506,14 +2576,7 @@ def prod_logits_phase(cfg, seed: int) -> dict:
     logits, experts = {}, {}
     for device in ("cuda", "cpu"):
         runner = VLMRunner(cfg32, seed=seed, device=device)
-        routed = []
-
-        def record(module, args, _out):
-            x = args[0]
-            probs = torch.softmax(module.router(x.to(torch.float32)).reshape(-1, module.num_experts), dim=-1)
-            routed.append(torch.argmax(probs, dim=-1).cpu())
-
-        hooks = [m.register_forward_hook(record) for m in runner.model.modules() if isinstance(m, layers.SwitchMoE)]
+        hooks, routed = record_routes(runner.model)
         vis = runner.encode(runner.preprocess_patches(page))
         ids, lens = runner.pad_prompts([[BOS_ID, TASK_EXTRACT_ID]])
         out, _, _ = runner.first_logits(ids, lens, vis, vis.shape[1] + ids.shape[1])
@@ -2573,12 +2636,291 @@ def prod_serve_phase(seed: int, workdir: Path, k1_per_batch: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------ [moe_train]
+# Switch-MoE training on the card: tiny_moe whole (card against CPU in f32,
+# then its command line), prod_train (prod at every width, its depth cut so
+# that parameters, gradients and both moments fit one card: 2 + 2 vision and
+# 4 decoder blocks, 2 of them MoE) at mixC's render, batch 8, text_len 511,
+# and prod cut as in [prod.logits] in f32, one step's loss and gradients on
+# the card against the CPU. Every card-against-CPU check of MoE training is
+# in f32: capacity routing is chaotic under bf16 rounding.
+PROD_TRAIN_DEPTHS = (2, 2, 4)  # windowed, global, decoder blocks
+# A constant lr of 1e-4 from the seed: train_vlm's default, 3e-4, warms up
+# from a tenth of it, and without warm-up 3e-4 read losses 8.89, 8.07,
+# 12.54, 9.59 on the card (NVIDIA H100 80GB HBM3).
+PROD_TRAIN_BATCH, PROD_TRAIN_STEPS, PROD_TRAIN_LR = 8, 4, 1e-4
+MOE_PRESET, MOE_STEPS, MOE_BATCH, MOE_TEXT_LEN = "tiny_moe", 3, 2, 128
+PROD_F32_TEXT_LEN = 64
+# Card against CPU in f32: the loss (cross-entropy + 0.01 x the MoE terms)
+# within 1e-5 of the CPU's, relative (f32 sums in another order); tiny_moe's
+# router gradients within 1e-4 (tests/test_torch_moe.py holds them to JAX's
+# so); prod's router, expert and wq/wk/wv gradients within 1e-3 of each
+# tensor's largest value (f32 sums at prod's widths through four blocks, in
+# another order; tests/test_torch_gpu.py holds ocr_real's so).
+MOE_LOSS_RTOL, MOE_ROUTER_ATOL, PROD_GRAD_RTOL = 1e-5, 1e-4, 1e-3
+EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
+
+
+def prod_train_config(cfg):
+    """prod_train: prod at every width in its own dtypes (bf16 compute, bf16
+    experts), cut to PROD_TRAIN_DEPTHS (decoder blocks 0 and 2 MoE)."""
+    return prod_cut(cfg, *PROD_TRAIN_DEPTHS)
+
+
+def step_k1(cfg, batch: int, text_len: int) -> tuple:
+    """(K1 forward, backward launches) of one training step."""
+    shapes = model_train_shapes(cfg, batch, text_len, "step")
+    return sum(sh.launches for sh in shapes), sum(sh.launches // 2 for sh in shapes)
+
+
+def bf16_leaves_bit_equal(restored: dict, saved: dict) -> int:
+    """Number of bf16 tensors of `saved` (a checkpoint's flat dict), each
+    required bit-equal to the same name in `restored`."""
+    n = 0
+    for name, t in saved.items():
+        if t.dtype != torch.bfloat16:
+            continue
+        got = restored[name]
+        if got.dtype != torch.bfloat16 or not torch.equal(got.view(torch.int16), t.view(torch.int16)):
+            fail(f"checkpoint leaf {name} does not read back bit-equal")
+        n += 1
+    return n
+
+
+def tiny_moe_phase(seed: int, workdir: Path) -> dict:
+    """(b) tiny_moe: MOE_STEPS train_steps in f32 on the card and on the CPU
+    from the same seed and batches (losses, every router's gradient after
+    step 1, exact K1 launches on the card), then `train_vlm --preset tiny_moe
+    --steps 2` in a child process on the card and its checkpoint's bf16
+    leaves read back."""
+    cfg = f32_config(get_preset(MOE_PRESET))
+    data = synthetic_batches(cfg, MOE_BATCH, seed=seed, workdir=workdir / "tiny_moe_data", text_len=MOE_TEXT_LEN)
+    host = [next(data) for _ in range(MOE_STEPS)]
+    want_k1 = step_k1(cfg, MOE_BATCH, MOE_TEXT_LEN)
+    runs, launches = {}, {"flash_attention": 0, "flash_attention_bwd": 0}
+    for device in (DEVICE, "cpu"):
+        model, opt, state = make_train_state(cfg, device=device, seed=seed, lr=PROD_TRAIN_LR)
+        losses, routers = [], None
+        for hb in host:
+            kernels.reset_launch_counts()
+            state, loss = train_step(model, opt, state, device_batch(cfg, hb, device=device))
+            losses.append(float(loss))
+            if routers is None:
+                routers = {n: p.grad.float().cpu() for n, p in model.named_parameters() if n.endswith("router.weight")}
+            if device == DEVICE:
+                got = step_launches(launches)
+                if got != want_k1:
+                    fail(f"tiny_moe step on the card: K1 {got[0]} forward and {got[1]} backward launches, "
+                         f"expected {want_k1}")
+        runs[device] = (losses, routers)
+        del model, opt, state
+    (card_losses, card_routers), (cpu_losses, cpu_routers) = runs[DEVICE], runs["cpu"]
+    out = {"steps": MOE_STEPS, "batch": MOE_BATCH, "text_len": MOE_TEXT_LEN, "card_losses": card_losses,
+           "cpu_losses": cpu_losses, "k1_per_step": list(want_k1), "routers": len(cpu_routers),
+           "loss_rel_err": max(abs(a - b) / abs(b) for a, b in zip(card_losses, cpu_losses)),
+           "router_grad_max_abs_err": max((card_routers[n] - g).abs().max().item() for n, g in cpu_routers.items())}
+    if not (len(cpu_routers) == cfg.decoder.depth and np.isfinite(card_losses).all()
+            and out["loss_rel_err"] <= MOE_LOSS_RTOL and out["router_grad_max_abs_err"] <= MOE_ROUTER_ATOL):
+        fail(f"tiny_moe card against CPU in f32: {out}")
+
+    repo = Path(__file__).resolve().parent
+    ckpt_dir = workdir / "cli_moe"
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "vision_compression_project_tpu_torch.scripts.train_vlm",
+                           "--preset", MOE_PRESET, "--steps", "2", "--log_every", "1", "--ckpt_dir", str(ckpt_dir)],
+                          cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)), capture_output=True, text=True,
+                          timeout=300)
+    out["cli_s"] = time.perf_counter() - t0
+    print(f"-- train_vlm --preset {MOE_PRESET}\n{proc.stdout.strip()}", flush=True)
+    ckpt = (ckpt_dir / "step_00000002").resolve()
+    lines = proc.stdout.strip().splitlines() or [""]
+    if proc.returncode != 0 or lines[-1] != f"final checkpoint: {ckpt}" or not lines[0].startswith(f"device: {DEVICE}"):
+        fail(f"train_vlm --preset {MOE_PRESET} --steps 2: rc {proc.returncode}, {lines[:1] + lines[-1:]}, "
+             f"stderr {proc.stderr[-2000:]}")
+    saved = torch.load(ckpt / "checkpoint.pt", map_location="cpu", weights_only=True)
+    tcfg = get_preset(MOE_PRESET)
+    model, opt, state = make_train_state(tcfg, device=DEVICE, seed=seed + 1)
+    restore_checkpoint(ckpt_dir, state)
+    out["bf16_leaves_bit_equal"] = {
+        part: bf16_leaves_bit_equal(flatten_checkpoint(params_to_jax(tensors, tcfg)), flat)
+        for part, tensors, flat in (("params", state.params, saved["params"]),
+                                    ("mu", state.opt_state.mu, saved["opt_state"]["mu"]),
+                                    ("nu", state.opt_state.nu, saved["opt_state"]["nu"]))}
+    if set(out["bf16_leaves_bit_equal"].values()) != {len(EXPERT_WEIGHTS) * tcfg.decoder.depth}:
+        fail(f"train_vlm --preset {MOE_PRESET}: bf16 leaves {out['bf16_leaves_bit_equal']}, expected "
+             f"{len(EXPERT_WEIGHTS) * tcfg.decoder.depth} in each of params, mu and nu")
+    out["launches"] = launches
+    del model, opt, state
+    return out
+
+
+def check_expert_gradients(model, routed: list, token_ids: torch.Tensor) -> list:
+    """Each MoE block's expert weights have a non-zero gradient exactly where
+    the first forward (`routed`, one entry per block) kept a token, under
+    its expert's capacity (slots counted in (row, position) order, as the
+    layer counts them), that the loss reaches. In the last MoE block that is
+    a token at or before its row's last
+    supervised position (the causal decoder's later positions, the PAD tail,
+    reach no loss); in an earlier one every kept token, whose output reaches
+    the next MoE block's load-balancing term. Returns each block's kept live
+    tokens per expert."""
+    ids = token_ids.cpu()
+    b, n_ids = ids.shape
+    sup = ids[:, 1:] != PAD_ID
+    last = torch.where(sup.any(dim=1), (sup * torch.arange(n_ids - 1)).amax(dim=1), torch.full((b,), -1))
+    counts = []
+    moe = [m for m in model.modules() if isinstance(m, layers.SwitchMoE)]
+    for i, (m, experts) in enumerate(zip(moe, routed)):
+        s_dec = experts.numel() // b
+        vis = s_dec - (n_ids - 1)
+        limit = torch.where(last >= 0, vis + last, torch.full((b,), -1))
+        live = (torch.arange(s_dec)[None, :] <= limit[:, None]).reshape(-1) | (i < len(moe) - 1)
+        onehot = F.one_hot(experts, m.num_experts)
+        pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+        keep = pos < max(1, int(m.capacity_factor * experts.numel() / m.num_experts))
+        n = torch.bincount(experts[keep & live], minlength=m.num_experts)
+        for w in (m.w_gate, m.w_up, m.w_down):
+            nonzero = (w.grad.flatten(1).abs().amax(dim=1) > 0).cpu()
+            if not torch.equal(nonzero, n > 0):
+                fail(f"expert gradients non-zero at {nonzero.tolist()}, kept live tokens {n.tolist()}, "
+                     f"routed {torch.bincount(experts, minlength=m.num_experts).tolist()}")
+        counts.append(n.tolist())
+    return counts
+
+
+def prod_train_phase(cfg, seed: int, workdir: Path, kernel_rec: dict) -> dict:
+    """(c) prod_train from the seed on one fixed mixC batch: PROD_TRAIN_STEPS
+    steps, finite losses falling from step 1 to the last, every gradient
+    finite and the attention projections' non-zero after step 1, expert
+    gradients where tokens went, exact K1 launches each step, the step split
+    by stage, peak memory beside the state's reckoned bytes."""
+    free_card()
+    t0 = time.perf_counter()
+    fixed = next(synthetic_batches(cfg, PROD_TRAIN_BATCH, seed=seed, workdir=workdir / "prod_train_data", **MIXC))
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model, opt, state = make_train_state(cfg, device=DEVICE, seed=seed, lr=PROD_TRAIN_LR)
+    init_s = sync_s(t0)
+    params = list(state.params.values())
+    n_f32 = sum(p.numel() for p in params if p.dtype == torch.float32)
+    n_bf16 = sum(p.numel() for p in params if p.dtype == torch.bfloat16)
+    out = {"depths": list(PROD_TRAIN_DEPTHS), "batch": PROD_TRAIN_BATCH, "text_len": MIXC["text_len"],
+           "routed_tokens": PROD_TRAIN_BATCH * (cfg.vision.tokens_out + MIXC["text_len"] - 1),
+           "params": n_f32 + n_bf16, "bf16_params": n_bf16, "init_s": init_s, "batch_render_s": data_s,
+           # parameters, gradients, mu and nu, each in the leaf's dtype
+           "reckoned_state_gb": (16 * n_f32 + 8 * n_bf16) / GB}
+    out["capacity"] = max(1, int(cfg.decoder.capacity_factor * out["routed_tokens"] / cfg.decoder.num_experts))
+    want = (kernel_rec["launches_per_step"], kernel_rec["bwd_launches_per_step"])
+    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    steps = []
+    for step in range(1, PROD_TRAIN_STEPS + 1):
+        kernels.reset_launch_counts()
+        if step == 1:
+            hooks, routed = record_routes(model)
+            t0 = time.perf_counter()
+            batch = device_batch(cfg, fixed, device=DEVICE)
+            first_data_s = sync_s(t0)
+            t0 = time.perf_counter()
+            state, loss = train_step(model, opt, state, batch)
+            t = {"loss": float(loss), "step_s": sync_s(t0), "first_batch_s": first_data_s}
+            for h in hooks:
+                h.remove()
+            check_gradients(model)
+            out["kept_live_tokens_per_expert"] = check_expert_gradients(model, routed, batch["token_ids"])
+            del batch
+        else:
+            t = timed_step(model, opt, state, itertools.repeat(fixed), cfg)
+            t["step_s"] = t["data_s"] + t["forward_s"] + t["backward_s"] + t["optimizer_s"]
+        got = step_launches(launches)
+        log("moe_train.prod_step", t["step_s"], step=step, flash_launches=got[0], flash_bwd_launches=got[1], **t)
+        if got != want:
+            fail(f"prod_train step {step}: K1 {got[0]} forward and {got[1]} backward launches, expected {want}")
+        steps.append(t)
+    losses = [t["loss"] for t in steps]
+    timed = steps[1:]
+    out.update(losses=losses, first_step_s=steps[0]["step_s"],
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated() / GB,
+               **{k: float(np.median([t[k] for t in timed])) for k in ("data_s", "forward_s", "backward_s",
+                                                                      "optimizer_s")})
+    total = sum(out[k] for k in ("data_s", "forward_s", "backward_s", "optimizer_s"))
+    out["step_s"] = total
+    out["share"] = {k[:-2]: out[k] / total for k in ("data_s", "forward_s", "backward_s", "optimizer_s")}
+    out["k1_bwd_s"] = kernel_rec["bwd_ms"] / 1e3
+    out["k1_bwd_share_of_backward"] = out["k1_bwd_s"] / out["backward_s"]
+    out["launches"] = launches
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"prod_train losses {losses}: not finite, or not lower after step {PROD_TRAIN_STEPS} than at step 1")
+    del model, opt, state, params
+    free_card()
+    return out
+
+
+def prod_f32_step_phase(cfg, seed: int, workdir: Path) -> dict:
+    """(d) prod cut as [prod.logits] (1 + 1 vision, 2 decoder blocks, block 0
+    MoE) in f32, one batch of one mixC page with a short text: the loss and
+    the gradients of the router, the experts and every wq/wk/wv on the card
+    (K1 and its backward on the f32 route at head_dim 64, 96 and 128) against
+    the CPU's plain path from the same seed, and every token's expert."""
+    cfg32 = prod_logits_config(cfg)
+    fixed = next(synthetic_batches(cfg32, 1, seed=seed, workdir=workdir / "prod_f32_data",
+                                   **dict(MIXC, text_len=PROD_F32_TEXT_LEN)))
+    want_k1 = step_k1(cfg32, 1, PROD_F32_TEXT_LEN)
+    res = {}
+    for device in (DEVICE, "cpu"):
+        with torch.device(device):
+            model = OpticalVLM(cfg32)
+        init_params(model, seed)
+        model.to(device).train()  # the RoPE tables are made on the host
+        hooks, routed = record_routes(model)
+        kernels.reset_launch_counts()
+        loss = vlm_loss(model, device_batch(cfg32, fixed, device=device))
+        loss.backward()
+        got = (kernels.launches["flash_attention"], kernels.launches["flash_attention_bwd"])
+        for h in hooks:
+            h.remove()
+        grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
+                 if n.endswith("router.weight") or n.rsplit(".", 1)[-1] in EXPERT_WEIGHTS
+                 or n.rsplit(".", 2)[-2] in ("wq", "wk", "wv")}
+        res[device] = (float(loss.detach()), grads, routed, got)
+        del model, loss
+        free_card()
+    (loss, grads, routed, got), (cpu_loss, cpu_grads, cpu_routed, _) = res[DEVICE], res["cpu"]
+    errs = {n: (grads[n] - g).abs().max().item() / max(g.abs().max().item(), 1e-30) for n, g in cpu_grads.items()}
+    worst = max(errs, key=errs.get)
+    out = {"launches": {"flash_attention": got[0], "flash_attention_bwd": got[1]},
+           "card_loss": loss, "cpu_loss": cpu_loss, "loss_rel_err": abs(loss - cpu_loss) / abs(cpu_loss),
+           "k1_launches": list(got), "tensors": len(errs), "grad_max_rel_err": errs[worst], "worst": worst,
+           "tokens": [int(e.numel()) for e in cpu_routed],
+           "experts_equal": len(routed) == len(cpu_routed) > 0
+           and all(torch.equal(a, b) for a, b in zip(routed, cpu_routed))}
+    if not (got == want_k1 and out["experts_equal"] and out["loss_rel_err"] <= MOE_LOSS_RTOL
+            and errs[worst] <= PROD_GRAD_RTOL):
+        fail(f"prod f32 step card against CPU: {out} (K1 launches expected {want_k1})")
+    return out
+
+
+def moe_train_phase(cfg, seed: int, workdir: Path, kernel_rec: dict) -> dict:
+    """[moe_train]: (b) tiny_moe, (c) prod_train, (d) prod's f32 step; (a),
+    the backward kernel at prod_train's shapes, runs in [train.kernel]."""
+    out = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 0}}
+    for name, fn in (("tiny_moe", lambda: tiny_moe_phase(seed, workdir)),
+                     ("prod_train", lambda: prod_train_phase(prod_train_config(cfg), seed, workdir, kernel_rec)),
+                     ("prod_f32_step", lambda: prod_f32_step_phase(cfg, seed, workdir))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        for key, n in out[name].pop("launches", {}).items():
+            out["launches"][key] += n
+        log(f"moe_train.{name}", sync_s(t0), **{k: json.dumps(v) for k, v in out[name].items()})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--serve-child", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--eval-answer-child", nargs=argparse.REMAINDER, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
         return 2
@@ -2695,9 +3037,17 @@ def main() -> int:
         t0 = time.perf_counter()
         prod_served = prod_serve_phase(args.seed, workdir, prod_expected)
         log("prod.serve", time.perf_counter() - t0, **prod_served)
+        free_card()
+        t0 = time.perf_counter()
+        moe = moe_train_phase(prod_cfg, args.seed, workdir, trained["kernel"]["prod_train"])
+        log("moe_train", time.perf_counter() - t0, launches=json.dumps(moe["launches"]),
+            prod_train_step_s=moe["prod_train"]["step_s"],
+            prod_train_max_memory_allocated_gb=moe["prod_train"]["max_memory_allocated_gb"],
+            prod_train_reckoned_state_gb=moe["prod_train"]["reckoned_state_gb"])
 
     train_rec = trained["kernel"]["train"]
     answer_rec = trained["kernel"]["train_answer"]
+    prod_train_rec = trained["kernel"]["prod_train"]
 
     def entry(name, source, replaces, rec, **extra):
         by_path = {"extract": launches[name], "chat": chat_launches[name],
@@ -2706,7 +3056,8 @@ def main() -> int:
                    "chat_shipped": shipped["launches"][name], "serve": served["launches"][name],
                    "retrieval": retrieved["launches"][name],
                    "train": trained["launches"].get(name, 0), "answer": answered["launches"].get(name, 0),
-                   "prod": prod_launches[name], "prod_serve": prod_served["launches"][name]}
+                   "prod": prod_launches[name], "prod_serve": prod_served["launches"][name],
+                   "moe_train": moe["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2714,6 +3065,7 @@ def main() -> int:
             **extra,
         }
 
+    log("total", time.perf_counter() - t_start)
     print(json.dumps({"kernels": [
         entry("flash_attention", "vision_compression_project_tpu_torch/kernels/flash_attention.cu",
               "vision_compression_project_tpu/ops/attention.py:30", record,
@@ -2743,7 +3095,11 @@ def main() -> int:
                                                             "library_bwd_ms", "bwd_bound_ms", "bwd_bound_by")},
               max_rel_err=trained["kernel"]["bwd_max_rel_err"], lse_max_rel_err=trained["kernel"]["lse_max_rel_err"],
               mixc_step_s=sum(trained["mixc"][k] for k in ("data_s", "forward_s", "backward_s", "optimizer_s")),
-              mixc_backward_s=trained["mixc"]["backward_s"]),
+              mixc_backward_s=trained["mixc"]["backward_s"],
+              prod_train_step={k: prod_train_rec[k] for k in (
+                  "bwd_launches_per_step", "bwd_ms", "bwd_graph_ms", "bwd_plain_ms", "library_bwd_ms",
+                  "bwd_bound_ms", "bwd_bound_by", "bwd_ms_per_call", "bwd_graph_ms_per_call")},
+              prod_train_step_s=moe["prod_train"]["step_s"], prod_train_backward_s=moe["prod_train"]["backward_s"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

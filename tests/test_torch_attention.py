@@ -81,14 +81,17 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(d, dtype, device, 
 
 @pytest.mark.parametrize("d", [96, 128])
 def test_backward_kernel_refuses_prod_head_dims(d):
-    """The forward kernel takes head_dim 96 and 128 (prod); its backward does
-    not yet, and raises before it builds or launches."""
-    assert d in kernels.FLASH_HEAD_DIMS and d not in kernels.FLASH_BWD_HEAD_DIMS
-    q = torch.zeros((1, 4, 128, d), dtype=torch.bfloat16)
+    """Both kernels take head_dim 96 and 128 (prod): the backward's head-dim
+    check passes them, and the wrapper refuses these operands only because
+    they lie on the CPU. A head dim the kernels do not take (48) is refused
+    as such. Both raise before any build or launch."""
+    assert d in kernels.FLASH_HEAD_DIMS and d in kernels.FLASH_BWD_HEAD_DIMS
     lse = torch.zeros((1, 4, 128))
     before = dict(kernels.launches)
-    with pytest.raises(ValueError, match="head_dim"):
-        kernels.flash_attention_bwd(q, q, q, q, q, lse, None, False, 0.1)
+    for dim, match in ((d, "CUDA"), (48, "head_dim")):
+        q = torch.zeros((1, 4, 128, dim), dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            kernels.flash_attention_bwd(q, q, q, q, q, lse, None, False, 0.1)
     assert kernels.launches == before
 
 

@@ -48,6 +48,10 @@ def _port_grads(q, k, v, w, kv_len, causal):
         (2, 4, 2, 128, 16, [128, 77], False),
         (2, 4, 2, 130, 16, [130, 77], True),
         (2, 4, 2, 130, 16, None, False),
+        # prod's head dims: its global vision stage (16 heads of 96,
+        # non-causal) and its decoder (head_dim 128, causal GQA 4:1), ragged.
+        (2, 16, 16, 256, 96, None, False),
+        (2, 8, 2, 130, 128, [130, 77], True),
     ],
 )
 def test_gradients_equal_jax_flash_attention(b, h, hkv, s, d, kv_len, causal):

@@ -124,17 +124,44 @@ def test_kernel_refuses_unsupported_head_dim(cuda):
     assert kernels.launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [96, 128])
-def test_backward_kernel_refuses_prod_head_dims(cuda, d):
-    """prod's head dims run forward on the card; a gradient through them
-    raises in the backward, before any launch of the backward kernel."""
+def test_backward_kernel_refuses_prod_head_dims(cuda, dtype, d):
+    """prod's head dims (96 in its global vision stage, 128 in its decoder)
+    train on the card: a gradient through them is the backward kernel, one
+    launch, within the limits of the gradient tests above of the plain
+    flash_attention_bwd, and bit-identical on a second call. The backward
+    still refuses a head dim it does not take (48), before any launch."""
     g = torch.Generator(device=cuda).manual_seed(2)
-    q = torch.randn((1, 4, 128, d), generator=g, device=cuda, dtype=torch.bfloat16, requires_grad=True)
-    out = flash_attention(q, q, q, causal=True)
-    before = kernels.launches["flash_attention_bwd"]
+    q = torch.randn((2, 8, 200, d), generator=g, device=cuda).to(dtype).requires_grad_()
+    kv = torch.randn((2, 2, 200, d), generator=g, device=cuda).to(dtype)
+    k, v = kv.clone().requires_grad_(), kv.flip(2).contiguous().requires_grad_()
+    w = torch.randn((2, 8, 200, d), generator=g, device=cuda).to(dtype)
+    kv_len = torch.tensor([200, 131], dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    out = flash_attention(q, k, v, kv_len=kv_len, causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), w)
+    torch.cuda.synchronize()
+    assert (kernels.launches["flash_attention"], kernels.launches["flash_attention_bwd"]) == (1, 1)
+    want = flash_attention_bwd(q.detach(), k.detach(), v.detach(), kv_len, w, True, d ** -0.5)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for got, wt in zip(grads, want):
+        assert got.dtype == dtype and got.shape == wt.shape
+        err = (got.float() - wt.float()).abs().max().item()
+        assert bool(torch.isfinite(got).all()) and err <= tol * wt.float().abs().max().item()
+    lse = torch.empty((2, 8, 200), dtype=torch.float32, device=cuda)
+    args = [t.detach() for t in (q, k, v)]
+    o = kernels.flash_attention_fwd(*args, kv_len, True, d ** -0.5, lse=lse)
+    first = kernels.flash_attention_bwd(*args, o, w, lse, kv_len, True, d ** -0.5)
+    second = kernels.flash_attention_bwd(*args, o, w, lse, kv_len, True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    q48 = torch.zeros((1, 4, 128, 48), dtype=dtype, device=cuda)
+    before = dict(kernels.launches)
     with pytest.raises(ValueError, match="head_dim"):
-        out.float().sum().backward()
-    assert kernels.launches["flash_attention_bwd"] == before
+        kernels.flash_attention_bwd(q48, q48, q48, q48, q48, torch.zeros((1, 4, 128), device=cuda),
+                                    None, False, 0.1)
+    assert kernels.launches == before
 
 
 def test_runner_first_logits_card_vs_cpu(cuda):
@@ -461,6 +488,10 @@ def test_eval_retrieval_40_pages_on_the_card(cuda, monkeypatch, capsys):
         # causal at head_dim 32 with GQA 8:4.
         (2, 4, 4, 256, 64, None, False),
         (2, 8, 4, 575, 32, None, True),
+        # prod_train's global vision call (head_dim 96) and its decoder over
+        # 256 + 510 tokens (head_dim 128, causal, GQA 16:4), at batch 2.
+        (2, 16, 16, 256, 96, None, False),
+        (2, 16, 4, 766, 128, None, True),
     ],
 )
 def test_flash_attention_gradient_matches_plain_autograd(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
@@ -544,6 +575,13 @@ BWD_CASES = [
     (3, 3, 1, 77, 32, [77, 1, 0], False),
     (2, 4, 4, 256, 64, None, False),
     (2, 8, 4, 575, 32, None, True),
+    # prod_train's calls at head_dim 96 and 128 (small batches), and ragged
+    # cases at both: key lengths 0 and 1, S not a multiple of 16, GQA 4:1.
+    (2, 16, 16, 256, 96, None, False),
+    (1, 16, 4, 766, 128, None, True),
+    (3, 8, 2, 333, 96, [333, 0, 1], True),
+    (3, 8, 2, 333, 128, [333, 1, 200], False),
+    (2, 4, 1, 77, 128, [77, 5], True),
 ]
 
 

@@ -130,8 +130,7 @@ def _similarity_lib() -> ctypes.CDLL:
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 FLASH_HEAD_DIMS = (32, 64, 96, 128)
-# The backward kernel's head dims: prod's 96 and 128 are served, not trained, so far.
-FLASH_BWD_HEAD_DIMS = (32, 64)
+FLASH_BWD_HEAD_DIMS = (32, 64, 96, 128)
 # Which kernel each input type takes (kernels/flash_attention.cu and, for the
 # gradient, kernels/flash_attention_bwd.cu).
 FLASH_ROUTES = {torch.bfloat16: "tensor-core bf16 (mma.sync)", torch.float32: "scalar f32"}

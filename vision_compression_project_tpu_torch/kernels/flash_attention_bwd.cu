@@ -37,10 +37,17 @@
 // * bf16 (the training path): tensor cores, mma.sync m16n8k16 bf16 -> f32.
 //   Tiles are staged in shared memory through 16-byte cp.async, two in
 //   flight, rows of D + 8 bf16 so that ldmatrix's 8 rows hit 8 distinct bank
-//   groups. A warp owns 16 rows (keys in pass 1, queries in pass 2) and keeps
-//   their two operands (K and V, or Q and dO) as mma A fragments in
-//   registers; they arrive through the second stage's slots before the
+//   groups. A warp owns 16 rows (keys in pass 1, queries in pass 2). At D <=
+//   64 it keeps their two operands (K and V, or Q and dO) as mma A fragments
+//   in registers; they arrive through the second stage's slots before the
 //   pipeline starts, so the block needs only two tile pairs of shared memory.
+//   At D = 96 and 128 the f32 accumulators alone take D (pass 1: dK and dV)
+//   or D / 2 (pass 2: dQ) registers a lane, and the fragments would take D /
+//   2 more: past the 255 a thread has. There the two operands stay in shared
+//   memory slots of their own and each k-step reads its A fragment with
+//   ldmatrix (one more ldmatrix.x4 per 16-deep step, against spilling the
+//   accumulators to local memory every tile), and pass 1 takes 32 query rows
+//   a tile instead of 64, which halves the S^T and dP^T tiles it holds.
 //   Pass 1 computes S^T = K Q^T and dP^T = V dO^T (queries as the mma's n),
 //   turns S^T into P^T with one FMA and ex2 per element (lse in log2 units),
 //   dS^T = P^T (dP^T - Delta), and feeds their C fragments straight back as
@@ -50,8 +57,11 @@
 //   every product accumulates in f32. Only a tile that straddles kv_len or
 //   the diagonal is masked element by element.
 // * f32 (the f32 checks only): scalar kernels, one thread per key (pass 1,
-//   K and V in shared memory, dK and dV in registers) or per query row
-//   (pass 2). f32 tensor-core math (TF32) would not hold the f32 limit.
+//   K and V in dynamic shared memory, opted in above 48 KB at D = 96 and
+//   128; dK and dV in registers) or per query row (pass 2). At D = 96 and 128
+//   a thread's rows outgrow the registers and spill to local memory (the
+//   -Xptxas -v report says how much); only f32 checks take this route. f32
+//   tensor-core math (TF32) would not hold the f32 limit.
 //
 // Bound on this card: at the training shapes the backward is bound by the
 // tensor cores (10 * D operations per query-key pair that the masks leave);
@@ -69,6 +79,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cmath>
 #include <cstdint>
 
@@ -116,6 +127,14 @@ constexpr int SC_BQ = 16;  // pass 1: query rows staged at a time
 constexpr int SC_BM = 64;  // pass 2: query rows per block, one thread per row
 constexpr int SC_BN = 32;  // pass 2: keys staged at a time
 
+// Pass 1's shared memory (dynamic): K and V tiles of SC_BK rows of D + 1
+// floats (+ 1: a thread's own row, no bank conflicts), Q and dO tiles of
+// SC_BQ rows of D, then SC_BQ lse and SC_BQ Delta.
+template <int D>
+constexpr int dkdv_scalar_smem_bytes() {
+  return static_cast<int>(sizeof(float)) * (2 * SC_BK * (D + 1) + 2 * SC_BQ * D + 2 * SC_BQ);
+}
+
 template <int D>
 __global__ void __launch_bounds__(SC_BK) dkdv_scalar_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -123,12 +142,13 @@ __global__ void __launch_bounds__(SC_BK) dkdv_scalar_kernel(
     const int* __restrict__ kv_len, float* __restrict__ dk, float* __restrict__ dv,
     int H, int Hkv, int Sq, int Sk, float scale, int causal,
     Strides qs, Strides ks, Strides vs, Strides gs, Strides dks, Strides dvs) {
-  __shared__ float ksm[SC_BK][D + 1];  // + 1: a thread's own row, no bank conflicts
-  __shared__ float vsm[SC_BK][D + 1];
-  __shared__ float qsm[SC_BQ][D];
-  __shared__ float gsm[SC_BQ][D];
-  __shared__ float lsm[SC_BQ];
-  __shared__ float dsm[SC_BQ];
+  extern __shared__ __align__(16) float sc_smem[];
+  float(*ksm)[D + 1] = reinterpret_cast<float(*)[D + 1]>(sc_smem);
+  float(*vsm)[D + 1] = reinterpret_cast<float(*)[D + 1]>(sc_smem + SC_BK * (D + 1));
+  float(*qsm)[D] = reinterpret_cast<float(*)[D]>(sc_smem + 2 * SC_BK * (D + 1));
+  float(*gsm)[D] = reinterpret_cast<float(*)[D]>(sc_smem + 2 * SC_BK * (D + 1) + SC_BQ * D);
+  float* lsm = sc_smem + 2 * SC_BK * (D + 1) + 2 * SC_BQ * D;
+  float* dsm = lsm + SC_BQ;
 
   const int b = blockIdx.x / Hkv;
   const int hk = blockIdx.x % Hkv;
@@ -337,23 +357,28 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[N][4],
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
+// One 16-deep step kk of mma_abt, with A's fragment af for that step.
+template <int NB, int LD>
+__device__ __forceinline__ void mma_abt_step(float (&acc)[NB][4], const uint32_t (&af)[4], const bf16* t, int kk,
+                                             int lane) {
+#pragma unroll
+  for (int n2 = 0; n2 < NB / 2; ++n2) {
+    uint32_t f[4];
+    const int row = n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
+    const int col = kk * 16 + ((lane >> 3) & 1) * 8;
+    ldmatrix_x4(f, smem_u32(&t[row * LD + col]));
+    mma_bf16(acc[2 * n2], af, f[0], f[1]);
+    mma_bf16(acc[2 * n2 + 1], af, f[2], f[3]);
+  }
+}
+
 // acc (16 rows x 8 * NB columns) += A (16 rows x D, fragments a) times the
 // transpose of the 8 * NB rows x D smem tile t: one ldmatrix.x4 gives the B
 // fragments of two 8-row blocks of t.
 template <int NB, int KD, int LD>
 __device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const uint32_t (&a)[KD][4], const bf16* t, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-    for (int n2 = 0; n2 < NB / 2; ++n2) {
-      uint32_t f[4];
-      const int row = n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
-      const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-      ldmatrix_x4(f, smem_u32(&t[row * LD + col]));
-      mma_bf16(acc[2 * n2], a[kk], f[0], f[1]);
-      mma_bf16(acc[2 * n2 + 1], a[kk], f[2], f[3]);
-    }
-  }
+  for (int kk = 0; kk < KD; ++kk) mma_abt_step<NB, LD>(acc, a[kk], t, kk, lane);
 }
 
 // acc (16 rows x D) += A (16 rows x 16, fragment a) times rows 16 * kk ..
@@ -390,16 +415,50 @@ __device__ __forceinline__ void store_rows(bf16* out, long long rs, const float 
   }
 }
 
-// Pass 1. Shared memory (dynamic): STAGES Q tiles, STAGES dO tiles (TILE
-// rows of D + PAD bf16 each), then STAGES x TILE lse (log2 units) and
-// STAGES x TILE Delta. The block's K and V arrive first in the second Q and
-// dO slots, and every warp takes its 16 rows into registers before tile 1
-// is loaded there. Tile t (query head hk * group + t / nqb, query block
-// qb0 + t % nqb) lives in slot t % STAGES.
+// The A fragment (16 rows x 16, rows of LD bf16) of an smem tile's rows 0-15
+// at columns 16 * kk .. 16 * kk + 15.
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&af)[4], const bf16* a, int kk, int lane) {
+  ldmatrix_x4(af, smem_u32(&a[(lane & 15) * LD + kk * 16 + (lane >> 4) * 8]));
+}
+
+// mma_abt with A read from shared memory: acc (16 rows x 8 * NB) += rows
+// 0-15 of the smem tile a (x D) times the transpose of the 8 * NB rows of t.
+template <int NB, int KD, int LD>
+__device__ __forceinline__ void mma_abt_smem(float (&acc)[NB][4], const bf16* a, const bf16* t, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+    uint32_t af[4];
+    load_a<LD>(af, a, kk, lane);
+    mma_abt_step<NB, LD>(acc, af, t, kk, lane);
+  }
+}
+
+// Where each pass keeps the two operands its warps multiply in every tile
+// (registers at D <= 64, shared memory at D = 96 and 128; see the top of the
+// file), and pass 1's query rows per tile (32 at D >= 96, else TILE).
+template <int D>
+__host__ __device__ constexpr bool operands_in_smem() {
+  return D >= 96;
+}
+
+template <int D>
+__host__ __device__ constexpr int dkdv_rows() {
+  return operands_in_smem<D>() ? 32 : TILE;
+}
+
+// Pass 1. Shared memory (dynamic): STAGES Q tiles, STAGES dO tiles (BQ rows
+// of D + PAD bf16 each), at D >= 96 the block's K and V (TILE rows each),
+// then STAGES x BQ lse (log2 units) and STAGES x BQ Delta. At D <= 64 (BQ =
+// TILE) the block's K and V arrive first in the second Q and dO slots, and
+// every warp takes its 16 rows into registers before tile 1 is loaded there.
+// Tile t (query head hk * group + t / nqb, query block qb0 + t % nqb) lives
+// in slot t % STAGES.
 template <int D>
 constexpr int dkdv_smem_bytes() {
-  return STAGES * 2 * TILE * (D + PAD) * static_cast<int>(sizeof(bf16)) +
-         STAGES * 2 * TILE * static_cast<int>(sizeof(float));
+  return (STAGES * 2 * dkdv_rows<D>() + (operands_in_smem<D>() ? 2 * TILE : 0)) * (D + PAD) *
+             static_cast<int>(sizeof(bf16)) +
+         STAGES * 2 * dkdv_rows<D>() * static_cast<int>(sizeof(float));
 }
 
 template <int D>
@@ -409,17 +468,21 @@ __global__ void __launch_bounds__(KV_WARPS * 32) dkdv_tc_kernel(
     const int* __restrict__ kv_len, bf16* __restrict__ dk, bf16* __restrict__ dv,
     int H, int Hkv, int Sq, int Sk, float scale, float scale_log2, int causal,
     Strides qs, Strides ks, Strides vs, Strides gs, Strides dks, Strides dvs) {
+  constexpr bool KV_SMEM = operands_in_smem<D>();
+  constexpr int BQ = dkdv_rows<D>();  // query rows per tile
   constexpr int LD = D + PAD;
   constexpr int CH = D / 8;     // 16-byte chunks per row
   constexpr int NT = KV_WARPS * 32;
-  constexpr int NB = TILE / 8;  // 8-query blocks per tile
+  constexpr int NB = BQ / 8;    // 8-query blocks per tile
   constexpr int ND = D / 8;     // 8-wide output blocks
   constexpr int KD = D / 16;    // 16-deep steps over D
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qsm = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gsm = qsm + STAGES * TILE * LD;
-  float* lsm = reinterpret_cast<float*>(gsm + STAGES * TILE * LD);
-  float* dsm = lsm + STAGES * TILE;
+  bf16* gsm = qsm + STAGES * BQ * LD;
+  bf16* ksm = KV_SMEM ? gsm + STAGES * BQ * LD : qsm + TILE * LD;
+  bf16* vsm = KV_SMEM ? ksm + TILE * LD : gsm + TILE * LD;
+  float* lsm = reinterpret_cast<float*>(qsm + (STAGES * 2 * BQ + (KV_SMEM ? 2 * TILE : 0)) * LD);
+  float* dsm = lsm + STAGES * BQ;
 
   const int b = blockIdx.x / Hkv;
   const int hk = blockIdx.x % Hkv;
@@ -428,8 +491,8 @@ __global__ void __launch_bounds__(KV_WARPS * 32) dkdv_tc_kernel(
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int len = kv_len ? max(0, min(kv_len[b], Sk)) : Sk;
-  const int qb0 = causal ? k0 / TILE : 0;  // the first query block that sees a key of this block
-  const int nqb = k0 < len ? max(0, (Sq + TILE - 1) / TILE - qb0) : 0;
+  const int qb0 = causal ? k0 / BQ : 0;  // the first query block that sees a key of this block
+  const int nqb = k0 < len ? max(0, (Sq + BQ - 1) / BQ - qb0) : 0;
   const int ntiles = group * nqb;
   const int key0 = k0 + warp * 16 + (lane >> 2);  // this lane's keys: key0, key0 + 8
 
@@ -446,65 +509,73 @@ __global__ void __launch_bounds__(KV_WARPS * 32) dkdv_tc_kernel(
     for (int i = threadIdx.x; i < TILE * CH; i += NT) {
       const int r = i / CH, c = (i % CH) * 8;
       const bool ok = k0 + r < Sk;
-      cp_async16(smem_u32(&qsm[(TILE + r) * LD + c]), ok ? kp + (k0 + r) * ks.s + c : kp, ok);
-      cp_async16(smem_u32(&gsm[(TILE + r) * LD + c]), ok ? vp + (k0 + r) * vs.s + c : vp, ok);
+      cp_async16(smem_u32(&ksm[r * LD + c]), ok ? kp + (k0 + r) * ks.s + c : kp, ok);
+      cp_async16(smem_u32(&vsm[r * LD + c]), ok ? vp + (k0 + r) * vs.s + c : vp, ok);
     }
     auto load_tile = [&](int t) {
       const int hq = hk * group + t / nqb;
-      const int r0 = (qb0 + t % nqb) * TILE;
+      const int r0 = (qb0 + t % nqb) * BQ;
       const int slot = t % STAGES;
       const bf16* qp = q + b * qs.b + hq * qs.h;
       const bf16* gp = g + b * gs.b + hq * gs.h;
-      bf16* qt = qsm + slot * TILE * LD;
-      bf16* gt = gsm + slot * TILE * LD;
-      for (int i = threadIdx.x; i < TILE * CH; i += NT) {
+      bf16* qt = qsm + slot * BQ * LD;
+      bf16* gt = gsm + slot * BQ * LD;
+      for (int i = threadIdx.x; i < BQ * CH; i += NT) {
         const int r = i / CH, c = (i % CH) * 8;
         const bool ok = r0 + r < Sq;
         cp_async16(smem_u32(&qt[r * LD + c]), ok ? qp + (r0 + r) * qs.s + c : qp, ok);
         cp_async16(smem_u32(&gt[r * LD + c]), ok ? gp + (r0 + r) * gs.s + c : gp, ok);
       }
       const long long base = (static_cast<long long>(b) * H + hq) * Sq + r0;
-      for (int i = threadIdx.x; i < TILE; i += NT) {
+      for (int i = threadIdx.x; i < BQ; i += NT) {
         const bool ok = r0 + i < Sq;  // rows past Sq: P = 2^-inf = 0
-        lsm[slot * TILE + i] = ok ? lse[base + i] * LOG2E : INFINITY;
-        dsm[slot * TILE + i] = ok ? delta[base + i] : 0.f;
+        lsm[slot * BQ + i] = ok ? lse[base + i] * LOG2E : INFINITY;
+        dsm[slot * BQ + i] = ok ? delta[base + i] : 0.f;
       }
     };
     load_tile(0);
     cp_async_commit();
 
-    uint32_t kf[KD][4], vf[KD][4];
+    const bf16* kw = ksm + warp * 16 * LD;  // this warp's 16 keys
+    const bf16* vw = vsm + warp * 16 * LD;
+    uint32_t kf[KD][4], vf[KD][4];  // D <= 64: the same rows as A fragments
     for (int t = 0; t < ntiles; ++t) {
       cp_async_wait_all();  // tile t (and at t = 0 K and V) arrived for this thread ...
       __syncthreads();      // ... and every thread's; the slot read last is free
-      if (t == 0) {
+      if constexpr (!KV_SMEM) {
+        if (t == 0) {
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-          const int off = (TILE + warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-          ldmatrix_x4(kf[kk], smem_u32(&qsm[off]));
-          ldmatrix_x4(vf[kk], smem_u32(&gsm[off]));
+          for (int kk = 0; kk < KD; ++kk) {
+            load_a<LD>(kf[kk], kw, kk, lane);
+            load_a<LD>(vf[kk], vw, kk, lane);
+          }
+          __syncthreads();  // every warp holds its K and V: the second slots are free
         }
-        __syncthreads();  // every warp holds its K and V: the second slots are free
       }
       if (t + 1 < ntiles) load_tile(t + 1);
       cp_async_commit();
 
       const int slot = t % STAGES;
-      const bf16* qt = qsm + slot * TILE * LD;
-      const bf16* gt = gsm + slot * TILE * LD;
-      const float* l2 = lsm + slot * TILE;
-      const float* dl = dsm + slot * TILE;
-      const int r0 = (qb0 + t % nqb) * TILE;
+      const bf16* qt = qsm + slot * BQ * LD;
+      const bf16* gt = gsm + slot * BQ * LD;
+      const float* l2 = lsm + slot * BQ;
+      const float* dl = dsm + slot * BQ;
+      const int r0 = (qb0 + t % nqb) * BQ;
 
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x TILE queries.
+      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries.
       float s[NB][4], dp[NB][4];
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
       }
-      mma_abt<NB, KD, LD>(s, kf, qt, lane);
-      mma_abt<NB, KD, LD>(dp, vf, gt, lane);
+      if constexpr (KV_SMEM) {
+        mma_abt_smem<NB, KD, LD>(s, kw, qt, lane);
+        mma_abt_smem<NB, KD, LD>(dp, vw, gt, lane);
+      } else {
+        mma_abt<NB, KD, LD>(s, kf, qt, lane);
+        mma_abt<NB, KD, LD>(dp, vf, gt, lane);
+      }
 
       // P^T = 2^(scale log2(e) s - lse log2(e)) and dS^T = P^T (dP^T - Delta);
       // keys past kv_len and (causal) keys right of the query are masked,
@@ -527,7 +598,7 @@ __global__ void __launch_bounds__(KV_WARPS * 32) dkdv_tc_kernel(
 
       // dV += P^T dO and dK += dS^T Q, 16 queries at a time.
 #pragma unroll
-      for (int kk = 0; kk < TILE / 16; ++kk) {
+      for (int kk = 0; kk < BQ / 16; ++kk) {
         uint32_t pa[4], da[4];
         c_to_a(pa, s, kk);
         c_to_a(da, dp, kk);
@@ -543,11 +614,13 @@ __global__ void __launch_bounds__(KV_WARPS * 32) dkdv_tc_kernel(
 }
 
 // Pass 2. Shared memory (dynamic): STAGES K tiles, then STAGES V tiles,
-// each TILE rows of D + PAD bf16. The block's Q and dO rows (16 * WARPS <=
-// TILE) arrive first in the second K and V slots.
-template <int D>
+// each TILE rows of D + PAD bf16, then at D >= 96 the block's Q and dO rows
+// (16 * WARPS <= TILE each). At D <= 64 those arrive first in the second K
+// and V slots, and every warp takes its rows into registers.
+template <int D, int WARPS>
 constexpr int dq_smem_bytes() {
-  return STAGES * 2 * TILE * (D + PAD) * static_cast<int>(sizeof(bf16));
+  return (STAGES * 2 * TILE + (operands_in_smem<D>() ? 2 * 16 * WARPS : 0)) * (D + PAD) *
+         static_cast<int>(sizeof(bf16));
 }
 
 template <int D, int WARPS>
@@ -557,6 +630,7 @@ __global__ void __launch_bounds__(WARPS * 32) dq_tc_kernel(
     const int* __restrict__ kv_len, bf16* __restrict__ dq,
     int H, int Hkv, int Sq, int Sk, float scale, float scale_log2, int causal,
     Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs) {
+  constexpr bool QG_SMEM = operands_in_smem<D>();
   constexpr int BM = 16 * WARPS;
   static_assert(BM <= TILE, "Q and dO are staged in a K/V slot");
   constexpr int LD = D + PAD;
@@ -568,6 +642,8 @@ __global__ void __launch_bounds__(WARPS * 32) dq_tc_kernel(
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ksm = reinterpret_cast<bf16*>(smem_raw);
   bf16* vsm = ksm + STAGES * TILE * LD;
+  bf16* qsm = QG_SMEM ? vsm + STAGES * TILE * LD : ksm + TILE * LD;
+  bf16* gsm = QG_SMEM ? qsm + BM * LD : vsm + TILE * LD;
 
   const int b = blockIdx.x / H;
   const int h = blockIdx.x % H;
@@ -592,8 +668,8 @@ __global__ void __launch_bounds__(WARPS * 32) dq_tc_kernel(
     for (int i = threadIdx.x; i < BM * CH; i += NT) {
       const int r = i / CH, c = (i % CH) * 8;
       const bool ok = q0 + r < Sq;
-      cp_async16(smem_u32(&ksm[(TILE + r) * LD + c]), ok ? qp + (q0 + r) * qs.s + c : qp, ok);
-      cp_async16(smem_u32(&vsm[(TILE + r) * LD + c]), ok ? gp + (q0 + r) * gs.s + c : gp, ok);
+      cp_async16(smem_u32(&qsm[r * LD + c]), ok ? qp + (q0 + r) * qs.s + c : qp, ok);
+      cp_async16(smem_u32(&gsm[r * LD + c]), ok ? gp + (q0 + r) * gs.s + c : gp, ok);
     }
     auto load_kv = [&](int tile) {
       bf16* kt = ksm + (tile % STAGES) * TILE * LD;
@@ -618,18 +694,21 @@ __global__ void __launch_bounds__(WARPS * 32) dq_tc_kernel(
       dl[i] = row < Sq ? delta[idx] : 0.f;
     }
 
-    uint32_t qf[KD][4], gf[KD][4];
+    const bf16* qw = qsm + warp * 16 * LD;  // this warp's 16 rows
+    const bf16* gw = gsm + warp * 16 * LD;
+    uint32_t qf[KD][4], gf[KD][4];  // D <= 64: the same rows as A fragments
     for (int tile = 0; tile < ntiles; ++tile) {
       cp_async_wait_all();
       __syncthreads();
-      if (tile == 0) {
+      if constexpr (!QG_SMEM) {
+        if (tile == 0) {
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-          const int off = (TILE + warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8;
-          ldmatrix_x4(qf[kk], smem_u32(&ksm[off]));
-          ldmatrix_x4(gf[kk], smem_u32(&vsm[off]));
+          for (int kk = 0; kk < KD; ++kk) {
+            load_a<LD>(qf[kk], qw, kk, lane);
+            load_a<LD>(gf[kk], gw, kk, lane);
+          }
+          __syncthreads();
         }
-        __syncthreads();
       }
       if (tile + 1 < ntiles) load_kv(tile + 1);
       cp_async_commit();
@@ -643,8 +722,13 @@ __global__ void __launch_bounds__(WARPS * 32) dq_tc_kernel(
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
       }
-      mma_abt<NB, KD, LD>(s, qf, kt, lane);
-      mma_abt<NB, KD, LD>(dp, gf, vt, lane);
+      if constexpr (QG_SMEM) {
+        mma_abt_smem<NB, KD, LD>(s, qw, kt, lane);
+        mma_abt_smem<NB, KD, LD>(dp, gw, vt, lane);
+      } else {
+        mma_abt<NB, KD, LD>(s, qf, kt, lane);
+        mma_abt<NB, KD, LD>(dp, gf, vt, lane);
+      }
 
       const int t0 = tile * TILE;
       const bool edge = t0 + TILE > len || (causal && t0 + TILE - 1 > q0);
@@ -697,8 +781,23 @@ struct Args {
   int B, H, Hkv, Sq, Sk, causal;
   float scale;
   Strides qs, ks, vs, os, gs, dqs, dks, dvs;
+  int device;
   cudaStream_t stream;
 };
+
+// Above 48 KB of dynamic shared memory a kernel must be opted in, once per
+// device (the attribute is per function and per device context); `done`
+// holds one bit per device for one kernel. Races between threads only
+// repeat the same call.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel* kernel, std::atomic<unsigned long long>& done, int device, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const unsigned long long bit = device >= 0 && device < 64 ? 1ull << device : 0ull;
+  if (bit && (done.load() & bit)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
 
 template <typename T, int D>
 cudaError_t launch_delta(const Args& a) {
@@ -717,7 +816,12 @@ cudaError_t launch_scalar(const Args& a) {
   const auto* k = static_cast<const float*>(a.k);
   const auto* v = static_cast<const float*>(a.v);
   const auto* g = static_cast<const float*>(a.g);
-  dkdv_scalar_kernel<D><<<dim3(a.B * a.Hkv, (a.Sk + SC_BK - 1) / SC_BK), SC_BK, 0, a.stream>>>(
+  constexpr int smem = dkdv_scalar_smem_bytes<D>();
+  static_assert(smem <= 227 * 1024, "more shared memory than a Hopper block can have");
+  static std::atomic<unsigned long long> opted{0};
+  err = allow_smem(dkdv_scalar_kernel<D>, opted, a.device, smem);
+  if (err != cudaSuccess) return err;
+  dkdv_scalar_kernel<D><<<dim3(a.B * a.Hkv, (a.Sk + SC_BK - 1) / SC_BK), SC_BK, smem, a.stream>>>(
       q, k, v, g, a.lse, a.delta, a.kv_len, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
       a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.causal, a.qs, a.ks, a.vs, a.gs, a.dks, a.dvs);
   err = cudaGetLastError();
@@ -731,8 +835,11 @@ cudaError_t launch_scalar(const Args& a) {
 template <int D, int WARPS>
 cudaError_t launch_dq_tc(const Args& a, const bf16* q, const bf16* k, const bf16* v, const bf16* g) {
   constexpr int BM = 16 * WARPS;
-  constexpr int smem = dq_smem_bytes<D>();
-  static_assert(smem <= 48 * 1024, "more than the default dynamic shared memory limit");
+  constexpr int smem = dq_smem_bytes<D, WARPS>();
+  static_assert(smem <= 227 * 1024, "more shared memory than a Hopper block can have");
+  static std::atomic<unsigned long long> opted{0};
+  const cudaError_t err = allow_smem(dq_tc_kernel<D, WARPS>, opted, a.device, smem);
+  if (err != cudaSuccess) return err;
   dq_tc_kernel<D, WARPS><<<dim3(a.B * a.H, (a.Sq + BM - 1) / BM), WARPS * 32, smem, a.stream>>>(
       q, k, v, g, a.lse, a.delta, a.kv_len, static_cast<bf16*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk, a.scale,
       a.scale * LOG2E, a.causal, a.qs, a.ks, a.vs, a.gs, a.dqs);
@@ -748,7 +855,10 @@ cudaError_t launch_tc(const Args& a) {
   const auto* v = static_cast<const bf16*>(a.v);
   const auto* g = static_cast<const bf16*>(a.g);
   constexpr int smem = dkdv_smem_bytes<D>();
-  static_assert(smem <= 48 * 1024, "more than the default dynamic shared memory limit");
+  static_assert(smem <= 227 * 1024, "more shared memory than a Hopper block can have");
+  static std::atomic<unsigned long long> opted{0};
+  err = allow_smem(dkdv_tc_kernel<D>, opted, a.device, smem);
+  if (err != cudaSuccess) return err;
   dkdv_tc_kernel<D><<<dim3(a.B * a.Hkv, (a.Sk + TILE - 1) / TILE), KV_WARPS * 32, smem, a.stream>>>(
       q, k, v, g, a.lse, a.delta, a.kv_len, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
       a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.scale * LOG2E, a.causal, a.qs, a.ks, a.vs, a.gs, a.dks, a.dvs);
@@ -799,6 +909,7 @@ int vcp_flash_attention_bwd(const long long* p, float scale) {
   Strides* st[] = {&a.qs, &a.ks, &a.vs, &a.os, &a.gs, &a.dqs, &a.dks, &a.dvs};
   for (int i = 0; i < 8; ++i) *st[i] = Strides{p[19 + 3 * i], p[20 + 3 * i], p[21 + 3 * i]};
   const int device = static_cast<int>(p[43]);
+  a.device = device;
   a.stream = reinterpret_cast<cudaStream_t>(p[44]);
   a.scale = scale;
   if (a.B <= 0 || a.H <= 0 || a.Hkv <= 0 || a.H % a.Hkv != 0 || a.Sq <= 0 || a.Sk <= 0) {
@@ -809,14 +920,20 @@ int vcp_flash_attention_bwd(const long long* p, float scale) {
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaErrorInvalidValue;
-  if (dtype == 0 && D == 32) {
-    err = launch_scalar<32>(a);
-  } else if (dtype == 0 && D == 64) {
-    err = launch_scalar<64>(a);
-  } else if (dtype == 1 && D == 32) {
-    err = launch_tc<32>(a);
-  } else if (dtype == 1 && D == 64) {
-    err = launch_tc<64>(a);
+  if (dtype == 0) {
+    switch (D) {
+      case 32: err = launch_scalar<32>(a); break;
+      case 64: err = launch_scalar<64>(a); break;
+      case 96: err = launch_scalar<96>(a); break;
+      case 128: err = launch_scalar<128>(a); break;
+    }
+  } else if (dtype == 1) {
+    switch (D) {
+      case 32: err = launch_tc<32>(a); break;
+      case 64: err = launch_tc<64>(a); break;
+      case 96: err = launch_tc<96>(a); break;
+      case 128: err = launch_tc<128>(a); break;
+    }
   }
   if (prev != device) cudaSetDevice(prev);
   return static_cast<int>(err);

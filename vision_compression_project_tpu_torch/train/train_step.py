@@ -7,7 +7,17 @@ when `g_norm >= max_norm`, with no epsilon (torch's `clip_grad_norm_` divides
 by `norm + 1e-6`); weight decay applies to every parameter, as optax's mask
 `None` does; the learning rate of update t (counted from 0) is `lr(t)`, the
 schedule evaluated at the count before it is incremented, as optax does.
-Parameters are f32; the model computes in its config's dtype.
+Parameters are f32 except the Switch-MoE experts, which are stored in the
+config's dtype (bf16 unless it says f32), as the reference stores them; the
+model computes in its config's dtype.
+
+A leaf's update is computed in the leaf's own dtype, one rounding per
+operation, with every constant (b1, 1 - b1, the bias corrections, eps, the
+decay, the learning rate) first rounded to that dtype, and its moments are
+kept in it: what optax does to a bf16 leaf (mu and nu bf16, `(1 - b1) * g +
+b1 * mu` as two bf16 products and a bf16 sum). The global norm is optax's
+too: each leaf's sum of squares in f32, rounded to the leaf's dtype, summed
+in f32.
 """
 
 from __future__ import annotations
@@ -16,6 +26,7 @@ import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,7 +52,8 @@ class AdamW:
     """AdamW over a dict of parameters, each updated in place from its
     `.grad`: optax's `adamw(lr, b1, b2, eps, weight_decay)`, preceded by
     `clip_by_global_norm(max_norm)` unless max_norm is None. `lr` is a float
-    or a schedule (step count -> float)."""
+    or a schedule (step count -> float). The moments take each parameter's
+    dtype, as optax's do."""
 
     def __init__(self, lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 1e-4, max_norm: Optional[float] = None):
@@ -58,32 +70,56 @@ class AdamW:
         moments and count after it. The whole update stays on the device:
         no value is read back to the host."""
         names = list(params)
-        p = [params[k] for k in names]
-        g = [params[k].grad for k in names]
-        if any(t is None for t in g):
-            missing = [k for k, t in zip(names, g) if t is None]
+        missing = [k for k in names if params[k].grad is None]
+        if missing:
             raise RuntimeError(f"no gradient for {len(missing)} parameters, e.g. {missing[:3]}")
+        norm = None
         if self.max_norm is not None:
-            norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(t) for t in g]))
-            clip = norm >= self.max_norm
-            one = torch.ones((), device=norm.device)
-            g = torch._foreach_div(g, torch.where(clip, norm, one))
-            torch._foreach_mul_(g, torch.where(clip, one * self.max_norm, one))
-        mu = [state.mu[k] for k in names]
-        nu = [state.nu[k] for k in names]
-        torch._foreach_mul_(mu, self.b1)
-        torch._foreach_add_(mu, g, alpha=1 - self.b1)
-        torch._foreach_mul_(nu, self.b2)
-        torch._foreach_addcmul_(nu, g, g, value=1 - self.b2)
+            norm = torch.stack([
+                torch.linalg.vector_norm(params[k].grad, dtype=torch.float32).square().to(params[k].grad.dtype)
+                .float() for k in names
+            ]).sum().sqrt()
         count = state.count + 1
-        mu_hat = torch._foreach_div(mu, 1 - self.b1 ** count)
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, 1 - self.b2 ** count))
-        torch._foreach_add_(denom, self.eps)
-        step = torch._foreach_div(mu_hat, denom)
-        if self.weight_decay:
-            torch._foreach_add_(step, p, alpha=self.weight_decay)
         lr = self.lr(state.count) if callable(self.lr) else self.lr
-        torch._foreach_add_(p, step, alpha=-float(lr))
+        # optax's bias corrections: 1 - decay ** count in f32, then in the leaf's dtype.
+        bc1 = float(1 - np.float32(self.b1) ** np.float32(count))
+        bc2 = float(1 - np.float32(self.b2) ** np.float32(count))
+        for dtype in dict.fromkeys(params[k].dtype for k in names):
+            group = [k for k in names if params[k].dtype == dtype]
+
+            def c(x: float) -> float:
+                """x rounded to the group's dtype, as a Python float."""
+                return torch.tensor(x, dtype=dtype).item()
+
+            p = [params[k] for k in group]
+            g = [params[k].grad for k in group]
+            if norm is not None:
+                one = torch.ones((), dtype=dtype, device=norm.device)
+                clip = norm >= self.max_norm
+                g = torch._foreach_div(g, torch.where(clip, norm.to(dtype), one))
+                torch._foreach_mul_(g, torch.where(clip, one * c(self.max_norm), one))
+            mu = [state.mu[k] for k in group]
+            nu = [state.nu[k] for k in group]
+            tmp = torch._foreach_mul(g, c(1 - self.b1))
+            torch._foreach_mul_(mu, c(self.b1))
+            torch._foreach_add_(mu, tmp)
+            tmp = torch._foreach_mul(g, g)
+            del g
+            torch._foreach_mul_(tmp, c(1 - self.b2))
+            torch._foreach_mul_(nu, c(self.b2))
+            torch._foreach_add_(nu, tmp)
+            denom = torch._foreach_div(nu, c(bc2))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, c(self.eps))
+            step = torch._foreach_div(mu, c(bc1))
+            torch._foreach_div_(step, denom)
+            del denom
+            if self.weight_decay:
+                tmp = torch._foreach_mul(p, c(self.weight_decay))
+                torch._foreach_add_(step, tmp)
+            del tmp
+            torch._foreach_mul_(step, c(-float(lr)))
+            torch._foreach_add_(p, step)
         return OptState(mu=state.mu, nu=state.nu, count=count)
 
 
@@ -156,11 +192,16 @@ def resolve_device(device=None) -> torch.device:
 
 
 def make_train_state(cfg: VLMConfig, device=None, seed: int = 0, lr: Union[float, Schedule] = 3e-4):
-    """(model, optimizer, TrainState): OpticalVLM(cfg) with seeded f32
-    weights (one torch.Generator, models/vlm.py::init_params) on `device`."""
-    model = OpticalVLM(cfg)
+    """(model, optimizer, TrainState): OpticalVLM(cfg) with seeded weights
+    (one CPU torch.Generator, models/vlm.py::init_params), made on `device`
+    and filled there a tensor at a time, as VLMRunner builds its model: the
+    same seed gives the same weights on any device, and the host never holds
+    the whole model."""
+    dev = resolve_device(device)
+    with torch.device(dev):
+        model = OpticalVLM(cfg)
     init_params(model, seed)
-    model.to(resolve_device(device)).train()
+    model.to(dev).train()  # the buffers made from host arrays (RoPE tables)
     opt = make_optimizer(lr)
     params = dict(model.named_parameters())
     return model, opt, TrainState(params=params, opt_state=opt.init(params), step=0, cfg=cfg)
