@@ -5,8 +5,10 @@ embedder and ocr_bpe, /ingest from a PDF with the shipped weights, the HTTP
 service with its command line, the retrieval settings (the neural embedder
 and multi-vector MaxSim retrieval, over HTTP too), training: ocr_real
 extraction training and the embedder's contrastive training, the answer
-task, the prod preset (11.1B parameters, Switch-MoE) serving pages, and
-Switch-MoE training (tiny_moe whole, prod at every width cut in depth).
+task, the prod preset (11.1B parameters, Switch-MoE) serving pages,
+Switch-MoE training (tiny_moe whole, prod at every width cut in depth), and
+the multi-device layer (a one-rank NCCL group; the ring and the sharded
+search for virtual ranks at full width).
 
     python3 chip_smoke.py [--seed N]
 
@@ -47,6 +49,30 @@ with the port's own reader. One flushed line per phase, with seconds:
            retrieval is checked against the same search with the plain
            version on a CPU copy of the rows; then each stage (embed,
            retrieve, answer prefill, answer decode) timed five times;
+  parallel the multi-device layer (parallel/, ops/ring_attention.py): (a) a
+           process group of one rank over NCCL (a FileStore in a temporary
+           directory) with a data = 1 mesh: search_sharded on the chat index
+           equal to search (ids and scores to the last bit, one K2 launch a
+           call) and its shard's K2 scores against the plain version,
+           ring_all_gather_rows, distributed_topk on K2's scores (held
+           against the plain scores), ring_attention on a seq = 1 mesh (one
+           K1 launch, bit-equal to the whole call), then (d)
+           scripts/bench_index at its default sizes (its JSON on a line of
+           its own, exactly the K2 launches its searches imply); the group
+           destroyed after; (b) ring_attention_virtual, the ring's per-rank
+           steps for 4 virtual ranks, at ocr_real's decoder prefill (1088,
+           GQA 6:2, ragged), prod's (320, GQA 16:4, head_dim 128) and
+           ocr_real's global encoder call (1024, not causal), bf16 and f32,
+           against mha_reference and one K1 call over the whole sequence on
+           the same inputs within TOL, with exactly 10 (causal) or 16 K1
+           launches; each hop (ring_step: K1 with its log-sum-exp, at the
+           chunk shapes and clamped kv_len) against mha_reference and
+           attention_lse; a hop's K1 time beside the whole call's, SDPA's
+           and the bound; (c) the sharded search's local step (K2 and
+           top-k) and merge for 4 virtual shards of the chat index, equal
+           to search with exactly 4 K2 launches, each shard's K2 scores
+           against the plain version and the merged top-k against the plain
+           scores, and K2's time on one shard beside its bound;
   answer_logits  first-step answer logits of the kernel path on the card
            against the plain path on the CPU, in f32, for one question;
   ingest_pdf  a 16-page PDF made by make_pdf at ocr_real's training render
@@ -185,6 +211,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from vision_compression_project_tpu_torch import config, kernels, native
@@ -201,6 +228,12 @@ from vision_compression_project_tpu_torch.models.vlm import (
 from vision_compression_project_tpu_torch.models.tokenizer import get_tokenizer
 from vision_compression_project_tpu_torch.ops import attention as tattn
 from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
+from vision_compression_project_tpu_torch.ops.ring_attention import ring_attention, ring_attention_virtual, ring_step
+from vision_compression_project_tpu_torch.parallel import (
+    MeshConfig, build_mesh, distributed_topk, initialize_multihost, ring_all_gather_rows,
+)
+from vision_compression_project_tpu_torch.parallel.mesh import backend_for
+from vision_compression_project_tpu_torch.parallel.collectives import local_topk, merge_topk
 from vision_compression_project_tpu_torch.ops.topk import (
     NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference, topk_lowest_first,
 )
@@ -211,6 +244,7 @@ from vision_compression_project_tpu_torch.pipeline.qa import _build_evidence_pac
 from vision_compression_project_tpu_torch.pipeline.textmd import structure_page
 from vision_compression_project_tpu_torch.raster import PdfDocument, make_pdf
 from vision_compression_project_tpu_torch.raster.rasterizer import build_library as build_raster
+from vision_compression_project_tpu_torch.scripts import bench_index
 from vision_compression_project_tpu_torch.serve.httpd import API_INFO, CORS_HEADERS, create_server, warmup
 from vision_compression_project_tpu_torch.serve.ui import UI_HTML
 from vision_compression_project_tpu_torch.train.checkpoint import (
@@ -719,7 +753,7 @@ def chat_phase(chat_cfg, seed: int, shapes: list):
         timing = time_chat_stages(runner, index, embedder, manifest, workdir)
     timing["index_build_s"] = build_s
     log("chat.timed", 0.0, **timing)
-    return launches, timing
+    return launches, timing, index
 
 
 def time_chat_stages(runner, index, embedder, manifest, workdir: Path) -> dict:
@@ -2914,6 +2948,328 @@ def moe_train_phase(cfg, seed: int, workdir: Path, kernel_rec: dict) -> dict:
     return out
 
 
+# [parallel]: the mesh layer at world size 1 over NCCL, the ring's per-rank
+# steps and the sharded search's local step and merge for virtual ranks at
+# full width, bench_index.
+RING_RANKS = 4
+SEARCH_SHARDS = 4
+SEARCH_QUERIES = 8  # one K2 launch a shard (kernels.SIMILARITY_MAX_QUERIES)
+
+
+def ring_shapes(cfg, prod_cfg) -> list:
+    """The whole-sequence calls the ring takes at full width: ocr_real's
+    decoder prefill (1088 tokens, causal, GQA 6:2, ragged kv_len), prod's
+    decoder prefill (320, causal, GQA 16:4, head_dim 128) and ocr_real's
+    global encoder call (1024, head_dim 64, not causal); N_PAGES rows each."""
+    v, dec = cfg.vision, cfg.decoder
+    pv, pdec = prod_cfg.vision, prod_cfg.decoder
+    s_dec, s_prod = v.tokens_out + PROMPT_BUCKET, pv.tokens_out + PROMPT_BUCKET
+    return [
+        AttnShape("ring_ocr_real_decoder_prefill", N_PAGES, dec.heads, dec.kv_heads, s_dec, dec.head_dim, True,
+                  [v.tokens_out + 2, s_dec - 1, 700, s_dec], 0, "parallel"),
+        AttnShape("ring_prod_decoder_prefill", N_PAGES, pdec.heads, pdec.kv_heads, s_prod, pdec.head_dim, True,
+                  [pv.tokens_out + 2] * N_PAGES, 0, "parallel"),
+        AttnShape("ring_ocr_real_encoder_global", N_PAGES, v.heads_global, v.heads_global, v.tokens_out,
+                  v.dim_global // v.heads_global, False, [v.tokens_out] * N_PAGES, 0, "parallel"),
+    ]
+
+
+def hop_check(q, k, v, n: int, causal: bool, kv_len: torch.Tensor, dtype: torch.dtype) -> dict:
+    """Every hop of the ring for n virtual ranks, at the hop's own shapes
+    (a (B, H, S/n, D) chunk against a chunk, the rank's own causal, the
+    clamped kv_len, which reaches 0 on some rows): ring_step's K1 launch
+    with its log-sum-exp held against mha_reference and attention_lse on the
+    same chunks, within TOL and LSE_RTOL, +inf on exactly the plain
+    version's rows without keys."""
+    scale = q.shape[-1] ** -0.5
+    qc, kc, vc = q.chunk(n, 2), k.chunk(n, 2), v.chunk(n, 2)
+    chunk = qc[0].shape[2]
+    rec = {"hops": 0, "out_max_abs_err": 0.0, "lse_max_rel_err": 0.0, "rows_without_keys": 0}
+    for idx in range(n):
+        for src in range(n):
+            if causal and src > idx:
+                continue
+            hop_len = (kv_len - src * chunk).clamp(0, chunk).to(torch.int32)
+            hop_causal = causal and src == idx
+            out, lse = ring_step(qc[idx], kc[src], vc[src], hop_len, hop_causal, scale)
+            want = mha_reference(qc[idx], kc[src], vc[src], kv_len=hop_len, causal=hop_causal, scale=scale)
+            want_lse = tattn.attention_lse(qc[idx], kc[src], vc[src], kv_len=hop_len, causal=hop_causal, scale=scale)
+            err = (out.float() - want.float()).abs().max().item()
+            lse_err, inf_ok = lse_check(lse, want_lse)
+            rec["hops"] += 1
+            rec["out_max_abs_err"] = max(rec["out_max_abs_err"], err)
+            rec["lse_max_rel_err"] = max(rec["lse_max_rel_err"], lse_err)
+            rec["rows_without_keys"] += int(torch.isinf(want_lse).sum())
+            if not (err <= TOL[dtype] and lse_err <= LSE_RTOL[dtype] and inf_ok):
+                fail(f"ring hop rank {idx} <- chunk {src} {dtype}: out err {err} (tol {TOL[dtype]}), lse rel err "
+                     f"{lse_err} (tol {LSE_RTOL[dtype]}), +inf rows equal {inf_ok}")
+    return rec
+
+
+def ring_phase(shapes: list, seed: int) -> dict:
+    """(b) ring_attention_virtual for RING_RANKS virtual ranks on the card
+    against the plain mha_reference on the same inputs, and beside it one
+    K1 call over the whole sequence, both within TOL, with exactly
+    n(n+1)/2 K1 launches (causal) or n*n; each hop against its plain
+    versions (hop_check); in bf16 a hop's K1 time beside the
+    whole-sequence call's, SDPA's and the bound."""
+    n = RING_RANKS
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rec = {"launches": 0, "shapes": {}, "max_abs_err": {}, "plain_max_abs_err": {}, "hops": {}}
+    for sh in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            def rnd(heads):
+                return torch.randn((sh.b, heads, sh.s, sh.d), generator=gen, device=DEVICE).to(dtype)
+            q, k, v = rnd(sh.h), rnd(sh.hkv), rnd(sh.hkv)
+            kv_len = torch.tensor(sh.kv_len, dtype=torch.int32, device=DEVICE)
+            kernels.reset_launch_counts()
+            out = ring_attention_virtual(q, k, v, n, causal=sh.causal, kv_len=kv_len)
+            torch.cuda.synchronize()
+            got = dict(kernels.launches)
+            want_k1 = n * (n + 1) // 2 if sh.causal else n * n
+            rec["launches"] += got["flash_attention"]
+            plain = mha_reference(q, k, v, kv_len=kv_len, causal=sh.causal)
+            plain_err = (out.float() - plain.float()).abs().max().item()
+            whole = flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal)
+            err = (out.float() - whole.float()).abs().max().item()
+            hops = hop_check(q, k, v, n, sh.causal, kv_len, dtype)
+            row = dict(shape=sh.name, dtype=str(dtype).replace("torch.", ""), ranks=n,
+                       q=[sh.b, sh.h, sh.s, sh.d], kv=[sh.b, sh.hkv, sh.s, sh.d], causal=sh.causal,
+                       kv_len=sh.kv_len, launches=got, plain_max_abs_err=plain_err, max_abs_err=err,
+                       tol=TOL[dtype], hops=hops)
+            if dtype == torch.bfloat16:
+                chunk = sh.s // n
+                qc, kc, vc = q[:, :, :chunk], k[:, :, :chunk], v[:, :, :chunk]
+                full = torch.full((sh.b,), chunk, dtype=torch.int32, device=DEVICE)
+                row["ring_ms"] = cuda_ms(lambda: ring_attention_virtual(q, k, v, n, causal=sh.causal, kv_len=kv_len),
+                                         10)
+                row["hop_ms"] = cuda_ms(lambda: ring_step(qc, kc, vc, full, False, sh.d ** -0.5), 20)
+                if sh.causal:
+                    row["diagonal_hop_ms"] = cuda_ms(lambda: ring_step(qc, kc, vc, full, True, sh.d ** -0.5), 20)
+                row["whole_ms"] = cuda_ms(lambda: flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal), 20)
+                row["library_ms"] = cuda_ms(library_call(q, k, v, sh), 20)
+                row["bound_ms"], row["bound_by"] = bound_ms(sh, dtype)
+                rec["shapes"][sh.name] = {key: row[key] for key in (
+                    "ring_ms", "hop_ms", "diagonal_hop_ms", "whole_ms", "library_ms", "bound_ms", "bound_by")
+                    if key in row}
+            name = row["dtype"]
+            rec["max_abs_err"][name] = max(rec["max_abs_err"].get(name, 0.0), err)
+            rec["plain_max_abs_err"][name] = max(rec["plain_max_abs_err"].get(name, 0.0), plain_err)
+            rec["hops"][f"{sh.name}.{name}"] = hops
+            log("parallel.ring", 0.0, **{key: json.dumps(val) for key, val in row.items()})
+            if got != {"flash_attention": want_k1, "flash_attention_bwd": 0, "masked_similarity": 0}:
+                fail(f"ring {sh.name} {dtype}: launches {got}, expected {want_k1} flash_attention")
+            if hops["hops"] != want_k1:
+                fail(f"ring {sh.name} {dtype}: {hops['hops']} hops checked, expected {want_k1}")
+            if not (bool(torch.isfinite(out).all()) and plain_err <= TOL[dtype] and err <= TOL[dtype]):
+                fail(f"ring {sh.name} {dtype}: max abs err {plain_err} against mha_reference, {err} against the "
+                     f"whole-sequence call (tol {TOL[dtype]})")
+            del q, k, v, out, whole, plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def same_results(got: list, want: list, what: str) -> None:
+    """Two searches' result lists: the same ids in the same order and scores
+    equal to the last bit (the same kernel on the same rows and queries)."""
+    for qi, (g, w) in enumerate(zip(got, want)):
+        if [r["id"] for r in g] != [r["id"] for r in w] or [r["score"] for r in g] != [r["score"] for r in w]:
+            fail(f"{what}, query {qi}: {[(r['id'], r['score']) for r in g]} != search's "
+                 f"{[(r['id'], r['score']) for r in w]}")
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} result lists, search gave {len(want)}")
+
+
+def similarity_check(rows: torch.Tensor, q: torch.Tensor, mask: torch.Tensor, what: str) -> float:
+    """K2 (masked_similarity) against masked_similarity_reference on the
+    same shard, queries and mask: unmasked scores within SIM_ATOL, masked
+    ones exactly NEG_INF. Returns the max abs error."""
+    got = masked_similarity(rows, q, mask)
+    want = masked_similarity_reference(rows, q, mask)
+    off = mask <= 0
+    masked_exact = bool((got[:, off] == NEG_INF).all())
+    err = (got[:, ~off] - want[:, ~off]).abs().max().item() if bool((~off).any()) else 0.0
+    if not (masked_exact and err <= SIM_ATOL and got.shape == want.shape):
+        fail(f"{what}: K2 against its plain version: max abs err {err} (tol {SIM_ATOL}), "
+             f"masked entries exact {masked_exact}")
+    return err
+
+
+def topk_check(rows: torch.Tensor, q: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor, idx: torch.Tensor,
+               what: str) -> float:
+    """A top-k (vals, idx) that the kernel path chose, against the plain
+    scores of the same rows: each value within SIM_ATOL of the plain score
+    at its index, and no value below the plain k-th score less SIM_ATOL.
+    Returns the max abs error."""
+    want = masked_similarity_reference(rows, q, mask)
+    err = (vals - want.gather(1, idx)).abs().max().item()
+    kth = torch.topk(want, vals.shape[1], dim=1).values[:, -1:]
+    if not (err <= SIM_ATOL and bool((vals >= kth - SIM_ATOL).all())):
+        fail(f"{what}: top-{vals.shape[1]} against the plain scores: max abs err {err} (tol {SIM_ATOL}), "
+             f"values below the plain k-th: {int((vals < kth - SIM_ATOL).sum())}")
+    return err
+
+
+def search_queries(index, seed: int) -> np.ndarray:
+    """SEARCH_QUERIES unit queries: two rows of the index (one of the target
+    document) and seeded random ones."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((SEARCH_QUERIES, index.dim)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    q[:2] = index._rows[[5, index.count - 3]].cpu().numpy()
+    return q
+
+
+def virtual_search_phase(index, seed: int) -> dict:
+    """(c) the sharded search's per-shard step (local_topk: K2 and the top-k)
+    and merge for SEARCH_SHARDS virtual shards of the index, against search:
+    equal results, exactly one K2 launch a shard; each shard's K2 scores
+    against the plain version and the merged top-k against the plain scores
+    of the whole index; K2's time on one shard beside its bytes bound."""
+    queries = search_queries(index, seed)
+    q = torch.from_numpy(queries).to(DEVICE)
+    per = index.capacity // SEARCH_SHARDS
+    rec = {"launches": 0, "plain_max_abs_err": 0.0}
+    for doc in (None, TARGET_DOC):
+        mask = index._mask_for(doc)
+        k = min(TOP_K, index.count)
+        kernels.reset_launch_counts()
+        parts = [local_topk(index._rows[s * per:(s + 1) * per], mask[s * per:(s + 1) * per], q, k, s)
+                 for s in range(SEARCH_SHARDS)]
+        vals, idx = merge_topk(torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1), k)
+        got = index._results_from(vals.cpu().numpy(), idx.cpu().numpy())
+        launches = dict(kernels.launches)
+        rec["launches"] += launches["masked_similarity"]
+        same_results(got, index.search(queries, top_k=TOP_K, doc_id=doc), f"{SEARCH_SHARDS} virtual shards, doc {doc}")
+        log("parallel.search", 0.0, shards=SEARCH_SHARDS, rows_per_shard=per, doc=json.dumps(doc),
+            queries=SEARCH_QUERIES, launches=json.dumps(launches), equal_to_search=True)
+        if launches != {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": SEARCH_SHARDS}:
+            fail(f"virtual sharded search: launches {launches}, expected {SEARCH_SHARDS} masked_similarity")
+        errs = [similarity_check(index._rows[s * per:(s + 1) * per], q, mask[s * per:(s + 1) * per],
+                                 f"virtual shard {s}, doc {doc}") for s in range(SEARCH_SHARDS)]
+        errs.append(topk_check(index._rows, q, mask, vals, idx, f"{SEARCH_SHARDS} virtual shards merged, doc {doc}"))
+        rec["plain_max_abs_err"] = max(rec["plain_max_abs_err"], *errs)
+    rows, mask = index._rows[:per], index._mask_for(None)[:per]
+    all_vals, all_idx = vals.repeat(1, SEARCH_SHARDS), idx.repeat(1, SEARCH_SHARDS)
+    rec["merge_ms"] = cuda_ms(lambda: merge_topk(all_vals, all_idx, k), 50, warmup=5)
+    for b in (1, SEARCH_QUERIES):
+        qb = q[:b].contiguous()
+        rec[f"shard_{b}q"] = {
+            "rows": per, "queries": b, "max_abs_err": similarity_check(rows, qb, mask, f"shard timing, {b} queries"),
+            "ms": cuda_ms(lambda: masked_similarity(rows, qb, mask), 50, warmup=5),
+            "plain_ms": cuda_ms(lambda: masked_similarity_reference(rows, qb, mask), 50, warmup=5),
+        }
+        rec[f"shard_{b}q"]["bound_ms"], rec[f"shard_{b}q"]["bound_by"] = similarity_bound_ms(
+            per, index.dim, b, torch.float32)
+        log("parallel.search_shard", 0.0, **rec[f"shard_{b}q"])
+    return rec
+
+
+def nccl_phase(index, seed: int, workdir: Path, ring_shape: AttnShape) -> dict:
+    """(a) world size 1 over NCCL (a FileStore in the work dir), with
+    search_sharded, ring_all_gather_rows, distributed_topk (on K2's scores,
+    held against the plain version) and ring_attention on the card; then (d)
+    bench_index at its default sizes, with the K2 launches its searches
+    imply. The group is destroyed after, so later phases run as before."""
+    rec = {"launches": {name: 0 for name in kernels.launches}, "plain_max_abs_err": 0.0}
+    initialize_multihost(f"file://{workdir / 'nccl_store'}", 1, 0, DEVICE)
+    try:
+        if dist.get_backend() != backend_for(DEVICE) or dist.get_world_size() != 1:
+            fail(f"process group {dist.get_backend()} of {dist.get_world_size()}, expected {backend_for(DEVICE)} of 1")
+        mesh = build_mesh(MeshConfig(data=1), DEVICE)
+        queries = search_queries(index, seed)
+        for doc in (None, TARGET_DOC):
+            kernels.reset_launch_counts()
+            got = index.search_sharded(mesh, queries, top_k=TOP_K, doc_id=doc)
+            launches = dict(kernels.launches)
+            for name, n in launches.items():
+                rec["launches"][name] += n
+            same_results(got, index.search(queries, top_k=TOP_K, doc_id=doc), f"search_sharded (nccl, 1 rank), doc {doc}")
+            rec["plain_max_abs_err"] = max(rec["plain_max_abs_err"], similarity_check(
+                index._rows, torch.from_numpy(queries).to(DEVICE), index._mask_for(doc),
+                f"search_sharded's shard (nccl, 1 rank), doc {doc}"))
+            if launches != {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 1}:
+                fail(f"search_sharded: launches {launches}, expected 1 masked_similarity")
+        rows = index._rows[:4096]
+        gathered = ring_all_gather_rows(mesh, rows)
+        q1, mask = torch.from_numpy(queries[:1]).to(DEVICE), index._mask_for(None)
+        kernels.reset_launch_counts()
+        scores = masked_similarity(index._rows, q1, mask)[0]
+        score_launches = dict(kernels.launches)
+        rec["launches"]["masked_similarity"] += score_launches["masked_similarity"]
+        if score_launches != {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 1}:
+            fail(f"distributed_topk's scores: launches {score_launches}, expected 1 masked_similarity")
+        scores_err = similarity_check(index._rows, q1, mask, "distributed_topk's scores")
+        vals, idx = distributed_topk(mesh, scores, TOP_K)
+        want_vals, want_idx = topk_lowest_first(scores, TOP_K)
+        topk_err = topk_check(index._rows, q1, mask, vals[None], idx[None], "distributed_topk")
+        sh = ring_shape
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        q, k, v = (torch.randn((sh.b, h, sh.s, sh.d), generator=gen, device=DEVICE).to(torch.bfloat16)
+                   for h in (sh.h, sh.hkv, sh.hkv))
+        kv_len = torch.tensor(sh.kv_len, dtype=torch.int32, device=DEVICE)
+        ring_mesh = build_mesh(MeshConfig(data=1, seq=1), DEVICE)
+        kernels.reset_launch_counts()
+        ringed = ring_attention(ring_mesh, q, k, v, causal=sh.causal, kv_len=kv_len)
+        torch.cuda.synchronize()
+        ring_launches = dict(kernels.launches)
+        rec["launches"]["flash_attention"] += ring_launches["flash_attention"]
+        whole = flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal)
+        checks = {"scores_max_abs_err": scores_err, "topk_max_abs_err": topk_err,
+                  "all_gather_equal": bool(torch.equal(gathered, rows)),
+                  "distributed_topk_equal": bool(torch.equal(vals, want_vals) and torch.equal(idx, want_idx)),
+                  "ring_1_rank_bit_equal": bool(torch.equal(ringed, whole)),
+                  "ring_launches": ring_launches["flash_attention"]}
+        log("parallel.nccl", 0.0, backend=dist.get_backend(), world_size=dist.get_world_size(),
+            mesh=json.dumps(list(mesh.shape)), search_sharded_equal=True, **checks)
+        if not all(checks[key] for key in ("all_gather_equal", "distributed_topk_equal", "ring_1_rank_bit_equal")) \
+                or ring_launches["flash_attention"] != 1:
+            fail(f"parallel.nccl: {checks}")
+        t0 = time.perf_counter()
+        bench_args = bench_index.parse_args([])
+        kernels.reset_launch_counts()
+        rec["bench_index"] = bench_index.bench(bench_args)
+        torch.cuda.synchronize()
+        bench_launches = dict(kernels.launches)
+        for name, n in bench_launches.items():
+            rec["launches"][name] += n
+        # Each search measurement: one warm call and SEARCH_REPS timed, at
+        # every size checkpoint and once sharded; each call scores the
+        # queries in chunks of the kernel's limit. Then the 1-query probe.
+        calls = (len(rec["bench_index"]["search_p50_by_size"]) + 1) * (bench_index.SEARCH_REPS + 1)
+        want_k2 = calls * -(-bench_args.queries // kernels.SIMILARITY_MAX_QUERIES) + 1
+        print("bench_index " + json.dumps(rec["bench_index"]), flush=True)
+        log("parallel.bench_index", time.perf_counter() - t0, n_rows=rec["bench_index"]["n_rows"],
+            shard_rebuilds=rec["bench_index"]["shard_rebuilds"], launches=json.dumps(bench_launches),
+            expected_masked_similarity=want_k2)
+        if bench_launches != {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": want_k2}:
+            fail(f"bench_index: launches {bench_launches}, expected {want_k2} masked_similarity")
+    finally:
+        dist.destroy_process_group()
+    return rec
+
+
+def parallel_phase(index, cfg, prod_cfg, seed: int) -> dict:
+    """[parallel]: (a) and (d) at world size 1 over NCCL, (b) the ring's
+    per-rank steps, (c) the sharded search's, for virtual ranks."""
+    shapes = ring_shapes(cfg, prod_cfg)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        out["nccl"] = nccl_phase(index, seed, Path(tmp), shapes[0])
+        log("parallel.nccl_all", sync_s(t0))
+    t0 = time.perf_counter()
+    out["ring"] = ring_phase(shapes, seed)
+    log("parallel.ring_all", sync_s(t0), launches=out["ring"]["launches"])
+    t0 = time.perf_counter()
+    out["search"] = virtual_search_phase(index, seed)
+    log("parallel.search_all", sync_s(t0), launches=out["search"]["launches"], merge_ms=out["search"]["merge_ms"])
+    out["launches"] = dict(out["nccl"]["launches"])
+    out["launches"]["flash_attention"] += out["ring"]["launches"]
+    out["launches"]["masked_similarity"] += out["search"]["launches"]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2982,8 +3338,15 @@ def main() -> int:
         fail(f"first-step logits differ by {err} > {LOGITS_ATOL}")
 
     t0 = time.perf_counter()
-    chat_launches, _ = chat_phase(chat_cfg, args.seed, shapes)
+    chat_launches, _, chat_index = chat_phase(chat_cfg, args.seed, shapes)
     log("chat", sync_s(t0), launches=json.dumps(chat_launches))
+
+    t0 = time.perf_counter()
+    par = parallel_phase(chat_index, cfg, prod_cfg, args.seed)
+    log("parallel", sync_s(t0), launches=json.dumps(par["launches"]), ring=json.dumps(par["ring"]["shapes"]),
+        search_shard_1q=json.dumps(par["search"]["shard_1q"]))
+    del chat_index
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     err, scale, prompt_len = answer_logits_phase(chat_cfg, args.seed)
@@ -3057,7 +3420,7 @@ def main() -> int:
                    "retrieval": retrieved["launches"][name],
                    "train": trained["launches"].get(name, 0), "answer": answered["launches"].get(name, 0),
                    "prod": prod_launches[name], "prod_serve": prod_served["launches"][name],
-                   "moe_train": moe["launches"][name]}
+                   "moe_train": moe["launches"][name], "parallel": par["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3075,11 +3438,14 @@ def main() -> int:
               train_step=trained["kernel"]["train"], embedder_train_step=trained["kernel"]["train_embedder"],
               answer_train_step={k: answer_rec[k] for k in ("launches_per_step", "ms", "plain_ms", "library_ms",
                                                             "bound_ms")},
-              train_max_rel_err=trained["kernel"]["max_rel_err"]),
+              train_max_rel_err=trained["kernel"]["max_rel_err"],
+              ring=par["ring"]["shapes"], ring_max_abs_err=par["ring"]["max_abs_err"],
+              ring_plain_max_abs_err=par["ring"]["plain_max_abs_err"]),
         entry("masked_similarity", "vision_compression_project_tpu_torch/kernels/masked_similarity.cu",
               "vision_compression_project_tpu/ops/topk.py:26", sim_record,
               gemv_no_mask_ms=sim_record["gemv_no_mask_ms"], topk_lowest_first_ms=retrieved["topk"]["ms"],
-              torch_topk_ms=retrieved["topk"]["torch_topk_ms"]),
+              torch_topk_ms=retrieved["topk"]["torch_topk_ms"], shard_1q=par["search"]["shard_1q"],
+              shard_8q=par["search"]["shard_8q"]),
         # Per ocr_real mixC step (14 calls, one a block): the kernel, the plain
         # backward, SDPA's backward and the bound; the same per embedder step.
         entry("flash_attention_bwd", "vision_compression_project_tpu_torch/kernels/flash_attention_bwd.cu",

@@ -3,8 +3,11 @@ their plain versions on CUDA tensors, the vector index's search and the glyph
 renderer on the card against the same on the CPU, the shipped weights read on
 the card's machine, /ingest from a PDF on the card, the HTTP server's
 /chat on the card, the neural embedder and MaxSim retrieval on the card, and
-the retrieval harness's 40-page hit@3, and the train_answer command line at
-ocr_bpe's training shapes. They skip without a CUDA device.
+the retrieval harness's 40-page hit@3, the train_answer command line at
+ocr_bpe's training shapes, and the multi-device layer (the ring's per-rank
+steps and the sharded search's per-shard step for virtual ranks, and
+search_sharded on one NCCL rank started by the launcher). They skip without
+a CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed. On the GPU machine, from the repository root:
@@ -695,3 +698,198 @@ def test_train_answer_two_steps_on_the_card(cuda, tmp_path, monkeypatch, capsys)
     runner = checkpoint.load_runner(get_preset("ocr_bpe"), tmp_path / "ck", device="cuda")
     reply = runner.answer("What about the audit?", "[Page 1 | memory_id=m01]\nThe audit team met.", max_new=8)
     assert isinstance(reply, str)
+
+
+# The multi-device layer on the card: the ring's per-rank steps for virtual
+# ranks (ops/ring_attention.py) and the sharded search's per-shard step and
+# merge (parallel/collectives.py), at small sizes; one NCCL rank through the
+# launcher. chip_smoke.py's [parallel] phase runs the same at full width.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize(
+    "b,h,hkv,s,d,kv_len,causal",
+    [
+        (2, 6, 2, 256, 64, [256, 100], True),
+        (2, 4, 4, 128, 32, None, False),
+        (1, 16, 4, 320, 128, [258], True),
+        (2, 6, 6, 256, 64, [256, 3], False),
+    ],
+)
+def test_ring_virtual_ranks_match_one_kernel_call(cuda, dtype, n, b, h, hkv, s, d, kv_len, causal):
+    """n virtual ranks' hops, each one K1 launch with its log-sum-exp, merged
+    in f32: within TOL of the plain mha_reference on the same inputs and of
+    one K1 call over the whole sequence, with exactly n(n+1)/2 launches
+    under causal and n*n without."""
+    from vision_compression_project_tpu_torch.ops.ring_attention import ring_attention_virtual
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn((b, heads, s, d), generator=g, device=cuda).to(dtype) for heads in (h, hkv, hkv))
+    kv = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    kernels.reset_launch_counts()
+    got = ring_attention_virtual(q, k, v, n, causal=causal, kv_len=kv)
+    torch.cuda.synchronize()
+    assert kernels.launches["flash_attention"] == (n * (n + 1) // 2 if causal else n * n)
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    for want in (mha_reference(q, k, v, kv_len=kv, causal=causal), flash_attention(q, k, v, kv_len=kv, causal=causal)):
+        assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ring_hops_match_plain(cuda, dtype):
+    """Each hop of 4 virtual ranks at ocr_real's decoder-prefill shape (a
+    272-row chunk against a chunk, the clamped kv_len reaching 0 on a row):
+    ring_step's output and log-sum-exp against mha_reference and
+    attention_lse on the same chunks, within TOL and 1e-5 (f32) / 1e-4
+    (bf16) of the largest |lse|, +inf exactly on the rows without keys."""
+    from vision_compression_project_tpu_torch.ops.ring_attention import ring_step
+
+    n, chunk = 4, 272
+    g = torch.Generator(device=cuda).manual_seed(6)
+    q, k, v = (torch.randn((4, heads, n * chunk, 64), generator=g, device=cuda).to(dtype) for heads in (6, 2, 2))
+    kv_len = torch.tensor([1026, 1087, 700, 1088], dtype=torch.int32, device=cuda)
+    qc, kc, vc = q.chunk(n, 2), k.chunk(n, 2), v.chunk(n, 2)
+    tol_lse = 1e-4 if dtype == torch.bfloat16 else 1e-5
+    empty = 0
+    for idx in range(n):
+        for src in range(idx + 1):
+            hop_len = (kv_len - src * chunk).clamp(0, chunk).to(torch.int32)
+            args = (qc[idx], kc[src], vc[src])
+            out, lse = ring_step(*args, hop_len, src == idx, 64 ** -0.5)
+            want = mha_reference(*args, kv_len=hop_len, causal=src == idx)
+            want_lse = attention_lse(*args, kv_len=hop_len, causal=src == idx)
+            assert (out.float() - want.float()).abs().max().item() <= TOL[dtype]
+            inf = torch.isinf(want_lse)
+            empty += int(inf.sum())
+            assert torch.equal(torch.isposinf(lse), inf)
+            if bool((~inf).any()):
+                assert (lse[~inf] - want_lse[~inf]).abs().max().item() <= tol_lse * want_lse[~inf].abs().max().item()
+    assert empty > 0
+
+
+def _search_index(device):
+    rng = np.random.default_rng(3)
+    rows = rng.standard_normal((4000, 64)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    rows[[7, 1500, 3999]] = rows[2]  # ties across shards
+    index = VectorIndex(64, capacity=4096, device=device)
+    index.add(rows, [{"doc_id": f"d{i % 3}", "page": i} for i in range(4000)],
+              memory_ids=[f"m{i:04d}" for i in range(4000)])
+    return index, rows[[2, 10, 20, 30]]
+
+
+def test_sharded_search_virtual_shards_equal_search(cuda):
+    """4 virtual shards' local step (one K2 launch each) and merge give
+    search's ids and scores to the last bit, ties included; each shard's
+    K2 scores within SIM_ATOL of the plain version, masked ones exact."""
+    from vision_compression_project_tpu_torch.parallel.collectives import local_topk, merge_topk
+
+    index, queries = _search_index(cuda)
+    q = torch.from_numpy(queries).to(cuda)
+    per = index.capacity // 4
+    for doc in (None, "d1"):
+        mask = index._mask_for(doc)
+        kernels.reset_launch_counts()
+        parts = [local_topk(index._rows[i * per:(i + 1) * per], mask[i * per:(i + 1) * per], q, 6, i)
+                 for i in range(4)]
+        vals, idx = merge_topk(torch.cat([p[0] for p in parts], 1), torch.cat([p[1] for p in parts], 1), 6)
+        got = index._results_from(vals.cpu().numpy(), idx.cpu().numpy())
+        assert kernels.launches["masked_similarity"] == 4
+        want = index.search(queries, top_k=6, doc_id=doc)
+        assert [[(r["id"], r["score"]) for r in res] for res in got] == \
+            [[(r["id"], r["score"]) for r in res] for res in want]
+        for i in range(4):
+            rows, m = index._rows[i * per:(i + 1) * per], mask[i * per:(i + 1) * per]
+            scores, plain = masked_similarity(rows, q, m), masked_similarity_reference(rows, q, m)
+            off = m <= 0
+            assert bool((scores[:, off] == NEG_INF).all())
+            assert (scores[:, ~off] - plain[:, ~off]).abs().max().item() <= SIM_ATOL
+
+
+def _nccl_rank_search():
+    from vision_compression_project_tpu_torch.parallel import MeshConfig, build_mesh
+
+    index, queries = _search_index("cuda")
+    mesh = build_mesh(MeshConfig(data=1), "cuda")
+    kernels.reset_launch_counts()
+    got = index.search_sharded(mesh, queries, top_k=6, doc_id="d1")
+    return (torch.distributed.get_backend(), kernels.launches["masked_similarity"],
+            [[(r["id"], r["score"]) for r in res] for res in got],
+            [[(r["id"], r["score"]) for r in res] for res in index.search(queries, top_k=6, doc_id="d1")])
+
+
+def test_search_sharded_on_one_nccl_rank(cuda):
+    """search_sharded in a one-rank NCCL group started by the launcher: one
+    K2 launch, search's results to the last bit."""
+    from vision_compression_project_tpu_torch.parallel import spawn
+
+    ((backend, launches, got, want),) = spawn(_nccl_rank_search, 1, device_type="cuda", timeout_s=300)
+    assert backend == "nccl" and launches == 1 and got == want
+
+
+def _four_rank_parallel(device_type):
+    """On each of 4 ranks: ring attention over a seq = 4 mesh at ocr_real's
+    decoder-prefill shape against one whole-sequence call; search_sharded
+    over a data = 4 mesh against search; a decoder's forward under a
+    data = 2, seq = 2 mesh against the whole batch's. Inputs are made on
+    the CPU from seeds, the same on every rank."""
+    from vision_compression_project_tpu_torch.models import configs as tconfigs
+    from vision_compression_project_tpu_torch.models.decoder import Decoder
+    from vision_compression_project_tpu_torch.ops.ring_attention import ring_attention
+    from vision_compression_project_tpu_torch.parallel import MeshConfig, build_mesh, use_mesh
+    from vision_compression_project_tpu_torch.parallel.sharding import gather_shards, local_shard
+
+    dev = torch.device(device_type, torch.cuda.current_device()) if device_type == "cuda" else torch.device("cpu")
+    out = {"rank": torch.distributed.get_rank()}
+    g = torch.Generator().manual_seed(11)
+    b, h, hkv, s, d = 4, 6, 2, 1088, 64
+    q, k, v = (torch.randn((b, heads, s, d), generator=g).to(dev, torch.bfloat16) for heads in (h, hkv, hkv))
+    kv_len = torch.tensor([1026, 1087, 700, 1088], dtype=torch.int32, device=dev)
+    mesh = build_mesh(MeshConfig(data=1, seq=4), device_type)
+    axes = (None, None, "seq", None)
+    kernels.reset_launch_counts()
+    mine = ring_attention(mesh, *(local_shard(t, mesh, axes) for t in (q, k, v)), causal=True, kv_len=kv_len)
+    out["ring_launches"] = kernels.launches["flash_attention"]
+    got = gather_shards(mine, mesh, axes)
+    want = flash_attention(q, k, v, kv_len=kv_len, causal=True)
+    out["ring_err"] = (got.float() - want.float()).abs().max().item()
+    plain = mha_reference(q, k, v, kv_len=kv_len, causal=True)
+    out["ring_plain_err"] = (got.float() - plain.float()).abs().max().item()
+    index, queries = _search_index(dev)
+    kernels.reset_launch_counts()
+    sharded = index.search_sharded(build_mesh(MeshConfig(data=4), device_type), queries, top_k=6, doc_id="d1")
+    out["search_launches"] = kernels.launches["masked_similarity"]
+    out["search_equal"] = [[(r["id"], r["score"]) for r in res] for res in sharded] == \
+        [[(r["id"], r["score"]) for r in res] for res in index.search(queries, top_k=6, doc_id="d1")]
+    torch.manual_seed(3)
+    cfg = tconfigs.DecoderConfig(vocab=64, dim=256, depth=2, heads=4, kv_heads=2, head_dim=64, max_seq=512)
+    model = Decoder(cfg).to(dev).eval()
+    x = (torch.randn((4, 256, cfg.dim), generator=g) * 0.3).to(dev, torch.bfloat16)
+    sp = build_mesh(MeshConfig(data=2, seq=2), device_type)
+    with torch.no_grad():
+        with use_mesh(sp):
+            logits = model(local_shard(x, sp, ("batch", "seq", "embed")))
+        whole = model(x)
+    got = gather_shards(logits, sp, ("batch", "seq", "vocab"))
+    out["sp_err"] = ((got - whole).abs() - 0.05 * whole.abs()).max().item()
+    return out
+
+
+def test_four_nccl_ranks_ring_search_and_sp_decoder(cuda):
+    """World size 4 over NCCL, one card a rank: the ring within the bf16
+    limit of mha_reference and of one K1 call (rank i launches K1 i + 1
+    times under causal),
+    search_sharded equal to search with one K2 launch a rank, and the SP
+    decoder within tests/test_sp_forward.py's bf16 limits of the whole
+    forward."""
+    from vision_compression_project_tpu_torch.parallel import spawn
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    for name in ("flash_attention", "masked_similarity"):
+        kernels.build(name)  # once, before the ranks load it
+    outs = spawn(_four_rank_parallel, 4, "cuda", device_type="cuda", timeout_s=600)
+    for i, o in enumerate(outs):
+        assert o["rank"] == i and o["ring_launches"] == i + 1
+        assert o["ring_err"] <= TOL[torch.bfloat16] and o["ring_plain_err"] <= TOL[torch.bfloat16]
+        assert o["search_equal"] and o["search_launches"] == 1
+        assert o["sp_err"] <= 0.08

@@ -66,7 +66,9 @@ def test_port_and_chip_smoke_import_nothing_of_jax():
         "train.embedder_train", "weights", "scripts.train_vlm", "scripts.train_embedder",
         "raster.png", "scripts.eval_extract", "scripts.eval_ocr", "scripts.train_answer", "scripts.eval_answer",
         "scripts.ship_checkpoint", "scripts.run_answer_hop", "scripts.export_stage_params",
-        "scripts.run_curriculum", "scripts.train_bpe",
+        "scripts.run_curriculum", "scripts.train_bpe", "parallel", "parallel.mesh", "parallel.sharding",
+        "parallel.collectives", "parallel.launch", "ops.ring_attention", "ops.dct", "raster.page_store",
+        "scripts.bench_index",
     ):
         assert f"vision_compression_project_tpu_torch.{name}" in modules
     assert [m for m in modules if _banned(m)] == []

@@ -69,6 +69,9 @@ class RuntimeConfig:
     # Device batch size for page extraction.
     extract_batch_size: int = _env_int("VCP_EXTRACT_BATCH", 16)
     index_root: str = _env_str("VCP_INDEX_ROOT", "tmp/_index")
+    # Sharded retrieval: '1' force, '0' disable, 'auto' = shard when the
+    # process group holds more than one rank (index/store.py::_serving_mesh).
+    index_sharded: str = _env_str("VCP_INDEX_SHARDED", "auto")
     # Device of the runners the entry points build themselves (extraction's
     # and the answer model's): the card unless the caller asks for "cpu".
     device: str = _env_str("VCP_DEVICE", "cuda")

@@ -1,6 +1,5 @@
 """Device-resident vector index with metadata filtering: the port of
-vision_compression_project_tpu/index/vector_index.py (the single-buffer
-index; the sharded search is not ported yet).
+vision_compression_project_tpu/index/vector_index.py.
 
 Embedding rows live in a device buffer whose capacity doubles as it fills;
 doc_id filtering is a mask that the scoring kernel applies
@@ -8,6 +7,13 @@ doc_id filtering is a mask that the scoring kernel applies
 masked matrix-vector product and a top-k on the device. Saved indexes use the
 JAX package's files (`rows.npz`, `metadata.json`), so either package loads
 what the other saved.
+
+`search_sharded` spreads the rows over the mesh `data` dimension: each rank
+keeps its shard of the rows, padded to a shard multiple, scores and ranks it
+locally (K2 on the card) and merges k candidates a shard with the other
+ranks (parallel/collectives.py). Every rank holds the same index (the same
+adds in the same order) and calls `search_sharded` with the same queries, as
+every process of the reference runs the same program.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.topk import cosine_topk
+from ..parallel.collectives import sharded_cosine_topk
+from ..parallel.mesh import AXIS_DATA, axis_size
 
 _ALPHABET = string.ascii_letters + string.digits
 
@@ -58,6 +66,15 @@ class VectorIndex:
         self.metadata: List[Dict] = []  # row -> record
         self._doc_rows: Dict[str, List[int]] = {}
         self._mask_cache: Dict[Optional[str], torch.Tensor] = {}
+        # Sharded-search residency: this rank's shard of the padded rows and
+        # of each doc's mask, written incrementally by `add`; rebuilt whole
+        # only on first use, another shard layout or capacity growth, which
+        # `shard_rebuilds` counts (the reference's counter).
+        self._shard_rows: Optional[torch.Tensor] = None
+        self._shard_key = None
+        self._shard_lo = 0
+        self._shard_masks: Dict[Optional[str], torch.Tensor] = {}
+        self.shard_rebuilds = 0
         self._lock = threading.Lock()
 
     @property
@@ -78,6 +95,10 @@ class VectorIndex:
         # Cached masks grow with zeros (masked out). F.pad allocates a new
         # tensor, so no cached mask is a view of a buffer that is replaced.
         self._mask_cache = {doc: F.pad(m, (0, new_cap - cap)) for doc, m in self._mask_cache.items()}
+        # The shard copies are sized to the old capacity: the next sharded
+        # search rebuilds them.
+        self._shard_rows, self._shard_key = None, None
+        self._shard_masks.clear()
 
     def add(
         self,
@@ -103,7 +124,8 @@ class VectorIndex:
             start = self.count
             # In place: the JAX package donates the buffer to dynamic_update_slice
             # for the same O(n) append.
-            self._rows[start : start + n] = torch.from_numpy(embeddings).to(self.device, self.dtype)
+            new = torch.from_numpy(embeddings).to(self.device, self.dtype)
+            self._rows[start : start + n] = new
             ids = []
             new_rows_by_doc: Dict[str, List[int]] = {}
             for i, (record, mem_id) in enumerate(zip(records, memory_ids)):
@@ -123,7 +145,24 @@ class VectorIndex:
                     mask[start : start + n] = 1.0
                 elif doc in new_rows_by_doc:
                     mask[torch.as_tensor(new_rows_by_doc[doc], device=self.device)] = 1.0
+            if self._shard_rows is not None:
+                self._add_to_shard(new, start, new_rows_by_doc)
             return ids
+
+    def _add_to_shard(self, new: torch.Tensor, start: int, new_rows_by_doc: Dict[str, List[int]]) -> None:
+        """Write the added rows that fall in this rank's shard into the
+        shard copies: O(added), never a re-upload of the shard."""
+        lo, per = self._shard_lo, self._shard_rows.shape[0]
+        a, b = max(start, lo), min(start + new.shape[0], lo + per)
+        if a >= b:
+            return
+        self._shard_rows[a - lo : b - lo] = new[a - start : b - start]
+        for doc, mask in self._shard_masks.items():
+            if doc is None:
+                mask[a - lo : b - lo] = 1.0
+            elif doc in new_rows_by_doc:
+                rows = [r - lo for r in new_rows_by_doc[doc] if a <= r < b]
+                mask[torch.as_tensor(rows, dtype=torch.long, device=self.device)] = 1.0
 
     # -- query --------------------------------------------------------------
 
@@ -160,7 +199,7 @@ class VectorIndex:
         for qi in range(vals.shape[0]):
             results = []
             for score, row in zip(vals[qi], idx[qi]):
-                # Masked-out filler (the doc has fewer than k rows).
+                # Masked-out filler (the doc has fewer than k rows) and shard padding.
                 if score <= -1e29 or int(row) >= self.count:
                     continue
                 rec = self.metadata[int(row)]
@@ -174,6 +213,47 @@ class VectorIndex:
                 )
             out.append(results)
         return out
+
+    def _sharded_rows_mask(self, mesh, doc_id: Optional[str]):
+        """This rank's shard of the rows and of doc_id's mask, the rows padded
+        to a multiple of the mesh's `data` dimension; rebuilt only when the
+        shard's place (the `data` dimension's size and this rank's
+        coordinate on it) or the padded capacity changed. Not keyed on the
+        mesh object: a new mesh may reuse a freed one's id()."""
+        cap = self.capacity
+        n_shards = axis_size(mesh, AXIS_DATA)
+        pad = (-cap) % n_shards
+        per = (cap + pad) // n_shards
+        rank = mesh.get_local_rank(AXIS_DATA)
+        key = (n_shards, rank, cap + pad)
+        if self._shard_key != key:
+            # A copy: `add` writes the rows in place, into both buffers.
+            self._shard_lo = rank * per
+            self._shard_rows = F.pad(self._rows, (0, 0, 0, pad))[self._shard_lo : self._shard_lo + per].clone()
+            self._shard_key = key
+            self._shard_masks.clear()
+            self.shard_rebuilds += 1
+        if doc_id not in self._shard_masks:
+            mask = F.pad(self._mask_for(doc_id), (0, pad))
+            self._shard_masks[doc_id] = mask[self._shard_lo : self._shard_lo + per].clone()
+        return self._shard_rows, self._shard_masks[doc_id]
+
+    def search_sharded(
+        self, mesh, query_embeddings: np.ndarray, top_k: int = 8, doc_id: Optional[str] = None
+    ) -> List[List[Dict]]:
+        """Masked cosine top-k with the rows sharded over the mesh `data`
+        dimension: a masked similarity and top-k on this rank's shard, then
+        the k candidates of every shard merged (never a gather of the
+        scores). The same results as `search`, on every rank; every rank of
+        the mesh must make the same call."""
+        queries = np.atleast_2d(np.asarray(query_embeddings, np.float32))
+        with self._lock:
+            if self.count == 0:
+                return [[] for _ in range(queries.shape[0])]
+            k = min(top_k, self.count)
+            rows, mask = self._sharded_rows_mask(mesh, doc_id)
+            vals, idx = sharded_cosine_topk(mesh, rows, mask, torch.from_numpy(queries).to(self.device), k)
+            return self._results_from(vals.cpu().numpy(), idx.cpu().numpy())
 
     # -- persistence --------------------------------------------------------
 

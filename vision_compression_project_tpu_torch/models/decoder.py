@@ -27,7 +27,7 @@ class DecoderBlock(nn.Module):
         self.norm1 = RMSNorm(cfg.dim)
         self.attn = Attention(
             cfg.dim, cfg.heads, cfg.kv_heads, cfg.head_dim, causal=True, rope=True,
-            rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype,
+            rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype, seq_parallel=True,
         )
         self.norm2 = RMSNorm(cfg.dim)
         self.use_moe = use_moe
@@ -83,8 +83,10 @@ class Decoder(nn.Module):
         aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Full-sequence forward: (B, S, dim) embeddings -> (B, S, vocab).
-        Each MoE block's load-balancing term is appended to `aux_losses`
-        when it is a list."""
+        Under a mesh whose `seq` dimension holds n > 1 ranks, this rank's
+        (B, S/n, dim) chunk -> its (B, S/n, vocab) logits, attention through
+        the ring. Each MoE block's load-balancing term is appended to
+        `aux_losses` when it is a list."""
         h = x_emb
         for block in self.blocks:
             h, aux = remat(block, h, kv_len=kv_len)

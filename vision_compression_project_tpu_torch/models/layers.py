@@ -11,6 +11,19 @@ version where the reference runs XLA; single-token decode attends to the
 cache with plain tensor code. With grad enabled, the encoder's and the
 decoder's blocks are rematerialised (`remat`) as the reference's `nn.remat`
 does: the backward recomputes each block's activations.
+
+Sequence parallelism: under a mesh whose `seq` dimension holds more than one
+rank (`parallel.sharding.use_mesh`), an `Attention` built with
+`seq_parallel=True` (the decoder's; `Decoder.forward` takes its input as
+this rank's chunk) takes its input as this rank's chunk of the sequence (the rank at coordinate i along `seq`
+holds positions i*s to (i+1)*s - 1), rotates RoPE by that offset and attends
+over the whole sequence through the ring (ops/ring_attention.py), as the
+reference's `_seq_parallel_attn` does. Every other `Attention` (the vision
+encoder's) is given whole inputs on every rank and attends over them alone,
+as the reference's computes them under the same mesh. A sequence that does
+not divide the `seq` dimension cannot be split into such chunks
+(`local_shard` raises): it runs whole, outside a `seq` mesh, the path the
+reference falls back to.
 """
 
 from __future__ import annotations
@@ -24,6 +37,9 @@ import torch.utils.checkpoint
 from torch import nn
 
 from ..ops.attention import NEG_INF, flash_attention, mha_reference
+from ..ops import ring_attention as ring
+from ..parallel.mesh import AXIS_SEQ, axis_size
+from ..parallel.sharding import active_mesh
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -43,6 +59,20 @@ def use_flash(s: int, head_dim: int) -> bool:
 def _attend(q, k, v, kv_len, causal: bool) -> torch.Tensor:
     attend = flash_attention if use_flash(q.shape[2], q.shape[3]) else mha_reference
     return attend(q, k, v, kv_len=kv_len, causal=causal)
+
+
+def seq_mesh():
+    """The active mesh when its `seq` dimension holds more than one rank, else None."""
+    mesh = active_mesh()
+    return mesh if mesh is not None and axis_size(mesh, AXIS_SEQ) > 1 else None
+
+
+def whole_sequence_only(what: str) -> None:
+    """Raise NotImplementedError under a mesh whose `seq` dimension holds
+    more than one rank: `what` takes whole sequences only."""
+    if seq_mesh() is not None:
+        raise NotImplementedError(f"{what} under a seq-sharded mesh: only Decoder.forward takes a chunk "
+                                  "of the sequence (ring attention)")
 
 
 def remat(block: nn.Module, *args, **kwargs):
@@ -157,7 +187,9 @@ class Attention(nn.Module):
     """Multi-head attention with optional GQA, RoPE, causality and KV cache.
 
     `forward` and `prefill` process whole sequences; `decode` consumes one
-    token per batch element against a cache that it updates in place."""
+    token per batch element against a cache that it updates in place. With
+    `seq_parallel`, `forward` under a `seq` mesh of n > 1 ranks takes this
+    rank's chunk and attends through the ring (the module docstring)."""
 
     def __init__(
         self,
@@ -170,11 +202,13 @@ class Attention(nn.Module):
         rope_theta: float = 10000.0,
         max_seq: int = 4096,
         dtype: str = "bfloat16",
+        seq_parallel: bool = False,
     ):
         super().__init__()
         dt = torch_dtype(dtype)
         self.heads, self.kv_heads, self.head_dim = heads, kv_heads, head_dim
         self.causal, self.rope, self.max_seq = causal, rope, max_seq
+        self.seq_parallel = seq_parallel
         self.wq = Dense(dim, heads * head_dim, False, dt)
         self.wk = Dense(dim, kv_heads * head_dim, False, dt)
         self.wv = Dense(dim, kv_heads * head_dim, False, dt)
@@ -196,18 +230,26 @@ class Attention(nn.Module):
         return self.wo(o.transpose(1, 2).reshape(b, s, self.heads * self.head_dim))
 
     def forward(self, x: torch.Tensor, kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B, S, dim), or, with `seq_parallel`, this rank's (B, S/n,
+        dim) chunk under a mesh whose `seq` dimension holds n > 1 ranks
+        (kv_len stays global)."""
         s = x.shape[1]
         q, k, v = self._qkv(x)
+        mesh = seq_mesh() if self.seq_parallel else None
         if self.rope:
-            cos, sin = self.rope_cos[:s], self.rope_sin[:s]
+            start = 0 if mesh is None else mesh.get_local_rank(AXIS_SEQ) * s
+            cos, sin = self.rope_cos[start : start + s], self.rope_sin[start : start + s]
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        return self._out(_attend(q, k, v, kv_len, self.causal))
+        if mesh is None:
+            return self._out(_attend(q, k, v, kv_len, self.causal))
+        return self._out(ring.ring_attention(mesh, q, k, v, axis_name=AXIS_SEQ, causal=self.causal, kv_len=kv_len))
 
     def prefill(
         self, x: torch.Tensor, kv_len: Optional[torch.Tensor] = None, cache_len: Optional[int] = None
     ) -> Tuple[torch.Tensor, Cache]:
         """Like forward, and also returns the KV cache padded to `cache_len`
         (default max_seq)."""
+        whole_sequence_only("Attention.prefill")
         s = x.shape[1]
         cache_len = cache_len or self.max_seq
         q, k, v = self._qkv(x)
@@ -229,6 +271,7 @@ class Attention(nn.Module):
         the lockstep batch, at each row's own position for the ragged one.
         GQA folds the query heads as (kv_head, group) against the shared
         cache instead of repeating it."""
+        whole_sequence_only("Attention.decode")
         b = x.shape[0]
         cache_len = cache["k"].shape[2]
         lockstep = not torch.is_tensor(pos)
@@ -323,6 +366,11 @@ class SwitchMoE(nn.Module):
                 _lecun_normal_(w[e], w.shape[0] * w.shape[1], g)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if seq_mesh() is not None:
+            # The capacity counts the tokens of the whole sequence; a rank
+            # holding its chunk would route and drop other tokens.
+            raise NotImplementedError("SwitchMoE under a seq-sharded mesh: routing experts across ranks is the "
+                                      "expert-parallel slice (ROADMAP queue 1 item 6)")
         b, s, d = x.shape
         t, e = b * s, self.num_experts
         capacity = max(1, int(self.capacity_factor * t / e))

@@ -25,7 +25,7 @@ from ..ops.glyph_render import pack_primitives, render_pages_from_glyphs
 from ..ops.preprocess import preprocess_pages
 from .configs import VLMConfig
 from .decoder import Decoder
-from .layers import Dense, init_weights_, normal_, torch_dtype
+from .layers import Dense, init_weights_, normal_, torch_dtype, whole_sequence_only
 from .tokenizer import BOS_ID, EOS_ID, PAD_ID, SEP_ID, TASK_ANSWER_ID, TASK_EXTRACT_ID, get_tokenizer
 from .vit import VisionEncoder
 
@@ -84,7 +84,10 @@ class OpticalVLM(nn.Module):
         aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Training/eval forward: logits over the [vision ; text] sequence;
-        the decoder's MoE terms go to `aux_losses` (Decoder.forward)."""
+        the decoder's MoE terms go to `aux_losses` (Decoder.forward). Not
+        under a `seq` mesh: it would hand the decoder the whole sequence as
+        this rank's chunk."""
+        whole_sequence_only("OpticalVLM.forward")
         vis = self.encode_pages(patch_tokens)
         txt = self.decoder.embed_tokens(token_ids)
         x = torch.cat([vis, txt.to(vis.dtype)], dim=1)

@@ -1,0 +1,38 @@
+"""The multi-device layer over torch.distributed: the mesh, the active mesh
+and the logical-axis rules, the retrieval collectives, and a rank launcher.
+The port of vision_compression_project_tpu/parallel/ without what waits for
+the training half (parameter sharding, GPipe)."""
+
+from .collectives import distributed_topk, ring_all_gather_rows, sharded_cosine_topk
+from .launch import spawn
+from .mesh import (
+    AXIS_DATA,
+    AXIS_EXPERT,
+    AXIS_MODEL,
+    AXIS_SEQ,
+    MESH_AXES,
+    MeshConfig,
+    build_mesh,
+    initialize_multihost,
+    local_mesh,
+)
+from .sharding import LOGICAL_RULES, active_mesh, use_mesh
+
+__all__ = [
+    "AXIS_DATA",
+    "AXIS_SEQ",
+    "AXIS_MODEL",
+    "AXIS_EXPERT",
+    "MESH_AXES",
+    "MeshConfig",
+    "build_mesh",
+    "local_mesh",
+    "initialize_multihost",
+    "spawn",
+    "LOGICAL_RULES",
+    "use_mesh",
+    "active_mesh",
+    "distributed_topk",
+    "sharded_cosine_topk",
+    "ring_all_gather_rows",
+]
