@@ -6,9 +6,11 @@ service with its command line, the retrieval settings (the neural embedder
 and multi-vector MaxSim retrieval, over HTTP too), training: ocr_real
 extraction training and the embedder's contrastive training, the answer
 task, the prod preset (11.1B parameters, Switch-MoE) serving pages,
-Switch-MoE training (tiny_moe whole, prod at every width cut in depth), and
-the multi-device layer (a one-rank NCCL group; the ring and the sharded
-search for virtual ranks at full width).
+Switch-MoE training (tiny_moe whole, prod at every width cut in depth), the
+multi-device layer (a one-rank NCCL group; the ring and the sharded search
+for virtual ranks at full width), and sharded training (the sharded step on
+a one-rank NCCL mesh, the ring's backward and a prod MoE block's TP/EP
+ranks, virtual, at full width).
 
     python3 chip_smoke.py [--seed N]
 
@@ -145,7 +147,9 @@ with the port's own reader. One flushed line per phase, with seconds:
            the same pages as the model in memory, and both training command
            lines, 2 steps each, each writing a checkpoint;
   answer   the answer task with the shipped ocr_bpe: its training steps, the
-           hop's command line, the evaluations and their gates;
+           hop's command line, the evaluations and their gates (the `real`
+           extraction eval beside the size and digest of the sentence pool
+           its pages draw from);
   prod     with every earlier runner freed, VLMRunner(prod, seed) built on
            the card (seconds, parameters, peak memory), extract_batch on the
            4 pages of the slice phase with max_new=256 and exactly 48 K1
@@ -179,7 +183,24 @@ with the port's own reader. One flushed line per phase, with seconds:
            within 1e-3 of their largest value, every token on the same
            expert. (a), the backward kernel at prod_train's shapes (128
            windows at head_dim 64, the global stage at 96, the decoder at
-           128 with GQA 16:4, eager and graph-timed), runs in train.
+           128 with GQA 16:4, eager and graph-timed), runs in train;
+  sharded_train  the sharded training of parallel/ and train/train_step.py:
+           (a) ocr_real at mixC, batch 32, full width, 2 train steps from
+           one seed on one batch without a mesh and on a mesh of 1 over NCCL
+           (a one-rank process group, destroyed after): losses and every
+           parameter bit-equal, the same K1 launches; (b) the gradient of
+           the ring for 4 virtual ranks at the [parallel] shapes (ocr_real's
+           decoder prefill with a row of kv_len 0), bf16 and f32: each
+           reverse hop one launch of K1's backward (exactly 10, 10 and 16
+           with as many forward launches), dq/dk/dv against K1's
+           whole-sequence backward and the plain backward (autograd of
+           mha_reference in f32) within GRAD_RTOL, zero gradients on the row
+           without keys, a hop's backward timed beside the whole call's;
+           (c) one prod MoE decoder block as model 2 x expert 2 virtual
+           ranks: each rank's attention on 8 query and 2 KV heads (one K1
+           launch forward and one backward a rank) and its 8 experts of
+           hidden 4096; partial outputs summed and gathered gradients
+           against the whole block's sublayers within GRAD_RTOL.
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -190,10 +211,12 @@ non-zero at once.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import difflib
 import functools
 import gc
+import hashlib
 import http.client
 import itertools
 import json
@@ -220,7 +243,8 @@ from vision_compression_project_tpu_torch.index.multivector import maxsim_scores
 from vision_compression_project_tpu_torch.models import VLMRunner, get_preset, layers
 from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
 from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedder, NeuralEmbedder
-from vision_compression_project_tpu_torch.models.layers import use_flash
+from vision_compression_project_tpu_torch.models.decoder import DecoderBlock
+from vision_compression_project_tpu_torch.models.layers import init_weights_, torch_dtype, use_flash
 from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, EOS_ID, PAD_ID, TASK_EXTRACT_ID
 from vision_compression_project_tpu_torch.models.vlm import (
     ANSWER_DECODE_RESERVE, CACHE_BUCKET, PROMPT_BUCKET, OpticalVLM, init_params,
@@ -228,7 +252,9 @@ from vision_compression_project_tpu_torch.models.vlm import (
 from vision_compression_project_tpu_torch.models.tokenizer import get_tokenizer
 from vision_compression_project_tpu_torch.ops import attention as tattn
 from vision_compression_project_tpu_torch.ops.attention import flash_attention, mha_reference
-from vision_compression_project_tpu_torch.ops.ring_attention import ring_attention, ring_attention_virtual, ring_step
+from vision_compression_project_tpu_torch.ops.ring_attention import (
+    ring_attention, ring_attention_virtual, ring_step, ring_step_bwd,
+)
 from vision_compression_project_tpu_torch.parallel import (
     MeshConfig, build_mesh, distributed_topk, initialize_multihost, ring_all_gather_rows,
 )
@@ -251,7 +277,7 @@ from vision_compression_project_tpu_torch.train.checkpoint import (
     _flatten as flatten_checkpoint, load_params, load_runner, param_digests, restore_checkpoint, save_checkpoint,
     shipped_digests,
 )
-from vision_compression_project_tpu_torch.train.corpus import corpus_sentences
+from vision_compression_project_tpu_torch.train.corpus import HARVEST_DIR, corpus_sentences
 from vision_compression_project_tpu_torch.train.data import (
     device_batch, prefetch_batches, qa_batches, stack_pages, synthetic_batches, target_tokens,
 )
@@ -2361,6 +2387,16 @@ def answer_train_steps(chat_cfg, seed: int, shipped: dict, workdir: Path, k1_per
     return out
 
 
+def corpus_pool() -> dict:
+    """The real-language pool `--data real` draws its pages from (the
+    reference's harvest directory, train/corpus.py): its directory, its
+    sentences and a digest of them, which differ between machines whose
+    site-packages differ."""
+    pool = corpus_sentences("train") + corpus_sentences("heldout")
+    return {"harvest_dir": str(HARVEST_DIR), "sentences": len(pool),
+            "sha256": hashlib.sha256("\n".join(pool).encode()).hexdigest()[:16]}
+
+
 def run_eval(module, name: str, args: list, json_out: Path, want_k1: int) -> dict:
     """A port eval command line in this process on the card, with its launch
     counts zeroed before and read after: K1 exactly want_k1 times, its
@@ -2480,6 +2516,8 @@ def answer_phase(seed: int, workdir: Path, train_kernel: dict) -> dict:
             out["quality"][f"extract_{preset}"] = {
                 "markdown_similarity_mean": res["markdown_similarity_mean"], "floor": gate["floor"],
                 "shipped_gate": shipped_gate["markdown_similarity_mean"], "seconds": res["seconds"]}
+            if "real" in gate["args"]:
+                out["quality"][f"extract_{preset}"]["corpus"] = corpus_pool()
             out["launches"]["flash_attention"] += res["launches"]["flash_attention"]
             if not res["markdown_similarity_mean"] >= gate["floor"]:
                 fail(f"eval_extract {preset}: markdown similarity {res['markdown_similarity_mean']} under the "
@@ -3270,6 +3308,279 @@ def parallel_phase(index, cfg, prod_cfg, seed: int) -> dict:
     return out
 
 
+# [sharded_train]: the sharded train step (train/train_step.py with a mesh)
+# at world size 1 over NCCL, the ring's backward for virtual ranks at full
+# width, and one prod MoE decoder block split over model 2 x expert 2
+# virtual ranks.
+SHARDED_STEPS = 2
+SHARDED_LR = 1e-4
+SHARDED_VIRTUAL = (2, 2)  # (expert, model) virtual ranks of the prod block
+SHARDED_BLOCK_TOKENS = (2, 320)  # prod's decoder prefill rows and length
+
+
+def sharded_step_phase(cfg, seed: int, workdir: Path) -> dict:
+    """(a) ocr_real at mixC, batch 32, full width: SHARDED_STEPS train steps
+    from one seed on one batch without a mesh, then with make_train_state(...,
+    mesh=) on a mesh of 1 over NCCL (a process group of one rank, destroyed
+    after): losses and every parameter bit-equal, the same K1 launches."""
+    host = next(synthetic_batches(cfg, TRAIN_BATCH, seed=seed, workdir=workdir / "sharded_data", **MIXC))
+    batch = device_batch(cfg, host, device=DEVICE)
+    runs = []
+    initialize_multihost(f"file://{workdir / 'sharded_nccl_store'}", 1, 0, DEVICE)
+    try:
+        for mesh in (None, build_mesh(MeshConfig(1, 1, 1, 1), DEVICE)):
+            model, opt, state = make_train_state(cfg, device=DEVICE, seed=seed, lr=SHARDED_LR, mesh=mesh)
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            losses = []
+            for _ in range(SHARDED_STEPS):
+                state, loss = train_step(model, opt, state, batch, mesh=mesh)
+                losses.append(float(loss))
+            seconds = sync_s(t0)
+            runs.append({"losses": losses, "launches": dict(kernels.launches), "seconds": seconds,
+                         "params": {k: v.detach().clone() for k, v in state.params.items()}})
+            del model, opt, state
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    plain, meshed = runs
+    equal = all(torch.equal(plain["params"][k], meshed["params"][k]) for k in plain["params"])
+    rec = {"backend": backend, "losses": meshed["losses"], "plain_losses": plain["losses"],
+           "losses_bit_equal": plain["losses"] == meshed["losses"], "params_bit_equal": equal,
+           "launches": meshed["launches"], "plain_launches": plain["launches"], "steps_s": meshed["seconds"],
+           "plain_steps_s": plain["seconds"]}
+    del runs, plain, meshed
+    torch.cuda.empty_cache()
+    log("sharded_train.mesh1", rec["steps_s"], **{k: json.dumps(v) for k, v in rec.items() if k != "steps_s"})
+    if not (rec["losses_bit_equal"] and equal and rec["launches"] == rec["plain_launches"]
+            and rec["launches"]["flash_attention"] > 0 and rec["launches"]["flash_attention_bwd"] > 0):
+        fail(f"sharded train step on a mesh of 1 is not the unsharded step: {rec}")
+    return rec
+
+
+def sharded_ring_shapes(cfg, prod_cfg) -> list:
+    """ring_shapes, ocr_real's decoder prefill with a row whose kv_len is 0
+    (no valid key anywhere: its gradients must be 0)."""
+    shapes = ring_shapes(cfg, prod_cfg)
+    first = shapes[0]
+    shapes[0] = dataclasses.replace(first, kv_len=[first.kv_len[0], first.kv_len[1], 0, first.kv_len[3]])
+    return shapes
+
+
+def ring_backward_phase(shapes: list, seed: int) -> dict:
+    """(b) the gradient of ring_attention_virtual for RING_RANKS virtual
+    ranks (each reverse hop one launch of K1's backward, ring_step_bwd),
+    against the whole sequence's K1 backward (FlashAttentionFn) and the
+    plain backward (autograd of mha_reference in f32) on the same inputs:
+    dq, dk, dv within GRAD_RTOL, exact launches (n(n+1)/2 causal, n*n not),
+    zero gradients on a row without keys; in bf16 a hop's backward timed
+    beside the whole call's, the backward ring's, the plain version's
+    (flash_attention_bwd_lse), SDPA's backward and the bound."""
+    n = RING_RANKS
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    rec = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0}, "max_rel_err": {}, "plain_max_rel_err": {},
+           "shapes": {}}
+    for sh in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            def rnd(heads):
+                return torch.randn((sh.b, heads, sh.s, sh.d), generator=gen, device=DEVICE).to(dtype)
+
+            inputs = [rnd(sh.h), rnd(sh.hkv), rnd(sh.hkv)]
+            g = rnd(sh.h)
+            kv_len = torch.tensor(sh.kv_len, dtype=torch.int32, device=DEVICE)
+            leaves = [t.clone().requires_grad_() for t in inputs]
+            kernels.reset_launch_counts()
+            ring_attention_virtual(*leaves, n, causal=sh.causal, kv_len=kv_len).backward(g)
+            torch.cuda.synchronize()
+            got = dict(kernels.launches)
+            for name in rec["launches"]:
+                rec["launches"][name] += got[name]
+            whole = [t.clone().requires_grad_() for t in inputs]
+            flash_attention(*whole, kv_len=kv_len, causal=sh.causal).backward(g)
+            plain = [t.float().requires_grad_() for t in inputs]
+            mha_reference(*plain, kv_len=kv_len, causal=sh.causal).backward(g.float())
+            errs = [rel_err(a.grad, b.grad) for a, b in zip(leaves, whole)]
+            plain_errs = [rel_err(a.grad, b.grad) for a, b in zip(leaves, plain)]
+            dead = [i for i, n_keys in enumerate(sh.kv_len) if n_keys == 0]
+            zero_dead = all(bool((t.grad[i] == 0).all()) for t in leaves for i in dead)
+            finite = all(bool(torch.isfinite(t.grad).all()) for t in leaves)
+            want = n * (n + 1) // 2 if sh.causal else n * n
+            name = str(dtype).replace("torch.", "")
+            row = dict(shape=sh.name, dtype=name, ranks=n, causal=sh.causal, kv_len=sh.kv_len, launches=got,
+                       max_rel_err=max(errs), plain_max_rel_err=max(plain_errs), rtol=GRAD_RTOL[dtype],
+                       rows_without_keys=len(dead), zero_grad_rows_without_keys=zero_dead)
+            rec["max_rel_err"][name] = max(rec["max_rel_err"].get(name, 0.0), max(errs))
+            rec["plain_max_rel_err"][name] = max(rec["plain_max_rel_err"].get(name, 0.0), max(plain_errs))
+            if dtype == torch.bfloat16:
+                chunk = sh.s // n
+                qc, kc, vc, gc = (t[:, :, :chunk].contiguous() for t in (inputs[0], inputs[1], inputs[2], g))
+                full = torch.full((sh.b,), chunk, dtype=torch.int32, device=DEVICE)
+                scale = sh.d ** -0.5
+                oc, lc = ring_step(qc, kc, vc, full, False, scale)
+                o, lse = ring_step(*inputs, kv_len, sh.causal, scale)
+                row["hop_bwd_ms"] = cuda_ms(lambda: ring_step_bwd(qc, kc, vc, oc, gc, lc, full, False, scale), 20)
+                row["whole_bwd_ms"] = cuda_ms(lambda: ring_step_bwd(*inputs, o, g, lse, kv_len, sh.causal, scale), 20)
+                row["plain_bwd_ms"] = cuda_ms(lambda: tattn.flash_attention_bwd_lse(
+                    *inputs, o, g, lse, kv_len, sh.causal, scale), 3, warmup=1)
+                lib_fwd, lib_fwd_bwd = train_library_call(*inputs, g, sh)
+                row["library_bwd_ms"] = cuda_ms(lib_fwd_bwd, 5, warmup=1) - cuda_ms(lib_fwd, 10)
+                out = ring_attention_virtual(*leaves, n, causal=sh.causal, kv_len=kv_len)
+                row["ring_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 5,
+                                             warmup=1)
+                del out
+                row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(sh, dtype)
+                rec["shapes"][sh.name] = {k: row[k] for k in (
+                    "hop_bwd_ms", "whole_bwd_ms", "ring_bwd_ms", "plain_bwd_ms", "library_bwd_ms", "bwd_bound_ms",
+                    "bwd_bound_by")}
+            log("sharded_train.ring_bwd", 0.0, **{k: json.dumps(v) for k, v in row.items()})
+            if got != {"flash_attention": want, "flash_attention_bwd": want, "masked_similarity": 0}:
+                fail(f"ring backward {sh.name} {dtype}: launches {got}, expected {want} forward and backward")
+            if not (finite and zero_dead and max(errs) <= GRAD_RTOL[dtype] and max(plain_errs) <= GRAD_RTOL[dtype]):
+                fail(f"ring backward {sh.name} {dtype}: rel err {errs} against K1's whole backward, {plain_errs} "
+                     f"against the plain backward (rtol {GRAD_RTOL[dtype]}), finite {finite}, zero rows {zero_dead}")
+            del inputs, leaves, whole, plain, g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _rank_attention(whole, m: int, model: int) -> torch.nn.Module:
+    """A copy of the whole block's Attention holding a virtual rank's
+    `model` shard m of wq, wk, wv and wo as leaves of its own (the ranks of
+    `expert` hold the same)."""
+    attn = copy.deepcopy(whole)
+    with torch.no_grad():
+        for name, p in attn.named_parameters():
+            p.data = p.data.chunk(model, 1 if name.startswith("wo") else 0)[m].clone()
+            p.grad = None
+    return attn
+
+
+def _rank_moe(whole, e: int, m: int, expert: int, model: int) -> torch.nn.Module:
+    """A copy of the whole block's SwitchMoE holding virtual rank (e, m)'s
+    shards: experts e*E/ex.., hidden m*H/mo.., and router rows of expert rank e."""
+    moe = copy.deepcopy(whole)
+    with torch.no_grad():
+        moe.router.weight.data = moe.router.weight.data.chunk(expert, 0)[e].clone()
+        for name in ("w_gate", "w_up", "w_down"):
+            w = getattr(moe, name).data.chunk(expert, 0)[e]
+            getattr(moe, name).data = w.chunk(model, 2 if name != "w_down" else 1)[m].clone()
+        for p in moe.parameters():
+            p.grad = None
+    return moe
+
+
+def tp_ep_block_phase(prod_cfg, seed: int) -> dict:
+    """(c) one of prod's MoE decoder blocks (bf16, 16 experts of hidden
+    8192, GQA 16:4 at head_dim 128) as model 2 x expert 2 virtual ranks on
+    the card: each rank's attention on its 8 query and 2 KV heads (one K1
+    launch forward and one backward a rank) and its 8 experts of hidden
+    4096. The attention's partial outputs summed over `model`, and the
+    MoE's over `expert` and `model` after routing on the router logits
+    gathered over `expert`, each against the whole block's sublayer on the
+    same input; each rank's gradients (the loss's upstream gradient as the
+    ranks receive it), gathered, against the whole sublayer's; all within
+    GRAD_RTOL."""
+    ex, mo = SHARDED_VIRTUAL
+    dec = prod_cfg.decoder
+    block = DecoderBlock(dec, use_moe=True).to(DEVICE)
+    init_weights_(block, torch.Generator(device=DEVICE).manual_seed(seed))
+    b, s = SHARDED_BLOCK_TOKENS
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 2)
+    dt = torch_dtype(dec.dtype)
+    x = torch.randn((b, s, dec.dim), generator=gen, device=DEVICE).to(dt)
+    g1 = torch.randn((b, s, dec.dim), generator=gen, device=DEVICE).to(dt)
+    g2 = torch.randn((b, s, dec.dim), generator=gen, device=DEVICE).to(dt)
+    rec = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0}}
+
+    # The attention sublayer.
+    h = block.norm1(x).detach()
+    hw = h.clone().requires_grad_()
+    block.attn(hw).backward(g1)
+    want_out = block.attn(h).detach()
+    ranks = {(e, m): _rank_attention(block.attn, m, mo) for e in range(ex) for m in range(mo)}
+    kernels.reset_launch_counts()
+    outs, dhs = {}, {}
+    for key, attn in ranks.items():
+        hr = h.clone().requires_grad_()
+        part = attn(hr)
+        part.backward(g1)  # reduce_from's backward: each rank gets the whole upstream gradient
+        outs[key], dhs[key] = part.detach(), hr.grad
+    torch.cuda.synchronize()
+    attn_launches = dict(kernels.launches)
+    errs = {}
+    for e in range(ex):
+        errs[f"attn_out_e{e}"] = rel_err(sum(outs[(e, m)].float() for m in range(mo)), want_out)
+        errs[f"attn_dx_e{e}"] = rel_err(sum(dhs[(e, m)].float() for m in range(mo)), hw.grad)
+        for name in ("wq", "wk", "wv", "wo"):
+            got = torch.cat([getattr(ranks[(e, m)], name).weight.grad for m in range(mo)], 1 if name == "wo" else 0)
+            errs[f"attn_{name}_e{e}"] = rel_err(got, getattr(block.attn, name).weight.grad)
+
+    # The MoE sublayer on the same input: every rank's router rows give its
+    # block of the logits, gathered over `expert` for the routing every rank
+    # computes whole; each rank's experts give their partial outputs, summed
+    # over `expert` and `model` before the gate. One graph holds every
+    # rank's shards as leaves: the gradient of each shard is the one its
+    # rank computes on a mesh.
+    h2 = block.norm2(x).detach()
+    h2w = h2.clone().requires_grad_()
+    moe_out, aux = block.mlp(h2w)
+    ((moe_out.float() * g2.float()).sum() + aux).backward()
+    want_moe = moe_out.detach()
+    moes = {(e, m): _rank_moe(block.mlp, e, m, ex, mo) for e in range(ex) for m in range(mo)}
+    e_local = dec.num_experts // ex
+    hr = h2.clone().requires_grad_()
+    logits = torch.cat([F.linear(hr.float(), moes[(e, 0)].router.weight).reshape(b * s, e_local)
+                        for e in range(ex)], dim=1)
+    route = moes[(0, 0)].routing(logits, b, s)
+    picked = sum(moe.expert_partial(hr, route, e * e_local) for (e, _), moe in moes.items())
+    combined = (picked * route["gate"][:, None]).reshape(b, s, dec.dim).to(dt)
+    ((combined.float() * g2.float()).sum() + route["aux"]).backward()
+    errs["moe_out"] = rel_err(combined, want_moe)
+    errs["moe_dx"] = rel_err(hr.grad, h2w.grad)
+    errs["moe_aux"] = abs(route["aux"].item() - aux.item()) / abs(aux.item())
+    errs["moe_experts_differ"] = float((route["expert"] != block.mlp.routing(
+        F.linear(h2.float(), block.mlp.router.weight).reshape(b * s, -1), b, s)["expert"]).sum())
+    for name in ("w_gate", "w_up", "w_down"):
+        got = torch.cat([torch.cat([getattr(moes[(e, m)], name).grad for m in range(mo)], 2 if name != "w_down" else 1)
+                         for e in range(ex)], 0)
+        errs[f"moe_{name}"] = rel_err(got, getattr(block.mlp, name).grad)
+    errs["moe_router"] = rel_err(torch.cat([moes[(e, 0)].router.weight.grad for e in range(ex)], 0),
+                                 block.mlp.router.weight.grad)
+    rec["launches"] = {k: attn_launches[k] for k in rec["launches"]}
+    rec["max_rel_err"] = max(errs.values())
+    rec["rtol"] = GRAD_RTOL[dt]
+    log("sharded_train.tp_ep_block", 0.0, virtual_ranks=json.dumps({"expert": ex, "model": mo}),
+        tokens=b * s, launches=json.dumps(attn_launches), **{k: f"{v:.3e}" for k, v in errs.items()})
+    if attn_launches != {"flash_attention": ex * mo, "flash_attention_bwd": ex * mo, "masked_similarity": 0}:
+        fail(f"tp/ep block: launches {attn_launches}, expected {ex * mo} K1 forward and backward (one a rank)")
+    bad = {k: v for k, v in errs.items() if not v <= GRAD_RTOL[dt]}
+    if bad:
+        fail(f"tp/ep block: errors over GRAD_RTOL {GRAD_RTOL[dt]}: {bad}")
+    del block, ranks, moes
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sharded_train_phase(cfg, prod_cfg, seed: int, workdir: Path) -> dict:
+    """[sharded_train]: (a), (b) and (c) above."""
+    out = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the two runs of (a) must be the same sums
+    try:
+        out["mesh1"] = sharded_step_phase(cfg, seed, workdir)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    t0 = time.perf_counter()
+    out["ring_bwd"] = ring_backward_phase(sharded_ring_shapes(cfg, prod_cfg), seed)
+    log("sharded_train.ring_bwd_all", sync_s(t0), launches=json.dumps(out["ring_bwd"]["launches"]))
+    t0 = time.perf_counter()
+    out["block"] = tp_ep_block_phase(prod_cfg, seed)
+    log("sharded_train.tp_ep_block_all", sync_s(t0))
+    out["launches"] = {name: out["mesh1"]["launches"].get(name, 0) + out["ring_bwd"]["launches"].get(name, 0)
+                       + out["block"]["launches"].get(name, 0) for name in kernels.launches}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3407,6 +3718,11 @@ def main() -> int:
             prod_train_step_s=moe["prod_train"]["step_s"],
             prod_train_max_memory_allocated_gb=moe["prod_train"]["max_memory_allocated_gb"],
             prod_train_reckoned_state_gb=moe["prod_train"]["reckoned_state_gb"])
+        free_card()
+        t0 = time.perf_counter()
+        sharded = sharded_train_phase(cfg, prod_cfg, args.seed, workdir)
+        log("sharded_train", time.perf_counter() - t0, launches=json.dumps(sharded["launches"]),
+            ring_bwd=json.dumps(sharded["ring_bwd"]["shapes"]), smi=json.dumps(smi))
 
     train_rec = trained["kernel"]["train"]
     answer_rec = trained["kernel"]["train_answer"]
@@ -3420,7 +3736,8 @@ def main() -> int:
                    "retrieval": retrieved["launches"][name],
                    "train": trained["launches"].get(name, 0), "answer": answered["launches"].get(name, 0),
                    "prod": prod_launches[name], "prod_serve": prod_served["launches"][name],
-                   "moe_train": moe["launches"][name], "parallel": par["launches"][name]}
+                   "moe_train": moe["launches"][name], "parallel": par["launches"][name],
+                   "sharded_train": sharded["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3465,7 +3782,10 @@ def main() -> int:
               prod_train_step={k: prod_train_rec[k] for k in (
                   "bwd_launches_per_step", "bwd_ms", "bwd_graph_ms", "bwd_plain_ms", "library_bwd_ms",
                   "bwd_bound_ms", "bwd_bound_by", "bwd_ms_per_call", "bwd_graph_ms_per_call")},
-              prod_train_step_s=moe["prod_train"]["step_s"], prod_train_backward_s=moe["prod_train"]["backward_s"]),
+              prod_train_step_s=moe["prod_train"]["step_s"], prod_train_backward_s=moe["prod_train"]["backward_s"],
+              ring_bwd=sharded["ring_bwd"]["shapes"], ring_bwd_max_rel_err=sharded["ring_bwd"]["max_rel_err"],
+              ring_bwd_plain_max_rel_err=sharded["ring_bwd"]["plain_max_rel_err"],
+              tp_ep_block_max_rel_err=sharded["block"]["max_rel_err"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

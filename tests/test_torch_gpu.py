@@ -6,7 +6,10 @@ the card's machine, /ingest from a PDF on the card, the HTTP server's
 the retrieval harness's 40-page hit@3, the train_answer command line at
 ocr_bpe's training shapes, and the multi-device layer (the ring's per-rank
 steps and the sharded search's per-shard step for virtual ranks, and
-search_sharded on one NCCL rank started by the launcher). They skip without
+search_sharded on one NCCL rank started by the launcher), and sharded
+training (the ring's backward for virtual ranks, the sharded step on a
+one-rank NCCL mesh, a prod MoE block's TP/EP virtual ranks; on 4 cards the
+sharded steps against one card's, which skips on fewer). They skip without
 a CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
@@ -893,3 +896,160 @@ def test_four_nccl_ranks_ring_search_and_sp_decoder(cuda):
         assert o["ring_err"] <= TOL[torch.bfloat16] and o["ring_plain_err"] <= TOL[torch.bfloat16]
         assert o["search_equal"] and o["search_launches"] == 1
         assert o["sp_err"] <= 0.08
+
+
+# Sharded training on the card: the ring's backward for virtual ranks (each
+# reverse hop one launch of K1's backward), the sharded train step on a
+# one-rank NCCL mesh, one prod MoE block as model 2 x expert 2 virtual
+# ranks, and on 4 cards the sharded steps against one card's.
+# chip_smoke.py's [sharded_train] phase runs the first three at full width.
+GRAD_RTOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return (got.float() - want).abs().max().item() / max(want.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize(
+    "b,h,hkv,s,d,kv_len,causal",
+    [
+        (4, 6, 2, 1088, 64, [1026, 1087, 0, 1088], True),   # ocr_real's decoder prefill, a row without keys
+        (2, 16, 4, 320, 128, [258, 320], True),           # prod's decoder prefill: 80-row hops at 4 ranks
+        (2, 6, 6, 1024, 64, None, False),                 # ocr_real's global encoder call
+    ],
+)
+def test_ring_backward_matches_whole_and_plain(cuda, dtype, n, b, h, hkv, s, d, kv_len, causal):
+    """The gradient of n virtual ranks' ring: exactly n(n+1)/2 (causal) or
+    n*n launches of K1's backward, dq/dk/dv within GRAD_RTOL of K1's
+    whole-sequence backward and of autograd through mha_reference in f32,
+    zero on a row without keys."""
+    from vision_compression_project_tpu_torch.ops.ring_attention import ring_attention_virtual
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    inputs = [torch.randn((b, heads, s, d), generator=g, device=cuda).to(dtype) for heads in (h, hkv, hkv)]
+    grad = torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
+    kv = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    kernels.reset_launch_counts()
+    ring_attention_virtual(*leaves, n, causal=causal, kv_len=kv).backward(grad)
+    torch.cuda.synchronize()
+    want_hops = n * (n + 1) // 2 if causal else n * n
+    assert kernels.launches["flash_attention_bwd"] == want_hops and kernels.launches["flash_attention"] == want_hops
+    whole = [t.clone().requires_grad_() for t in inputs]
+    flash_attention(*whole, kv_len=kv, causal=causal).backward(grad)
+    plain = [t.float().requires_grad_() for t in inputs]
+    mha_reference(*plain, kv_len=kv, causal=causal).backward(grad.float())
+    for got, a, p in zip(leaves, whole, plain):
+        assert bool(torch.isfinite(got.grad).all())
+        assert _rel_err(got.grad, a.grad) <= GRAD_RTOL[dtype]
+        assert _rel_err(got.grad, p.grad) <= GRAD_RTOL[dtype]
+        for i in [i for i, n_keys in enumerate(kv_len or []) if n_keys == 0]:
+            assert bool((got.grad[i] == 0).all())
+
+
+def _nccl_rank_mesh_of_one():
+    """ocr_real at full width, 2 steps on a random batch of 2 rows, without a
+    mesh and on a mesh of 1: (losses, params equal, launches)."""
+    from vision_compression_project_tpu_torch.parallel import MeshConfig, build_mesh
+    from vision_compression_project_tpu_torch.train.train_step import make_train_state, train_step
+
+    torch.backends.cudnn.deterministic = True
+    cfg = get_preset("ocr_real")
+    g = torch.Generator().manual_seed(4)
+    v = cfg.vision
+    batch = {"patch_tokens": torch.randn((2, v.grid * v.grid, v.patch * v.patch * 3), generator=g)
+             .to("cuda", torch.bfloat16),
+             "token_ids": torch.randint(3, 4000, (2, 129), generator=g).to("cuda")}
+    runs = []
+    for mesh in (None, build_mesh(MeshConfig(1, 1, 1, 1), "cuda")):
+        model, opt, state = make_train_state(cfg, "cuda", seed=1, lr=1e-4, mesh=mesh)
+        kernels.reset_launch_counts()
+        losses = [float(train_step(model, opt, state, batch, mesh=mesh)[1]) for _ in range(2)]
+        runs.append((losses, {k: p.detach().clone() for k, p in state.params.items()}, dict(kernels.launches)))
+    (l0, p0, n0), (l1, p1, n1) = runs
+    return l0 == l1, all(torch.equal(p0[k], p1[k]) for k in p0), n0 == n1, n1
+
+
+def test_sharded_step_on_a_mesh_of_one_nccl_rank(cuda):
+    """make_train_state/train_step on a one-rank NCCL mesh: the unsharded
+    step's losses and parameters to the bit, the same K1 launches."""
+    from vision_compression_project_tpu_torch.parallel import spawn
+
+    ((losses_equal, params_equal, launches_equal, launches),) = spawn(
+        _nccl_rank_mesh_of_one, 1, device_type="cuda", timeout_s=600)
+    assert losses_equal and params_equal and launches_equal
+    assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0
+
+
+def test_tp_ep_prod_block_virtual_ranks(cuda):
+    """chip_smoke's (c): one prod MoE decoder block as model 2 x expert 2
+    virtual ranks, one K1 launch forward and backward a rank, within
+    GRAD_RTOL of the whole block (chip_smoke.fail exits on a mismatch)."""
+    import chip_smoke
+
+    rec = chip_smoke.tp_ep_block_phase(get_preset("prod"), 0)
+    assert rec["launches"] == {"flash_attention": 4, "flash_attention_bwd": 4}
+    assert rec["max_rel_err"] <= GRAD_RTOL[torch.bfloat16]
+
+
+FOUR_CARD_STEPS = 2
+
+
+def _four_card_batch(cfg, text_len, rows, seed):
+    from vision_compression_project_tpu_torch.train.data import device_batch, synthetic_batches
+
+    mixc = dict(kind="real", jumble_frac=0.5, font_size=24, lines=14, dpi=93)
+    return {k: v.cpu() for k, v in device_batch(cfg, next(synthetic_batches(
+        cfg, rows, text_len=text_len, seed=seed, **mixc)), device="cpu").items()}
+
+
+def _prod_train_cfg():
+    cfg = get_preset("prod")
+    return dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, depth_local=2, depth_global=2),
+                               decoder=dataclasses.replace(cfg.decoder, depth=4))
+
+
+def _four_card_steps(name, mesh_shape, batch):
+    """FOUR_CARD_STEPS sharded steps of `name` on a mesh (None: one card)."""
+    from vision_compression_project_tpu_torch.parallel import MeshConfig, build_mesh
+    from vision_compression_project_tpu_torch.parallel.sharding import shard_batch
+    from vision_compression_project_tpu_torch.train.train_step import make_train_state, train_step
+
+    cfg = _prod_train_cfg() if name == "prod_train" else get_preset("ocr_real")
+    mesh = None if mesh_shape is None else build_mesh(MeshConfig(*mesh_shape), "cuda")
+    model, opt, state = make_train_state(cfg, "cuda", seed=0, lr=1e-4, mesh=mesh)
+    batch = {k: v.to("cuda") for k, v in batch.items()}
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    kernels.reset_launch_counts()
+    losses = [float(train_step(model, opt, state, batch, mesh=mesh)[1]) for _ in range(FOUR_CARD_STEPS)]
+    return losses, dict(kernels.launches)
+
+
+def test_four_card_sharded_steps_match_one_card(cuda):
+    """World size 4 over NCCL, one card a rank: prod_train's depth cut (2 +
+    2 vision, 4 decoder blocks, full width) at expert 2 x model 2, and
+    ocr_real at mixC with text_len 513 (1,536 positions, 384 a rank) at
+    seq 4, FOUR_CARD_STEPS steps each on a batch of 4 pages: the losses of
+    every rank equal, and within 2e-2 x max(loss, 1) of one card's (bf16
+    activations summed over ranks in another order)."""
+    from vision_compression_project_tpu_torch.parallel import spawn
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        kernels.build(name)  # once, before the ranks load it
+    cases = {"prod_train": ((1, 1, 2, 2), _prod_train_cfg(), 511), "ocr_real": ((1, 4, 1, 1), get_preset("ocr_real"), 513)}
+    for name, (shape, cfg, text_len) in cases.items():
+        batch = _four_card_batch(cfg, text_len, 4, 0)
+        want, _ = _four_card_steps(name, None, batch)
+        torch.cuda.empty_cache()
+        outs = spawn(_four_card_steps, 4, name, shape, batch, device_type="cuda", timeout_s=900)
+        for losses, launches in outs:
+            assert losses == outs[0][0]
+            assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0
+            for got, w in zip(losses, want):
+                assert abs(got - w) <= 2e-2 * max(abs(w), 1.0), (name, losses, want)

@@ -14,8 +14,12 @@ Tolerances: bf16 atol 0.08 / rtol 0.05 (tests/test_sp_forward.py's own:
 bf16 rounding in other places), f32 atol 1e-4 (f32 sums in another order).
 Beside it, on the same ranks: a `seq` = 1 mesh keeps the single-rank path
 (no ring call); a vision-encoder block under `seq` = 2 attends over its
-whole input as without a mesh (no ring call); and a Switch-MoE decoder, a
-prefill or `OpticalVLM.forward` under `seq` = 2 raises.
+whole input as without a mesh (no ring call); a prefill under `seq` = 2
+raises; a Switch-MoE decoder (routing over the whole batch) and
+`OpticalVLM.forward` (the vision encoder whole on every `seq` rank, the
+decoder on the rank's chunk; a length that does not divide `seq` whole)
+under `seq` = 2 give the logits of the same f32 model without a mesh,
+within the f32 atol.
 This module imports JAX only inside its tests: the spawned ranks import it
 for `_rank_sp` and must not load JAX.
 """
@@ -29,7 +33,8 @@ import torch
 from vision_compression_project_tpu_torch.models import configs as tconfigs
 from vision_compression_project_tpu_torch.models import decoder as tdecoder
 from vision_compression_project_tpu_torch.models import vit as tvit
-from vision_compression_project_tpu_torch.models.vlm import OpticalVLM
+from vision_compression_project_tpu_torch.models.layers import init_weights_
+from vision_compression_project_tpu_torch.models.vlm import OpticalVLM, init_params
 from vision_compression_project_tpu_torch.ops import ring_attention as ring
 from vision_compression_project_tpu_torch.parallel import MeshConfig, build_mesh, spawn, use_mesh
 from vision_compression_project_tpu_torch.parallel.sharding import gather_shards, local_shard
@@ -96,20 +101,42 @@ def _rank_sp(trees):
         with use_mesh(mesh):
             meshed = block(xv)
     out["vit_block"] = (float((meshed - alone).abs().max()), len(calls))
-    # Refusals under seq = 2.
+    # Under seq = 2: the prefill refuses; a Switch-MoE decoder and the VLM's
+    # forward run, against the same f32 models without a mesh.
     moe_cfg = dataclasses.replace(tconfigs.get_preset("tiny_moe").decoder, dim=32, depth=2, heads=2, kv_heads=1,
                                   head_dim=16, vocab=64, dtype="float32")
-    vlm = OpticalVLM(tconfigs.get_preset("tiny"))
+    moe = tdecoder.Decoder(moe_cfg).eval()
+    init_weights_(moe, torch.Generator().manual_seed(6))
+    torch.manual_seed(6)
+    xm = torch.randn(2, 8, 32)
+    tiny = tconfigs.get_preset("tiny")
+    vlm = OpticalVLM(dataclasses.replace(tiny, vision=dataclasses.replace(tiny.vision, dtype="float32"),
+                                         decoder=dataclasses.replace(tiny.decoder, dtype="float32"))).eval()
+    init_params(vlm, 7)
     grid = vlm.cfg.vision.grid
+    pages = torch.randn(2, grid * grid, 16 * 16 * 3)
+    errs = {}
+    with torch.no_grad():
+        want_moe = moe(xm)
+        with use_mesh(mesh):
+            got = gather_shards(moe(local_shard(xm, mesh, AXES_IN)), mesh, AXES_OUT)
+        errs["moe"] = float((got - want_moe).abs().max())
+        for text in (8, 7):  # [16 vision ; 8 text] divides seq = 2; 16 + 7 runs whole
+            ids = torch.randint(3, 200, (2, text), generator=torch.Generator().manual_seed(text))
+            want = vlm(pages, ids)
+            with use_mesh(mesh):
+                got = vlm(local_shard(pages, mesh, ("batch", None, None)), local_shard(ids, mesh, ("batch", None)))
+            if got.shape[1] != want.shape[1]:
+                got = gather_shards(got, mesh, (None, "seq", None))
+            got = gather_shards(got, mesh, ("batch", None, None))
+            errs[f"vlm_{16 + text}"] = float((got - want).abs().max())
+    out["seq_mesh_max_abs_err"] = errs
     refused = {}
     with torch.no_grad(), use_mesh(mesh):
-        for name, fn in (("moe", lambda: tdecoder.Decoder(moe_cfg)(torch.zeros(2, 8, 32))),
-                         ("prefill", lambda: model.prefill(torch.zeros(2, 8, 64), cache_len=16)),
-                         ("vlm", lambda: vlm(torch.zeros(1, grid * grid, 16 * 16 * 3), torch.zeros(1, 8, dtype=torch.long)))):
-            try:
-                fn()
-            except NotImplementedError as exc:
-                refused[name] = str(exc)
+        try:
+            model.prefill(torch.zeros(2, 8, 64), cache_len=16)
+        except NotImplementedError as exc:
+            refused["prefill"] = str(exc)
     out["refused"] = refused
     return out
 
@@ -196,9 +223,12 @@ def test_seq_one_keeps_the_single_rank_path(runs):
 
 
 def test_moe_and_prefill_refuse_a_seq_mesh(runs):
+    """The prefill still refuses a seq = 2 mesh; the Switch-MoE decoder no
+    longer does and gives the logits of the whole batch without a mesh."""
     _, ranks = runs
     for o in ranks:
-        assert "SwitchMoE under a seq-sharded mesh" in o["refused"]["moe"]
+        assert "moe" not in o["refused"]
+        assert o["seq_mesh_max_abs_err"]["moe"] <= TOL["float32"]["atol"]
         assert "Attention.prefill under a seq-sharded mesh" in o["refused"]["prefill"]
 
 
@@ -210,6 +240,11 @@ def test_vision_block_attends_whole_under_a_seq_mesh(runs):
 
 
 def test_vlm_forward_refuses_a_seq_mesh(runs):
+    """OpticalVLM.forward no longer refuses a seq = 2 mesh: a length that
+    divides it (24) runs on chunks, one that does not (23) whole, both with
+    the logits of the model without a mesh."""
     _, ranks = runs
     for o in ranks:
-        assert "OpticalVLM.forward under a seq-sharded mesh" in o["refused"]["vlm"]
+        assert "vlm" not in o["refused"]
+        assert o["seq_mesh_max_abs_err"]["vlm_24"] <= TOL["float32"]["atol"]
+        assert o["seq_mesh_max_abs_err"]["vlm_23"] <= TOL["float32"]["atol"]

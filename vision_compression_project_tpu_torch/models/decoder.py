@@ -7,7 +7,11 @@ forward rematerialises every block in training, as the reference's
 
 The MoE's load-balancing term leaves a block through its return value, not
 as module state, so the remat recompute in the backward cannot overwrite or
-repeat it: `forward(..., aux_losses=[])` appends one term per MoE block."""
+repeat it: `forward(..., aux_losses=[])` appends one term per MoE block.
+
+Tensor parallelism: with its `model` shard of the vocab, the token
+embedding is vocab-parallel and the unembed's logits are gathered over
+`model` before the f32 cross-entropy (models/layers.py has the blocks')."""
 
 from __future__ import annotations
 
@@ -18,7 +22,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from .configs import DecoderConfig
-from .layers import Attention, Cache, Dense, RMSNorm, SwiGLU, SwitchMoE, remat, torch_dtype
+from ..parallel.mesh import AXIS_MODEL
+from ..parallel.tensor_parallel import copy_to, gather_from, reduce_from
+from .layers import Attention, Cache, Dense, RMSNorm, SwiGLU, SwitchMoE, mesh_coord, remat, torch_dtype
 
 
 class DecoderBlock(nn.Module):
@@ -73,10 +79,26 @@ class Decoder(nn.Module):
         self.unembed = Dense(cfg.dim, cfg.vocab, False, torch.float32)
 
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
-        return F.embedding(ids, self.embed.weight).to(self.dt)
+        """Token embeddings in the compute dtype. With its `model` shard of
+        the vocab, a rank looks up the ids in its range, zeroes the others
+        and the ranks' rows are summed (vocab-parallel): each id's row comes
+        from exactly one rank, so the sum is exact."""
+        w = self.embed.weight
+        n = w.shape[0]
+        if n == self.cfg.vocab:
+            return F.embedding(ids, w).to(self.dt)
+        local = ids - mesh_coord(AXIS_MODEL) * n
+        inside = (local >= 0) & (local < n)
+        rows = F.embedding(local.clamp(0, n - 1), w) * inside[..., None].to(w.dtype)
+        return reduce_from(rows, (AXIS_MODEL,)).to(self.dt)
 
     def hidden_to_logits(self, h: torch.Tensor) -> torch.Tensor:
-        return self.unembed(self.norm_f(h).to(torch.float32))
+        """f32 logits over the whole vocab; with a `model` shard of the
+        unembed, each rank's block of the vocab is gathered."""
+        h = self.norm_f(h).to(torch.float32)
+        if self.unembed.weight.shape[0] == self.cfg.vocab:
+            return self.unembed(h)
+        return gather_from(self.unembed(copy_to(h, (AXIS_MODEL,))), AXIS_MODEL, -1)
 
     def forward(
         self, x_emb: torch.Tensor, kv_len: Optional[torch.Tensor] = None,

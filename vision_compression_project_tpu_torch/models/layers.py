@@ -22,14 +22,28 @@ reference's `_seq_parallel_attn` does. Every other `Attention` (the vision
 encoder's) is given whole inputs on every rank and attends over them alone,
 as the reference's computes them under the same mesh. A sequence that does
 not divide the `seq` dimension cannot be split into such chunks
-(`local_shard` raises): it runs whole, outside a `seq` mesh, the path the
-reference falls back to.
+(`local_shard` raises): it runs whole on every `seq` rank inside
+`whole_sequence()`, the path the reference falls back to.
+
+Tensor and expert parallelism (parallel/tensor_parallel.py): a module whose
+parameters are this rank's shards (`parallel.sharding.shard_params`) sees
+it in their shapes. `Attention` then holds H/m query and Hkv/m KV heads of
+the `model` dimension's m ranks, its q/k/v projections column-parallel
+behind `copy_to` and its output projection row-parallel before
+`reduce_from`; `SwiGLU` likewise cuts its hidden width. `SwitchMoE` holds
+E/e experts of the `expert` dimension's e ranks, each with its `model`
+shard of the hidden width, and routes every token as the reference's global
+view does (`SwitchMoE.forward`). Without an active mesh a sharded module
+returns its rank's partial result, which is how one process checks the
+ranks' steps one by one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, Optional, Tuple, Union
+import threading
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +52,9 @@ from torch import nn
 
 from ..ops.attention import NEG_INF, flash_attention, mha_reference
 from ..ops import ring_attention as ring
-from ..parallel.mesh import AXIS_SEQ, axis_size
-from ..parallel.sharding import active_mesh
+from ..parallel.mesh import AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_SEQ, axis_size
+from ..parallel.sharding import active_mesh, use_mesh
+from ..parallel.tensor_parallel import copy_to, gather_cat, gather_from, group_size, reduce_from
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -61,10 +76,46 @@ def _attend(q, k, v, kv_len, causal: bool) -> torch.Tensor:
     return attend(q, k, v, kv_len=kv_len, causal=causal)
 
 
+_whole = threading.local()
+
+
+@contextlib.contextmanager
+def whole_sequence() -> Iterator[None]:
+    """Within the block every `seq` rank holds the whole sequence, not a
+    chunk: the fallback for a length that does not divide `seq`. Modules
+    attend over their input alone, and `SwitchMoE` counts each token once
+    over the `seq` ranks that all hold it."""
+    prev = getattr(_whole, "on", False)
+    _whole.on = True
+    try:
+        yield
+    finally:
+        _whole.on = prev
+
+
 def seq_mesh():
-    """The active mesh when its `seq` dimension holds more than one rank, else None."""
+    """The active mesh when its `seq` dimension holds more than one rank and
+    each holds a chunk of the sequence (not inside `whole_sequence()`), else None."""
     mesh = active_mesh()
-    return mesh if mesh is not None and axis_size(mesh, AXIS_SEQ) > 1 else None
+    if mesh is None or axis_size(mesh, AXIS_SEQ) == 1 or getattr(_whole, "on", False):
+        return None
+    return mesh
+
+
+def seq_replicas() -> int:
+    """How many `seq` ranks hold each token: the `seq` size inside
+    `whole_sequence()` under a mesh, else 1."""
+    mesh = active_mesh()
+    return axis_size(mesh, AXIS_SEQ) if mesh is not None and getattr(_whole, "on", False) else 1
+
+
+def mesh_coord(axis: str) -> int:
+    """This rank's coordinate along a dimension of the active mesh; a
+    sharded module outside a mesh cannot know its shard and raises."""
+    mesh = active_mesh()
+    if mesh is None:
+        raise RuntimeError(f"a module sharded over `{axis}` needs the active mesh (use_mesh) to know its shard")
+    return mesh.get_local_rank(axis)
 
 
 def whole_sequence_only(what: str) -> None:
@@ -75,15 +126,36 @@ def whole_sequence_only(what: str) -> None:
                                   "of the sequence (ring attention)")
 
 
+@contextlib.contextmanager
+def _as_at_call(mesh, whole: bool) -> Iterator[None]:
+    """The active mesh and `whole_sequence` state of a call, re-entered."""
+    prev = getattr(_whole, "on", False)
+    _whole.on = whole
+    try:
+        if mesh is None:
+            yield
+        else:
+            with use_mesh(mesh):
+                yield
+    finally:
+        _whole.on = prev
+
+
 def remat(block: nn.Module, *args, **kwargs):
     """block(*args, **kwargs), with its activations recomputed in the
     backward instead of stored (the reference's `nn.remat`) when grad is
-    enabled; a plain call otherwise, so inference is untouched."""
+    enabled; a plain call otherwise, so inference is untouched. The
+    recompute runs under the call's mesh and `whole_sequence` state, which
+    the autograd engine's own threads do not share."""
     if not torch.is_grad_enabled():
         return block(*args, **kwargs)
-    return torch.utils.checkpoint.checkpoint(
-        block, *args, use_reentrant=False, preserve_rng_state=False, **kwargs
-    )
+    mesh, whole = active_mesh(), getattr(_whole, "on", False)
+
+    def run(*a, **k):
+        with _as_at_call(mesh, whole):
+            return block(*a, **k)
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 @torch.no_grad()
@@ -218,16 +290,27 @@ class Attention(nn.Module):
             self.register_buffer("rope_cos", cos, persistent=False)
             self.register_buffer("rope_sin", sin, persistent=False)
 
+    def local_heads(self) -> Tuple[int, int]:
+        """(query heads, KV heads) this rank holds: all of them, or its
+        `model` shard's, as the weights' shapes show."""
+        return self.wq.weight.shape[0] // self.head_dim, self.wk.weight.shape[0] // self.head_dim
+
+    def _tp_axes(self) -> Tuple[str, ...]:
+        """(`model`,) when this module holds a `model` shard of the heads, else ()."""
+        return (AXIS_MODEL,) if self.wq.weight.shape[0] != self.heads * self.head_dim else ()
+
     def _qkv(self, x: torch.Tensor):
         b, s, _ = x.shape
-        q = self.wq(x).view(b, s, self.heads, self.head_dim).transpose(1, 2)
-        k = self.wk(x).view(b, s, self.kv_heads, self.head_dim).transpose(1, 2)
-        v = self.wv(x).view(b, s, self.kv_heads, self.head_dim).transpose(1, 2)
+        h, hkv = self.local_heads()
+        x = copy_to(x, self._tp_axes())
+        q = self.wq(x).view(b, s, h, self.head_dim).transpose(1, 2)
+        k = self.wk(x).view(b, s, hkv, self.head_dim).transpose(1, 2)
+        v = self.wv(x).view(b, s, hkv, self.head_dim).transpose(1, 2)
         return q, k, v
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
-        b, _, s, _ = o.shape
-        return self.wo(o.transpose(1, 2).reshape(b, s, self.heads * self.head_dim))
+        b, h, s, _ = o.shape
+        return reduce_from(self.wo(o.transpose(1, 2).reshape(b, s, h * self.head_dim)), self._tp_axes())
 
     def forward(self, x: torch.Tensor, kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: (B, S, dim), or, with `seq_parallel`, this rank's (B, S/n,
@@ -299,27 +382,64 @@ class Attention(nn.Module):
             k[rows, :, pos] = k_new[:, :, 0]
             v[rows, :, pos] = v_new[:, :, 0]
             pos_b = pos
-        group = self.heads // self.kv_heads
-        qg = q.reshape(b, self.kv_heads, group, self.head_dim).to(torch.float32)
+        h, hkv = self.local_heads()
+        group = h // hkv
+        qg = q.reshape(b, hkv, group, self.head_dim).to(torch.float32)
         scores = torch.einsum("bhgd,bhsd->bhgs", qg, k.to(torch.float32)) * (self.head_dim ** -0.5)
         idx = torch.arange(cache_len, device=x.device)[None, None, None, :]
         mask = idx <= pos_b[:, None, None, None]
         scores = torch.where(mask, scores, torch.tensor(NEG_INF, device=x.device))
         p = torch.softmax(scores, dim=-1)
         o = torch.einsum("bhgs,bhsd->bhgd", p, v.to(torch.float32)).to(x.dtype)
-        return self.wo(o.reshape(b, 1, self.heads * self.head_dim)), cache
+        return self._out(o.reshape(b, h, 1, self.head_dim)), cache
 
 
 class SwiGLU(nn.Module):
+    """down(silu(gate(x)) * up(x)); with its `model` shard of the hidden
+    width, gate/up column-parallel and down row-parallel."""
+
     def __init__(self, dim: int, hidden: int, dtype: str = "bfloat16"):
         super().__init__()
         dt = torch_dtype(dtype)
+        self.hidden = hidden
         self.gate = Dense(dim, hidden, False, dt)
         self.up = Dense(dim, hidden, False, dt)
         self.down = Dense(hidden, dim, False, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.silu(self.gate(x)) * self.up(x))
+        axes = () if self.gate.weight.shape[0] == self.hidden else (AXIS_MODEL,)
+        x = copy_to(x, axes)
+        return reduce_from(self.down(F.silu(self.gate(x)) * self.up(x)), axes)
+
+
+def token_axes() -> Tuple[str, ...]:
+    """The mesh dimensions over which the ranks hold different tokens of a
+    batch: `data`, and `seq` while each `seq` rank holds a chunk."""
+    return (AXIS_DATA, AXIS_SEQ) if seq_mesh() is not None else (AXIS_DATA,)
+
+
+def route_offsets(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Global routing order from this rank's per-row expert counts (b, E):
+    (the number of same-expert tokens before each of its rows' chunk in the
+    reference's global token order, batch row major, then sequence
+    position, (b, E); every expert's count over the whole batch, (E,)).
+    The counts of every rank that holds other tokens are gathered, a few
+    hundred integers; without a mesh the rank's rows are the batch."""
+    mesh = active_mesh()
+    sharded_seq = seq_mesh() is not None
+    ns = axis_size(mesh, AXIS_SEQ) if sharded_seq else 1
+    q = mesh.get_local_rank(AXIS_SEQ) if sharded_seq else 0
+    nd = axis_size(mesh, AXIS_DATA) if mesh is not None else 1
+    d = mesh.get_local_rank(AXIS_DATA) if nd > 1 else 0
+    b, e = counts.shape
+    every = counts[None, None]
+    if ns > 1:
+        every = gather_cat(every, AXIS_SEQ, 1)
+    if nd > 1:
+        every = gather_cat(every, AXIS_DATA, 0)
+    order = every.permute(0, 2, 1, 3).reshape(-1, e)             # (nd * b * ns, E), global order
+    before = (torch.cumsum(order, dim=0) - order).view(nd, b, ns, e)[d, :, q]
+    return before, order.sum(dim=0)
 
 
 class SwitchMoE(nn.Module):
@@ -344,13 +464,27 @@ class SwitchMoE(nn.Module):
     tokens it holds.
 
     `forward` returns (y, aux): aux = E * sum_e density_e * mean_prob_e, the
-    Switch load-balancing term the reference sows for its train step."""
+    Switch load-balancing term the reference sows for its train step.
+
+    Under a mesh the routing is the reference's global view: its capacity
+    counts the T tokens of the whole batch, a token's slot is its position
+    among all earlier same-expert tokens of the whole batch, and the aux
+    term's means run over all of them (`route_offsets` gathers the counts
+    over `data` and `seq`); each rank returns its tokens' share of aux,
+    sum_e density_e * (sum of its tokens' probs) / T, so the shares of the
+    ranks holding other tokens sum to the whole. With its `expert` shard a
+    rank runs only its E/e experts (the router's logits gathered over
+    `expert` first) and, with its `model` shard, only its part of their
+    hidden width; tokens are replicated over both dimensions, so the
+    combine is the sum of the ranks' partial outputs (`reduce_from`), and
+    no token moves between ranks."""
 
     def __init__(self, dim: int, num_experts: int, hidden: int, capacity_factor: float = 1.25,
                  dtype: str = "bfloat16"):
         super().__init__()
         dt = torch_dtype(dtype)
         self.num_experts, self.capacity_factor, self.compute_dtype = num_experts, capacity_factor, dt
+        self.hidden = hidden
         self.router = Dense(dim, num_experts, False, torch.float32)
         self.w_gate = nn.Parameter(torch.empty(num_experts, dim, hidden, dtype=dt))
         self.w_up = nn.Parameter(torch.empty(num_experts, dim, hidden, dtype=dt))
@@ -365,32 +499,66 @@ class SwitchMoE(nn.Module):
             for e in range(w.shape[0]):
                 _lecun_normal_(w[e], w.shape[0] * w.shape[1], g)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        if seq_mesh() is not None:
-            # The capacity counts the tokens of the whole sequence; a rank
-            # holding its chunk would route and drop other tokens.
-            raise NotImplementedError("SwitchMoE under a seq-sharded mesh: routing experts across ranks is the "
-                                      "expert-parallel slice (ROADMAP queue 1 item 6)")
-        b, s, d = x.shape
+    def routing(self, logits: torch.Tensor, b: int, s: int) -> Dict[str, torch.Tensor]:
+        """The routing of this rank's b x s tokens from their router logits
+        over all E experts, (T, E), as the reference's global view routes
+        them (the class docstring): probs, expert, gate, slot position `pos`
+        and `capacity`, and the aux term's share `aux`."""
         t, e = b * s, self.num_experts
-        capacity = max(1, int(self.capacity_factor * t / e))
-        probs = torch.softmax(self.router(x.to(torch.float32)).reshape(t, e), dim=-1)
+        t_all = t * group_size(active_mesh(), token_axes())
+        capacity = max(1, int(self.capacity_factor * t_all / e))
+        probs = torch.softmax(logits, dim=-1)
         expert = torch.argmax(probs, dim=-1)                                # (T,)
         gate = probs.gather(1, expert[:, None])[:, 0]                       # (T,)
         onehot = F.one_hot(expert, e)                                       # (T, E) int64
-        pos = (torch.cumsum(onehot, dim=0) * onehot).sum(dim=-1) - 1        # (T,)
-        keep = pos < capacity
-        # Slot of each kept token in the (E * C) buffer; dropped tokens go to
-        # one spare row past the end, which reads back as 0.
-        slot = torch.where(keep, expert * capacity + pos, torch.full_like(pos, e * capacity))
+        rows = onehot.view(b, s, e)
+        before, counts = route_offsets(rows.sum(dim=1))
+        # Slot of each token: same-expert tokens of its row so far, after
+        # those of every earlier row and chunk of the whole batch.
+        pos = ((torch.cumsum(rows, dim=1) + before[:, None, :]) * rows).sum(dim=-1).reshape(t) - 1
+        if t_all == t and seq_replicas() == 1:
+            density = onehot.to(torch.float32).mean(dim=0)
+            aux = e * torch.sum(density * probs.mean(dim=0))
+        else:
+            density = counts.to(torch.float32) / t_all
+            aux = e * torch.sum(density * probs.sum(dim=0) / t_all) / seq_replicas()
+        return {"probs": probs, "expert": expert, "gate": gate, "pos": pos, "capacity": capacity, "aux": aux}
+
+    def expert_partial(self, x: torch.Tensor, route: Dict[str, torch.Tensor], first: int) -> torch.Tensor:
+        """(T, d) f32: the outputs of the experts this module holds (E_local
+        of them, the first numbered `first`, with the hidden width its
+        weights have) for the tokens routed to them within capacity, before
+        the gate; 0 for every other token. The sum of these over the ranks
+        of `expert` and `model` is the whole MoE's."""
+        t, d = x.shape[0] * x.shape[1], x.shape[2]
+        e_local, capacity = self.w_gate.shape[0], route["capacity"]
+        expert, pos = route["expert"], route["pos"]
+        mine = (pos < capacity) & (expert >= first) & (expert < first + e_local)
+        # Slot of each of its tokens in the (E_local * C) buffer; every other
+        # token goes to one spare row past the end, which reads back as 0.
+        slot = torch.where(mine, (expert - first) * capacity + pos, torch.full_like(pos, e_local * capacity))
         dt = self.compute_dtype
-        buf = x.new_zeros((e * capacity + 1, d), dtype=dt)
+        buf = x.new_zeros((e_local * capacity + 1, d), dtype=dt)
         buf.index_copy_(0, slot, x.reshape(t, d).to(dt))
-        expert_in = buf[: e * capacity].view(e, capacity, d)
+        expert_in = buf[: e_local * capacity].view(e_local, capacity, d)
         h = F.silu(torch.bmm(expert_in, self.w_gate)) * torch.bmm(expert_in, self.w_up)
-        expert_out = torch.bmm(h, self.w_down).view(e * capacity, d)
+        expert_out = torch.bmm(h, self.w_down).view(e_local * capacity, d)
         out = torch.cat([expert_out.to(torch.float32), expert_out.new_zeros((1, d), dtype=torch.float32)])
-        combined = out.index_select(0, slot) * gate[:, None]
-        density = onehot.to(torch.float32).mean(dim=0)
-        aux = e * torch.sum(density * probs.mean(dim=0))
-        return combined.reshape(b, s, d).to(x.dtype), aux
+        return out.index_select(0, slot)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        b, s, d = x.shape
+        e_local, hidden_local = self.w_gate.shape[0], self.w_gate.shape[2]
+        ep_axes = tuple(a for a, sharded in ((AXIS_EXPERT, e_local != self.num_experts),
+                                             (AXIS_MODEL, hidden_local != self.hidden)) if sharded)
+        x32 = x.to(torch.float32)
+        if e_local != self.num_experts:
+            x32 = copy_to(x32, (AXIS_EXPERT,))
+        logits = self.router(x32).reshape(b * s, e_local)
+        if e_local != self.num_experts:
+            logits = gather_from(logits, AXIS_EXPERT, 1)
+        route = self.routing(logits, b, s)
+        first = mesh_coord(AXIS_EXPERT) * e_local if e_local != self.num_experts else 0
+        picked = reduce_from(self.expert_partial(copy_to(x, ep_axes), route, first), ep_axes)
+        combined = picked * route["gate"][:, None]
+        return combined.reshape(b, s, d).to(x.dtype), route["aux"]

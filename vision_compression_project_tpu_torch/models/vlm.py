@@ -15,6 +15,7 @@ text up to EOS.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -25,7 +26,10 @@ from ..ops.glyph_render import pack_primitives, render_pages_from_glyphs
 from ..ops.preprocess import preprocess_pages
 from .configs import VLMConfig
 from .decoder import Decoder
-from .layers import Dense, init_weights_, normal_, torch_dtype, whole_sequence_only
+from ..parallel.mesh import AXIS_DATA, AXIS_SEQ, axis_size
+from ..parallel.sharding import keep_shards, local_shard, use_mesh
+from ..parallel.tensor_parallel import gather_cat, sum_over
+from .layers import Dense, init_weights_, normal_, seq_mesh, torch_dtype, whole_sequence
 from .tokenizer import BOS_ID, EOS_ID, PAD_ID, SEP_ID, TASK_ANSWER_ID, TASK_EXTRACT_ID, get_tokenizer
 from .vit import VisionEncoder
 
@@ -84,15 +88,23 @@ class OpticalVLM(nn.Module):
         aux_losses: Optional[List[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Training/eval forward: logits over the [vision ; text] sequence;
-        the decoder's MoE terms go to `aux_losses` (Decoder.forward). Not
-        under a `seq` mesh: it would hand the decoder the whole sequence as
-        this rank's chunk."""
-        whole_sequence_only("OpticalVLM.forward")
+        the decoder's MoE terms go to `aux_losses` (Decoder.forward). Under
+        a mesh whose `seq` dimension holds n > 1 ranks, as the reference's
+        global view computes it: every `seq` rank runs the vision encoder on
+        its pages whole, and the decoder takes this rank's chunk of
+        [vision ; text] and returns that chunk's logits; a length that does
+        not divide n runs whole on every `seq` rank (`whole_sequence`)."""
         vis = self.encode_pages(patch_tokens)
         txt = self.decoder.embed_tokens(token_ids)
         x = torch.cat([vis, txt.to(vis.dtype)], dim=1)
         total_len = None if kv_len is None else kv_len + vis.shape[1]
-        return self.decoder(x, kv_len=total_len, aux_losses=aux_losses)
+        mesh = seq_mesh()
+        if mesh is None:
+            return self.decoder(x, kv_len=total_len, aux_losses=aux_losses)
+        if x.shape[1] % axis_size(mesh, AXIS_SEQ):
+            with whole_sequence():
+                return self.decoder(x, kv_len=total_len, aux_losses=aux_losses)
+        return self.decoder(local_shard(x, mesh, (None, "seq", None)), kv_len=total_len, aux_losses=aux_losses)
 
     def prefill_mixed(
         self,
@@ -129,7 +141,19 @@ class VLMRunner:
     `weights.params_from_jax` or `train.checkpoint.load_runner`) is given.
     Runs on `device`, "cuda" unless the caller asks for "cpu". Extraction and
     answers decode at most `max_new_default` tokens unless a call asks for
-    another bound."""
+    another bound.
+
+    With a `mesh` (of the device's type; every rank constructs the runner
+    and makes the same calls), the reference's multi-chip serving: each
+    rank keeps its shard of the whole parameters
+    (`parallel.sharding.shard_params`), a page batch goes over `data` (each
+    rank encodes and decodes its rows, and the tokens are gathered, so every
+    rank returns the whole batch's pages), and prefill and decode run the
+    `model` and `expert` shards on local heads and a local KV cache, the
+    logits gathered before the grammar mask and the argmax. The decode loop
+    stops once every row of every `data` rank has emitted EOS. Under a `seq`
+    dimension of more than one rank, generation raises, as the whole-sequence
+    prefill and decode do."""
 
     def __init__(
         self,
@@ -138,10 +162,14 @@ class VLMRunner:
         seed: int = 0,
         max_new_default: int = MAX_NEW,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("VLMRunner: device 'cuda' asked for, but no CUDA device is available")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"VLMRunner: a {mesh.device_type} mesh for a runner on {self.device}")
+        self.mesh = mesh
         self.cfg = cfg
         self.max_new_default = max_new_default
         self.tok = get_tokenizer(cfg)
@@ -153,6 +181,8 @@ class VLMRunner:
             init_params(model, seed)
         else:
             model.load_state_dict(params)
+        if mesh is not None:
+            keep_shards(model, mesh)
         self.model = model.to(self.device).eval()
         self._masks: Dict[str, torch.Tensor] = {}
         self._blank_vis: Optional[torch.Tensor] = None
@@ -176,9 +206,18 @@ class VLMRunner:
             pages, target_h=cfg.image_size, target_w=cfg.image_size, patch=cfg.patch
         )
 
+    def _on_mesh(self):
+        """The runner's mesh as the active mesh, or nothing without one."""
+        return contextlib.nullcontext() if self.mesh is None else use_mesh(self.mesh)
+
+    def _local_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's `data` rows of a page batch (all of them without a mesh)."""
+        return x if self.mesh is None else local_shard(x, self.mesh, ("batch",) + (None,) * (x.dim() - 1))
+
     @torch.inference_mode()
     def encode(self, patches: torch.Tensor) -> torch.Tensor:
-        return self.model.encode_pages(patches)
+        with self._on_mesh():
+            return self.model.encode_pages(patches)
 
     def pad_prompts(self, prompts: Sequence[Sequence[int]]) -> Tuple[torch.Tensor, List[int]]:
         """(B, plen) ids, plen bucketed up to PROMPT_BUCKET, and true lengths."""
@@ -199,9 +238,10 @@ class VLMRunner:
         row's last real position, caches padded to cache_len, kv_len (B,))."""
         vis_len = 0 if vision_emb is None else vision_emb.shape[1]
         kv_len = torch.as_tensor(lens, dtype=torch.int32, device=self.device) + vis_len
-        h, caches = self.model.prefill_mixed(vision_emb, ids, kv_len, cache_len)
-        last = h[torch.arange(h.shape[0], device=self.device), kv_len.long() - 1]
-        return self.model.decoder.hidden_to_logits(last), caches, kv_len
+        with self._on_mesh():
+            h, caches = self.model.prefill_mixed(vision_emb, ids, kv_len, cache_len)
+            last = h[torch.arange(h.shape[0], device=self.device), kv_len.long() - 1]
+            return self.model.decoder.hidden_to_logits(last), caches, kv_len
 
     @torch.inference_mode()
     def generate(
@@ -235,9 +275,10 @@ class VLMRunner:
         out[:, 0] = first
         last_tok = first
         for i in range(1, max_new):
-            if bool(done.all()):
+            if self._all_done(done):
                 break
-            step_logits, caches = self.model.decode_ids(last_tok, caches, pos)
+            with self._on_mesh():
+                step_logits, caches = self.model.decode_ids(last_tok, caches, pos)
             tok = torch.argmax(step_logits + mask, dim=-1)
             tok = torch.where(done, torch.full_like(tok, PAD_ID), tok)
             out[:, i] = tok
@@ -245,6 +286,17 @@ class VLMRunner:
             last_tok = tok
             pos = pos + 1
         return out
+
+    def _all_done(self, done: torch.Tensor) -> bool:
+        """Whether every row has emitted EOS: this rank's rows, and with a
+        mesh those of every `data` rank, so all ranks decode the same steps."""
+        if self.mesh is None:
+            return bool(done.all())
+        return int(sum_over((~done).sum(), (AXIS_DATA,), self.mesh)) == 0
+
+    def _all_rows(self, toks: torch.Tensor) -> torch.Tensor:
+        """The tokens of every `data` rank's rows, in batch order."""
+        return toks if self.mesh is None else gather_cat(toks, AXIS_DATA, 0, self.mesh)
 
     @staticmethod
     def _collect_tokens(toks: torch.Tensor) -> List[List[int]]:
@@ -263,9 +315,9 @@ class VLMRunner:
         (B, H, W, 3) uint8 pages; returns a handle for `collect_extract`. The
         batch may be padded past `page_numbers`: collect_extract keeps one
         record per page number."""
-        vis = self.encode(self.preprocess_patches(pages_u8))
-        prompts = [[BOS_ID, TASK_EXTRACT_ID]] * int(pages_u8.shape[0])
-        return self.generate(prompts, vis, max_new or self.max_new_default), list(page_numbers)
+        vis = self.encode(self._local_rows(self.preprocess_patches(pages_u8)))
+        prompts = [[BOS_ID, TASK_EXTRACT_ID]] * int(vis.shape[0])
+        return self._all_rows(self.generate(prompts, vis, max_new or self.max_new_default)), list(page_numbers)
 
     def extract_batch_async_glyphs(
         self, primitives, render_hw: Tuple[int, int], page_numbers: List[int],
@@ -278,9 +330,9 @@ class VLMRunner:
         arrays = [torch.from_numpy(a).to(self.device) for a in pack_primitives(primitives)]
         with torch.inference_mode():
             pages_gray = render_pages_from_glyphs(*arrays, h=h, w=w)
-        vis = self.encode(self.preprocess_patches(pages_gray))
-        prompts = [[BOS_ID, TASK_EXTRACT_ID]] * len(primitives)
-        return self.generate(prompts, vis, max_new or self.max_new_default), list(page_numbers)
+        vis = self.encode(self._local_rows(self.preprocess_patches(pages_gray)))
+        prompts = [[BOS_ID, TASK_EXTRACT_ID]] * int(vis.shape[0])
+        return self._all_rows(self.generate(prompts, vis, max_new or self.max_new_default)), list(page_numbers)
 
     def collect_extract(self, handle) -> List[Dict]:
         """A batch's tokens -> one {page_number, markdown, entities, summary}

@@ -191,6 +191,59 @@ def flash_attention_bwd(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_attention_bwd_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    g: torch.Tensor,
+    lse: torch.Tensor,
+    kv_len: Optional[torch.Tensor],
+    causal: bool,
+    scale: float,
+    chunk: int = 256,
+):
+    """The backward kernel's plain version, from the forward's output and
+    row log-sum-exp as the kernel takes them: (dq, dk, dv) in the inputs'
+    dtypes, with the weights P = exp(scale * q.k - lse) on the valid keys of
+    k/v and Delta = rowsum(g * o). `lse` may cover more keys than k/v hold
+    (the merged log-sum-exp of a ring, each hop one call): the result is
+    then this call's part of the gradient. A row with lse = +inf (no valid
+    key) has P = 0 and zero gradients."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    chunk = min(chunk, sq)
+    dev = q.device
+    kr = k.float().repeat_interleave(group, dim=1)
+    vr = v.float().repeat_interleave(group, dim=1)
+    delta = (g.float() * o.float()).sum(dim=-1)
+    k_idx = torch.arange(sk, device=dev)
+    mask = torch.ones((b, 1, 1, sk), dtype=torch.bool, device=dev)
+    if kv_len is not None:
+        mask = k_idx[None, None, None, :] < kv_len.to(dev)[:, None, None, None]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    dq = torch.empty((b, h, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.zeros((b, h, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.zeros((b, h, sk, d), dtype=torch.float32, device=dev)
+    for c0 in range(0, sq, chunk):
+        c1 = min(c0 + chunk, sq)
+        q_i, g_i = q[:, :, c0:c1].float(), g[:, :, c0:c1].float()
+        s = torch.einsum("bhqd,bhkd->bhqk", q_i, kr) * scale
+        m = mask
+        if causal:
+            m = m & (k_idx[None, None, None, :] <= torch.arange(c0, c1, device=dev)[None, None, :, None])
+        p = torch.where(m, torch.exp(s - lse[:, :, c0:c1, None]), zero)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, g_i)
+        dp = torch.einsum("bhqd,bhkd->bhqk", g_i, vr)
+        ds = p * (dp - delta[:, :, c0:c1, None])
+        dq[:, :, c0:c1] = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, q_i) * scale
+    dk = dk.view(b, hkv, group, sk, d).sum(dim=2)
+    dv = dv.view(b, hkv, group, sk, d).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Attention with a gradient, the port of the reference's custom_vjp
     (`_flash_core`). On the card: the forward kernel, which also writes each

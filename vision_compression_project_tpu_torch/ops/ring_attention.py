@@ -25,7 +25,20 @@ the reference's ring gives the mean of v there (ROADMAP queue 3 item 3).
 
 GQA: the reference repeats k and v to H heads before the ring; K1 takes the
 Hkv heads itself, so here the ring carries Hkv heads, fewer bytes a hop, for
-the same output. The ring has no gradient yet: under autograd it raises.
+the same output.
+
+The gradient (`RingAttentionFn`, the reference's `jax.grad` through its
+ring): the forward keeps q, the rank's k/v chunk, the merged output and the
+merged log-sum-exp. The backward is a second ring in which each k/v chunk
+travels with its dK/dV, accumulated in f32, until they come back to the
+rank that owns the chunk. Each hop is one call of `ring_step_bwd`: on the
+card one launch of K1's backward kernel (kernels/flash_attention_bwd.cu)
+with the merged output and log-sum-exp, the hop's mask and clamped
+`kv_len`, which gives that hop's part of dQ, dK and dV; on the CPU its
+plain version (`flash_attention_bwd_lse`). The hops the causal forward
+skipped are skipped again. A row with no valid key anywhere has merged
+log-sum-exp -inf, which becomes +inf (K1's convention) for the backward, so
+its gradients are 0.
 """
 
 from __future__ import annotations
@@ -39,7 +52,7 @@ from torch.distributed.device_mesh import DeviceMesh
 from .. import kernels
 from ..parallel.mesh import AXIS_SEQ, axis_size
 from ..parallel.sharding import gather_shards, local_shard
-from .attention import _kernel_operands, attention_lse, mha_reference
+from .attention import _kernel_operands, _readable, attention_lse, flash_attention_bwd_lse, mha_reference
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 
@@ -58,6 +71,28 @@ def ring_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, kv_len: Optiona
     return out, lse
 
 
+def ring_step_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor, g: torch.Tensor,
+                  lse: torch.Tensor, kv_len: Optional[torch.Tensor], causal: bool, scale: float):
+    """One hop of the backward ring: this hop's part of (dq, dk, dv), in
+    the inputs' dtype, from the merged output o, its gradient g and the
+    merged lse (+inf on a row without a valid key). On a CUDA tensor one
+    launch of K1's backward and nothing else; on a CPU tensor the plain
+    version."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_lse(q, k, v, o, g, lse, kv_len, causal, scale)
+    q, k, v, kv_len = _kernel_operands(q, k, v, kv_len)
+    return kernels.flash_attention_bwd(q, k, v, _readable(o), _readable(g), lse, kv_len, causal, scale)
+
+
+def _hop(idx: int, src: int, chunk: int, causal: bool, kv_len: Optional[torch.Tensor]):
+    """(runs, causal, kv_len) of the hop in which rank idx meets the chunk
+    that started on rank src."""
+    if causal and src > idx:
+        return False, False, None
+    hop_len = None if kv_len is None else (kv_len - src * chunk).clamp(0, chunk).to(torch.int32)
+    return True, causal and src == idx, hop_len
+
+
 def _merge(out: torch.Tensor, lse: torch.Tensor, o_hop: torch.Tensor, lse_hop: torch.Tensor):
     """Fold one hop's normalised output into the running (out, lse), in f32."""
     lse_hop = lse_hop.masked_fill(lse_hop == float("inf"), float("-inf"))
@@ -71,22 +106,28 @@ def _merge(out: torch.Tensor, lse: torch.Tensor, o_hop: torch.Tensor, lse_hop: t
 
 
 def ring_rank(q: torch.Tensor, hops: Iterable[KV], idx: int, n: int, causal: bool, scale: float,
-              kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+              kv_len: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rank `idx`'s attention over a ring of n chunks: q is its (B, H, chunk,
     D) query chunk, `hops` yields the (k, v) chunk of each hop in ring order
     (hop i holds the chunk that started on rank (idx - i) % n), kv_len the
-    (B,) global key lengths or None. Returns (B, H, chunk, D) in q's dtype."""
+    (B,) global key lengths or None. Returns (out (B, H, chunk, D) in q's
+    dtype, the merged lse (B, H, chunk) f32, +inf on a row without a valid
+    key)."""
     b, h, chunk, d = q.shape
     out = torch.zeros((b, h, chunk, d), dtype=torch.float32, device=q.device)
     lse = torch.full((b, h, chunk), float("-inf"), dtype=torch.float32, device=q.device)
     for i, (k, v) in enumerate(hops):
-        src = (idx - i) % n
-        if causal and src > idx:
-            continue
-        hop_len = None if kv_len is None else (kv_len - src * chunk).clamp(0, chunk).to(torch.int32)
-        o_hop, lse_hop = ring_step(q, k, v, hop_len, causal and src == idx, scale)
-        out, lse = _merge(out, lse, o_hop, lse_hop)
-    return out.to(q.dtype)
+        runs, hop_causal, hop_len = _hop(idx, (idx - i) % n, chunk, causal, kv_len)
+        if runs:
+            o_hop, lse_hop = ring_step(q, k, v, hop_len, hop_causal, scale)
+            out, lse = _merge(out, lse, o_hop, lse_hop)
+    return out.to(q.dtype), lse.masked_fill(lse == float("-inf"), float("inf"))
+
+
+def _hop_grads(q, k, v, o, g, lse, idx: int, src: int, causal: bool, scale: float, kv_len):
+    """This hop's (dq, dk, dv), or None for a hop the causal forward skipped."""
+    runs, hop_causal, hop_len = _hop(idx, src, q.shape[2], causal, kv_len)
+    return ring_step_bwd(q, k, v, o, g, lse, hop_len, hop_causal, scale) if runs else None
 
 
 def _rotate(k: torch.Tensor, v: torch.Tensor, group: dist.ProcessGroup, idx: int, n: int) -> Iterator[KV]:
@@ -110,11 +151,96 @@ def _rotate(k: torch.Tensor, v: torch.Tensor, group: dist.ProcessGroup, idx: int
             cur = nxt
 
 
-def _no_grad_check(*tensors: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ring_attention has no gradient yet: its backward (a reverse ring through the flash-attention "
-            "backward kernel) is ROADMAP queue 1 item 6, the training half, step 3")
+def _exchange(tensors: Tuple[torch.Tensor, ...], group: dist.ProcessGroup, idx: int, n: int):
+    """Send `tensors` to rank idx + 1 of the ring and return the same number
+    received from rank idx - 1 (all operations posted together)."""
+    to, frm = dist.get_global_rank(group, (idx + 1) % n), dist.get_global_rank(group, (idx - 1) % n)
+    got = tuple(torch.empty_like(t) for t in tensors)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, t.contiguous(), to, group) for t in tensors]
+                                  + [dist.P2POp(dist.irecv, t, frm, group) for t in got])
+    for req in reqs:
+        req.wait()
+    return got
+
+
+def _ring_bwd(group, q, k, v, o, g, lse, idx: int, n: int, causal: bool, scale: float, kv_len):
+    """The backward ring of rank idx: its dq, and the dk/dv of its own k/v
+    chunk, which reach it after visiting every rank."""
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    cur = (k.contiguous(), v.contiguous(), torch.zeros(k.shape, dtype=torch.float32, device=k.device),
+           torch.zeros(v.shape, dtype=torch.float32, device=v.device))
+    for i in range(n):
+        grads = _hop_grads(q, cur[0], cur[1], o, g, lse, idx, (idx - i) % n, causal, scale, kv_len)
+        if grads is not None:
+            dq += grads[0]
+            cur[2].add_(grads[1])
+            cur[3].add_(grads[2])
+        if n == 1:
+            break
+        if i < n - 1:
+            cur = _exchange(cur, group, idx, n)
+        else:  # the accumulators go home: chunk idx + 1's to rank idx + 1
+            cur = (k, v) + _exchange(cur[2:], group, idx, n)
+    return dq.to(q.dtype), cur[2].to(k.dtype), cur[3].to(v.dtype)
+
+
+class RingAttentionFn(torch.autograd.Function):
+    """ring_attention with its gradient (the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, mesh, axis_name, causal, scale):
+        n, idx = axis_size(mesh, axis_name), mesh.get_local_rank(axis_name)
+        group = mesh.get_group(axis_name)
+        hops = _rotate(k, v, group, idx, n) if n > 1 else [(k, v)]
+        out, lse = ring_rank(q, hops, idx, n, causal, scale, kv_len)
+        ctx.group, ctx.idx, ctx.n, ctx.causal, ctx.scale = group, idx, n, causal, scale
+        ctx.save_for_backward(q, k, v, out, lse, kv_len)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, lse, kv_len = ctx.saved_tensors
+        dq, dk, dv = _ring_bwd(ctx.group, q, k, v, o, g.contiguous(), lse, ctx.idx, ctx.n, ctx.causal, ctx.scale,
+                               kv_len)
+        return dq, dk, dv, None, None, None, None, None
+
+
+class VirtualRingAttentionFn(torch.autograd.Function):
+    """ring_attention_virtual with its gradient: the n ranks' backward rings
+    in one process, each chunk's dK/dV summed where its rank would receive it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_len, n, causal, scale):
+        kc, vc = k.chunk(n, 2), v.chunk(n, 2)
+        outs, lses = zip(*(
+            ring_rank(qi, [(kc[(idx - i) % n], vc[(idx - i) % n]) for i in range(n)], idx, n, causal, scale, kv_len)
+            for idx, qi in enumerate(q.chunk(n, 2))))
+        out = torch.cat(outs, dim=2)
+        ctx.n, ctx.causal, ctx.scale = n, causal, scale
+        ctx.save_for_backward(q, k, v, out, torch.cat(lses, dim=2), kv_len)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        q, k, v, o, lse, kv_len = ctx.saved_tensors
+        n = ctx.n
+        qc, kc, vc, oc, gc, lc = (t.chunk(n, 2) for t in (q, k, v, o, g.contiguous(), lse))
+        dq = [torch.zeros(c.shape, dtype=torch.float32, device=q.device) for c in qc]
+        dk = [torch.zeros(c.shape, dtype=torch.float32, device=q.device) for c in kc]
+        dv = [torch.zeros(c.shape, dtype=torch.float32, device=q.device) for c in vc]
+        for idx in range(n):
+            o_i, g_i, l_i = oc[idx].contiguous(), gc[idx].contiguous(), lc[idx].contiguous()
+            for src in range(n):
+                grads = _hop_grads(qc[idx], kc[src], vc[src], o_i, g_i, l_i, idx, src, ctx.causal, ctx.scale,
+                                   kv_len)
+                if grads is not None:
+                    dq[idx] += grads[0]
+                    dk[src] += grads[1]
+                    dv[src] += grads[2]
+        return (torch.cat(dq, 2).to(q.dtype), torch.cat(dk, 2).to(k.dtype), torch.cat(dv, 2).to(v.dtype),
+                None, None, None, None)
 
 
 def ring_attention(
@@ -134,13 +260,11 @@ def ring_attention(
     None. Returns this rank's (B, H, S/n, D) chunk of the output. The
     reference's `batch_axis` and `head_axis` (co-sharding B and H) have no
     counterpart: each rank already holds its rows and heads, which go
-    through the ring untouched."""
-    _no_grad_check(q, k, v)
-    n, idx = axis_size(mesh, axis_name), mesh.get_local_rank(axis_name)
+    through the ring untouched. With grad enabled the call has a gradient
+    (RingAttentionFn)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    hops = _rotate(k, v, mesh.get_group(axis_name), idx, n) if n > 1 else [(k, v)]
-    return ring_rank(q, hops, idx, n, causal, scale, kv_len)
+    return RingAttentionFn.apply(q, k, v, kv_len, mesh, axis_name, causal, scale)
 
 
 def ring_attention_sharded_inputs(mesh: DeviceMesh, q, k, v, **kwargs) -> torch.Tensor:
@@ -158,14 +282,11 @@ def ring_attention_virtual(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n:
     (B, H, S, D) inputs: the same hops, masks and merges as ring_attention
     (so the same kernel launches: n(n+1)/2 under `causal`, n*n without),
     each hop's chunk taken by index instead of received. For holding the
-    ring's arithmetic against one whole-sequence call on one device."""
-    _no_grad_check(q, k, v)
+    ring's arithmetic against one whole-sequence call on one device. Its
+    gradient runs the n backward rings' hops: n(n+1)/2 launches of K1's
+    backward under `causal`, n*n without."""
     if q.shape[2] % n:
         raise ValueError(f"sequence of {q.shape[2]} does not divide {n} ranks")
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    kc, vc = k.chunk(n, 2), v.chunk(n, 2)
-    return torch.cat([
-        ring_rank(qi, [(kc[(idx - i) % n], vc[(idx - i) % n]) for i in range(n)], idx, n, causal, scale, kv_len)
-        for idx, qi in enumerate(q.chunk(n, 2))
-    ], dim=2)
+    return VirtualRingAttentionFn.apply(q, k, v, kv_len, n, causal, scale)

@@ -1,7 +1,10 @@
 """The multi-device layer over torch.distributed: the mesh, the active mesh
 and the logical-axis rules, the retrieval collectives, and a rank launcher.
-The port of vision_compression_project_tpu/parallel/ without what waits for
-the training half (parameter sharding, GPipe)."""
+The port of vision_compression_project_tpu/parallel/ without GPipe
+(parallel/pipeline.py), which comes with the pipeline-parallel slice:
+parameter sharding and the collectives of sharded training
+(tensor_parallel.py) are here, and multihost_demo.py drives the sharded
+train step over processes."""
 
 from .collectives import distributed_topk, ring_all_gather_rows, sharded_cosine_topk
 from .launch import spawn
@@ -16,7 +19,7 @@ from .mesh import (
     initialize_multihost,
     local_mesh,
 )
-from .sharding import LOGICAL_RULES, active_mesh, use_mesh
+from .sharding import LOGICAL_RULES, active_mesh, gather_params, shard_batch, shard_params, use_mesh
 
 __all__ = [
     "AXIS_DATA",
@@ -32,6 +35,9 @@ __all__ = [
     "LOGICAL_RULES",
     "use_mesh",
     "active_mesh",
+    "shard_params",
+    "gather_params",
+    "shard_batch",
     "distributed_topk",
     "sharded_cosine_topk",
     "ring_all_gather_rows",

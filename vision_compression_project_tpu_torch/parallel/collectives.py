@@ -16,18 +16,16 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.topk import masked_similarity, topk_lowest_first
-from .mesh import AXIS_DATA, axis_size
+from .mesh import AXIS_DATA
+from .tensor_parallel import gather_cat
 
 
 def _all_gather_cat(x: torch.Tensor, mesh: DeviceMesh, dim: int) -> torch.Tensor:
     """Every data-rank's `x` concatenated along `dim` in rank order."""
-    parts = [torch.empty_like(x) for _ in range(axis_size(mesh, AXIS_DATA))]
-    dist.all_gather(parts, x.contiguous(), group=mesh.get_group(AXIS_DATA))
-    return torch.cat(parts, dim)
+    return gather_cat(x, AXIS_DATA, dim, mesh)
 
 
 def merge_topk(all_vals: torch.Tensor, all_idx: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

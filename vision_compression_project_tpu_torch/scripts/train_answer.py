@@ -7,8 +7,10 @@ batches (rendered pages -> structured fields) with answer batches (question
 serves both the /ingest VLM engine and the /chat answer engine.
 
 Runs on RUNTIME.device (VCP_DEVICE, the card unless it says "cpu") and writes
-the port's checkpoints (train/checkpoint.py). There is no mesh: one device,
-and the reference's VCP_MESH_* settings are ignored.
+the port's checkpoints (train/checkpoint.py). Run alone it trains on one
+device; under a launcher (torchrun, or `parallel.spawn` of `main`) on the
+mesh of VCP_MESH_*, as scripts/train_vlm.py does, the answer task's
+loss_mask counted over the whole batch.
 
     python -m vision_compression_project_tpu_torch.scripts.train_answer --preset tiny --steps 2
 """
@@ -47,20 +49,32 @@ def main(argv=None):
     from ..models import get_preset
     from ..train.checkpoint import load_params, save_checkpoint
     from ..train.data import device_batch, prefetch_batches, qa_batches, synthetic_batches
-    from ..train.train_step import cosine_lr, make_train_state, train_step
+    from ..parallel import MESH_AXES, shard_batch
+    from ..train.train_step import (cosine_lr, gather_state, load_whole_params, make_train_state, resolve_device,
+                                    train_step, training_mesh)
     from ..weights import params_from_jax
 
     cfg = get_preset(args.preset)
     schedule = cosine_lr(args.lr, args.steps)
-    model, opt, state = make_train_state(cfg, seed=args.seed, lr=schedule)
+    device = resolve_device()
+    mesh = training_mesh(device)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    model, opt, state = make_train_state(cfg, device, seed=args.seed, lr=schedule, mesh=mesh)
     device = next(model.parameters()).device
-    print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
+    log = print if rank0 else (lambda *a, **k: None)
+    log(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
+    if mesh is not None:
+        log(f"mesh: {dict(zip(MESH_AXES, mesh.shape))} devices={torch.distributed.get_world_size()}")
     if args.init_from:
         tree = load_params(args.init_from)
         if tree is None:
             parser.error(f"--init_from {args.init_from}: no complete checkpoint there")
-        model.load_state_dict(params_from_jax(tree))
-        print(f"warm-started params from {args.init_from}")
+        load_whole_params(model, params_from_jax(tree), mesh)
+        log(f"warm-started params from {args.init_from}")
+
+    def save():
+        whole = gather_state(state, mesh)
+        return save_checkpoint(args.ckpt_dir, whole) if rank0 else None
 
     extract_data = prefetch_batches(
         synthetic_batches(cfg, args.batch, text_len=args.text_len, dpi=args.dpi, seed=args.seed,
@@ -75,7 +89,9 @@ def main(argv=None):
     for step in range(1, args.steps + 1):
         is_answer = args.answer_every and step % args.answer_every == 0
         batch = device_batch(cfg, next(answer_data if is_answer else extract_data), device=device)
-        state, loss = train_step(model, opt, state, batch)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+        state, loss = train_step(model, opt, state, batch, mesh=mesh)
         if is_answer:
             ans_loss = loss
         else:
@@ -83,10 +99,12 @@ def main(argv=None):
         if step % args.log_every == 0 or step == 1:
             ex_v, ans_v = float(ex_loss), float(ans_loss)  # waits for the step
             rate = step * args.batch / (time.time() - t_start)
-            print(f"step {step:5d}  extract {ex_v:.4f}  answer {ans_v:.4f}  ex/s {rate:.1f}", flush=True)
+            log(f"step {step:5d}  extract {ex_v:.4f}  answer {ans_v:.4f}  ex/s {rate:.1f}", flush=True)
         if args.ckpt_every and step % args.ckpt_every == 0:
-            print(f"checkpoint: {save_checkpoint(args.ckpt_dir, state)}")
-    print(f"final checkpoint: {save_checkpoint(args.ckpt_dir, state)}")
+            path = save()
+            log(f"checkpoint: {path}")
+    path = save()
+    log(f"final checkpoint: {path}")
 
 
 if __name__ == "__main__":

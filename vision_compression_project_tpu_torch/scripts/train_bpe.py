@@ -4,8 +4,9 @@ with its arguments, corpus and lines.
 Corpus: the synthetic page generators (the training and serving input
 distribution), their markdown structurings, digit-code OCR pages, the
 reference's golden pages where they are present (VCP_GOLDEN_PAGES, default
-~/reference/output/pages), and general English from the interpreter's
-installed package docs (site-packages METADATA files) and the repository's
+beside the reference's combined.md, train/corpus.py), and general English from the
+package docs of the reference's site-packages directory (METADATA files,
+train/corpus.py's HARVEST_DIR) and the repository's
 own markdown; or, with --corpus real, the open-vocabulary prose the ocr_real
 preset trains on. The merges go to --out, by default the port's own
 models/bpe_merges.json: a table learned here never lands in the JAX package.
@@ -17,7 +18,6 @@ models/bpe_merges.json: a table learned here never lands in the JAX package.
 import argparse
 import glob
 import sys
-import sysconfig
 from pathlib import Path
 
 import numpy as np
@@ -25,7 +25,7 @@ import numpy as np
 from ..models.tokenizer import DEFAULT_MERGES_PATH, BPETokenizer
 from ..pipeline.ingest import parse_json_file
 from ..pipeline.textmd import structure_page
-from ..train.corpus import golden_pages_dir
+from ..train.corpus import HARVEST_DIR, golden_pages_dir
 from ..train.data import synthetic_code_page, synthetic_page_text
 from . import REPO
 
@@ -37,7 +37,7 @@ def doc_files() -> list:
     """The package docs and repository markdown the corpus reads, in the
     reference's order (a dist-info METADATA matches both globs, so it is
     listed twice, as there)."""
-    site = sysconfig.get_paths()["purelib"]
+    site = str(HARVEST_DIR)
     files = glob.glob(f"{site}/*/METADATA") + glob.glob(f"{site}/*.dist-info/METADATA")
     files += [str(p) for p in REPO.glob("*.md")]
     files += [str(p) for p in (REPO / "docs").glob("**/*.md")]

@@ -3,10 +3,15 @@ of scripts/train_vlm.py, with its arguments, defaults and output lines.
 
 Runs on RUNTIME.device (VCP_DEVICE, the card unless it says "cpu") and
 writes the port's checkpoints (train/checkpoint.py), which load_runner and
-VCP_CHECKPOINT_DIR read. There is no mesh: one device, and
---pp_microbatches > 0 (GPipe) is refused.
+VCP_CHECKPOINT_DIR read. Run alone it trains on one device; under a
+launcher (torchrun, or `parallel.spawn` of `main`) every rank runs it on the
+mesh `local_mesh()` builds from VCP_MESH_* (the sharded train step,
+train/train_step.py), rank 0 logs and saves the gathered parameters, a
+checkpoint equal to one device's. --pp_microbatches > 0 (GPipe) is refused
+until the pipeline-parallel slice.
 
     python -m vision_compression_project_tpu_torch.scripts.train_vlm --preset tiny --steps 2
+    VCP_MESH_MODEL=2 torchrun --nproc_per_node 4 -m vision_compression_project_tpu_torch.scripts.train_vlm
 """
 
 import argparse
@@ -50,32 +55,44 @@ def main(argv=None):
     parser.add_argument("--init_from", default=None,
                         help="checkpoint dir to warm-start params from (curriculum transfer)")
     parser.add_argument("--pp_microbatches", type=int, default=0,
-                        help="GPipe microbatches: not ported; only 0 runs")
+                        help="GPipe microbatches: not ported yet; only 0 runs")
     args = parser.parse_args(argv)
     if args.pp_microbatches > 0:
-        parser.error("--pp_microbatches > 0: pipeline-parallel training (GPipe) is not ported; "
-                     "the port trains on one device")
+        parser.error("--pp_microbatches > 0: pipeline-parallel training (GPipe) is not ported yet; it comes "
+                     "with the next slice (ROADMAP queue 1 item 5)")
 
     import torch
 
     from ..models import get_preset
     from ..train.checkpoint import load_params, save_checkpoint
     from ..train.data import device_batch, prefetch_batches, synthetic_batches
-    from ..train.train_step import cosine_lr, make_train_state, train_step
+    from ..parallel import MESH_AXES, shard_batch
+    from ..train.train_step import (cosine_lr, gather_state, load_whole_params, make_train_state, resolve_device,
+                                    train_step, training_mesh)
     from ..weights import params_from_jax
 
     cfg = get_preset(args.preset)
     # Warmup-cosine to 10% of peak, as the reference's command line runs it.
     schedule = cosine_lr(args.lr, args.steps)
-    model, opt, state = make_train_state(cfg, seed=args.seed, lr=schedule)
+    device = resolve_device()
+    mesh = training_mesh(device)
+    rank0 = mesh is None or torch.distributed.get_rank() == 0
+    model, opt, state = make_train_state(cfg, device, seed=args.seed, lr=schedule, mesh=mesh)
     device = next(model.parameters()).device
-    print(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
+    log = print if rank0 else (lambda *a, **k: None)
+    log(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
+    if mesh is not None:
+        log(f"mesh: {dict(zip(MESH_AXES, mesh.shape))} devices={torch.distributed.get_world_size()}")
     if args.init_from:
         tree = load_params(args.init_from)
         if tree is None:
             parser.error(f"--init_from {args.init_from}: no complete checkpoint there")
-        model.load_state_dict(params_from_jax(tree))
-        print(f"warm-started params from {args.init_from}")
+        load_whole_params(model, params_from_jax(tree), mesh)
+        log(f"warm-started params from {args.init_from}")
+
+    def save():
+        whole = gather_state(state, mesh)
+        return save_checkpoint(args.ckpt_dir, whole) if rank0 else None
 
     data = prefetch_batches(
         synthetic_batches(
@@ -89,7 +106,9 @@ def main(argv=None):
     t_last, step_last = t_start, 0
     for step in range(1, args.steps + 1):
         batch = device_batch(cfg, next(data), device=device)
-        state, loss = train_step(model, opt, state, batch)
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
+        state, loss = train_step(model, opt, state, batch, mesh=mesh)
         if step % args.log_every == 0 or step == 1:
             loss_v = float(loss)
             now = time.time()
@@ -97,10 +116,12 @@ def main(argv=None):
             # The rate since the last log line: the steady-state number.
             inst = (step - step_last) * args.batch / max(now - t_last, 1e-9)
             t_last, step_last = now, step
-            print(f"step {step:5d}  loss {loss_v:.4f}  pages/s {rate:.1f}  (inst {inst:.1f})", flush=True)
+            log(f"step {step:5d}  loss {loss_v:.4f}  pages/s {rate:.1f}  (inst {inst:.1f})", flush=True)
         if args.ckpt_every and step % args.ckpt_every == 0:
-            print(f"checkpoint: {save_checkpoint(args.ckpt_dir, state)}")
-    print(f"final checkpoint: {save_checkpoint(args.ckpt_dir, state)}")
+            path = save()
+            log(f"checkpoint: {path}")
+    path = save()
+    log(f"final checkpoint: {path}")
 
 
 if __name__ == "__main__":

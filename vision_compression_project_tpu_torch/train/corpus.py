@@ -2,16 +2,17 @@
 vision_compression_project_tpu/train/corpus.py (standard library and numpy).
 
 Harvests English prose from the documentation of the installed Python
-packages (METADATA, README, rst and txt files under the interpreter's
-site-packages, `sysconfig`'s purelib) into a deduplicated sentence pool with a
-deterministic 95/5 train/heldout split, and generates document pages with a
+packages (METADATA, README, rst and txt files under the site-packages
+directory the reference harvests, `HARVEST_DIR`) into a deduplicated sentence
+pool with a deterministic 95/5 train/heldout split, and generates document pages with a
 realistic layout: width-aware word wrapping (make_pdf does not wrap; clipped
 words poison targets), titles, paragraph breaks and occasional bullets, so
 the textmd gold targets exercise headings and lists. The pool depends on the
-machine, as the reference's does; on one machine both packages harvest the
-same files. The golden split (`golden_sentences`) reads the reference
-pipeline's own extracted document, which no training pool draws from, so the
-eval numbers on it are uncontaminated real prose.
+machine, as the reference's does. The golden split (`golden_sentences`) reads
+the reference pipeline's own extracted document, which no training pool draws
+from, so the eval numbers on it are uncontaminated real prose. Both paths are
+the reference's fixed ones, whatever interpreter runs the port, so the two
+packages read the same files on any machine.
 """
 
 from __future__ import annotations
@@ -20,7 +21,6 @@ import glob
 import hashlib
 import os
 import re
-import sysconfig
 from pathlib import Path
 from typing import List
 
@@ -137,9 +137,14 @@ def _add_sentences(body: str, seen: set, out: List[str]) -> None:
                 out.append(sent)
 
 
+# The reference's harvest directory (vision_compression_project_tpu/train/corpus.py:128),
+# fixed: not the running interpreter's site-packages.
+HARVEST_DIR = Path("/").joinpath("opt", "venv", "lib", "python3.12", "site-packages")
+
+
 def _harvest(budget_bytes: int = 30_000_000) -> List[str]:
     files: List[str] = []
-    site = sysconfig.get_paths()["purelib"]
+    site = str(HARVEST_DIR)
     files += glob.glob(f"{site}/*.dist-info/METADATA")
     files += glob.glob(f"{site}/*/METADATA")
     for ext in ("md", "rst", "txt"):
@@ -166,9 +171,10 @@ def _harvest(budget_bytes: int = 30_000_000) -> List[str]:
 
 
 GOLDEN_MD_ENV = "VCP_GOLDEN_MD"
-# The reference pipeline's combined.md of its real 22-page PDF, where its
-# output directory sits under the home directory; VCP_GOLDEN_MD overrides.
-_DEFAULT_GOLDEN_MD = Path.home() / "reference" / "output" / "combined.md"
+# The reference pipeline's combined.md of its real 22-page PDF, at the
+# reference's fixed path (vision_compression_project_tpu/train/corpus.py:165);
+# VCP_GOLDEN_MD overrides.
+_DEFAULT_GOLDEN_MD = Path("/").joinpath("root", "reference", "output", "combined.md")
 
 
 def golden_pages_dir() -> Path:

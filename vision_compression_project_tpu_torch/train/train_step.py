@@ -1,5 +1,5 @@
 """The VLM's training step: the port of
-vision_compression_project_tpu/train/train_step.py, without optax or a mesh.
+vision_compression_project_tpu/train/train_step.py, without optax.
 
 `AdamW` is optax's `chain(clip_by_global_norm(max_norm), adamw(...))` written
 out by hand, to optax's formulas: the clip scales by `max_norm / g_norm` only
@@ -18,12 +18,28 @@ kept in it: what optax does to a bf16 leaf (mu and nu bf16, `(1 - b1) * g +
 b1 * mu` as two bf16 products and a bf16 sum). The global norm is optax's
 too: each leaf's sum of squares in f32, rounded to the leaf's dtype, summed
 in f32.
+
+On a mesh (`make_train_state(..., mesh=)`, `train_step(..., mesh=)`), the
+reference's sharded step in the local view: each rank builds the whole
+seeded model and keeps its shard of every parameter
+(`parallel.sharding.shard_params`), and takes its `data` rows of each batch
+(`shard_batch`). Its loss is its own tokens' share of the reference's loss
+over the global batch: its sum of masked cross-entropies over the mask count
+of the whole batch (summed over `data` and `seq`), plus its share of the MoE
+terms, so the shares of all ranks that hold other tokens sum to the
+reference's loss, which `train_step` returns. Gradients are summed over
+`data` and `seq`; over `model` and `expert` the operators of
+parallel/tensor_parallel.py already leave each rank the gradient of its
+shard, the same on every rank for a replicated parameter. The clip's global
+norm sums each sharded leaf's squares over the ranks that hold its shards
+and counts a replicated leaf once. A mesh of 1 changes no number.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -34,6 +50,9 @@ from .. import config
 from ..models.configs import VLMConfig
 from ..models.tokenizer import PAD_ID
 from ..models.vlm import OpticalVLM, init_params
+from ..parallel.mesh import AXIS_DATA, AXIS_SEQ, axis_size, initialize_multihost, local_mesh
+from ..parallel.sharding import active_mesh, gather_params, keep_shards, param_mesh_axes, shard_params, use_mesh
+from ..parallel.tensor_parallel import sum_over
 
 Schedule = Callable[[int], float]
 Params = Dict[str, torch.Tensor]
@@ -65,20 +84,23 @@ class AdamW:
                         nu={k: torch.zeros_like(p) for k, p in params.items()})
 
     @torch.no_grad()
-    def update(self, params: Params, state: OptState) -> OptState:
+    def update(self, params: Params, state: OptState,
+               reduce_sq: Optional[Callable[[List[str], torch.Tensor], torch.Tensor]] = None) -> OptState:
         """One update of every parameter from its gradient; returns the
         moments and count after it. The whole update stays on the device:
-        no value is read back to the host."""
+        no value is read back to the host. `reduce_sq(names, sq)` turns the
+        leaves' f32 sums of squares into those of the whole leaves when each
+        holds a shard (the sharded step's)."""
         names = list(params)
         missing = [k for k in names if params[k].grad is None]
         if missing:
             raise RuntimeError(f"no gradient for {len(missing)} parameters, e.g. {missing[:3]}")
         norm = None
         if self.max_norm is not None:
-            norm = torch.stack([
-                torch.linalg.vector_norm(params[k].grad, dtype=torch.float32).square().to(params[k].grad.dtype)
-                .float() for k in names
-            ]).sum().sqrt()
+            sq = torch.stack([torch.linalg.vector_norm(params[k].grad, dtype=torch.float32).square() for k in names])
+            if reduce_sq is not None:
+                sq = reduce_sq(names, sq)
+            norm = torch.stack([sq[i].to(params[k].grad.dtype).float() for i, k in enumerate(names)]).sum().sqrt()
         count = state.count + 1
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         # optax's bias corrections: 1 - decay ** count in f32, then in the leaf's dtype.
@@ -146,24 +168,53 @@ def cosine_lr(peak: float, total_steps: int, warmup: int = 100, end_frac: float 
     return schedule
 
 
+def _own_positions(logits: torch.Tensor, total: int, mesh) -> tuple:
+    """(first, end) of the positions of the [vision ; text] sequence whose
+    loss this rank takes under a `seq` dimension of n > 1 ranks: its chunk,
+    or, where the sequence ran whole on every `seq` rank (a length that does
+    not divide n), its share of the positions as `tensor_split` cuts them."""
+    n, q = axis_size(mesh, AXIS_SEQ), mesh.get_local_rank(AXIS_SEQ)
+    if logits.shape[1] == total:
+        sizes = [len(part) for part in torch.arange(total).tensor_split(n)]
+        first = sum(sizes[:q])
+        return first, first + sizes[q]
+    return q * logits.shape[1], (q + 1) * logits.shape[1]
+
+
 def vlm_loss(model: OpticalVLM, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Next-token cross-entropy in f32 over the text segment (the vision
     prefix has no targets), averaged over the targets that are not PAD and,
     where the batch has a loss_mask, that it supervises; plus MOE_AUX_WEIGHT
     times the sum of the Switch-MoE blocks' load-balancing terms, which the
-    forward returns (one per MoE block, none without experts)."""
+    forward returns (one per MoE block, none without experts).
+
+    Under the active mesh, this rank's share of that loss (the module
+    docstring): its positions' terms over the mask count of the whole
+    batch, which sums the ranks' counts over `data` and `seq`."""
     ids = batch["token_ids"]
     aux_losses: List[torch.Tensor] = []
     logits = model(batch["patch_tokens"], ids[:, :-1], aux_losses=aux_losses)
-    vis_len = logits.shape[1] - (ids.shape[1] - 1)
-    text_logits = logits[:, vis_len:].float()
     targets = ids[:, 1:].long()
     mask = (targets != PAD_ID).float()
     if "loss_mask" in batch:
         mask = mask * batch["loss_mask"][:, 1:].float()
+    mesh = active_mesh()
+    if mesh is not None and axis_size(mesh, AXIS_SEQ) > 1:
+        vis_len = model.cfg.vision.tokens_out
+        first, end = _own_positions(logits, vis_len + targets.shape[1], mesh)
+        if logits.shape[1] != end - first:
+            logits = logits[:, first:end]
+        # Targets and mask of every position, none on the vision prefix.
+        targets = F.pad(targets, (vis_len, 0))[:, first:end]
+        mask = F.pad(mask, (vis_len, 0))[:, first:end]
+        text_logits = logits.float()
+    else:
+        vis_len = logits.shape[1] - (ids.shape[1] - 1)
+        text_logits = logits[:, vis_len:].float()
     ce = F.cross_entropy(text_logits.reshape(-1, text_logits.shape[-1]), targets.reshape(-1),
                          reduction="none").view_as(mask)
-    loss = (ce * mask).sum() / mask.sum().clamp(min=1.0)
+    count = sum_over(mask.sum(), (AXIS_DATA, AXIS_SEQ), mesh)
+    loss = (ce * mask).sum() / count.clamp(min=1.0)
     if aux_losses:
         loss = loss + MOE_AUX_WEIGHT * sum(aux_losses)
     return loss
@@ -191,30 +242,109 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def make_train_state(cfg: VLMConfig, device=None, seed: int = 0, lr: Union[float, Schedule] = 3e-4):
+def make_train_state(cfg: VLMConfig, device=None, seed: int = 0, lr: Union[float, Schedule] = 3e-4, mesh=None):
     """(model, optimizer, TrainState): OpticalVLM(cfg) with seeded weights
     (one CPU torch.Generator, models/vlm.py::init_params), made on `device`
     and filled there a tensor at a time, as VLMRunner builds its model: the
     same seed gives the same weights on any device, and the host never holds
-    the whole model."""
+    the whole model. With a `mesh` (of the device's type) each rank builds
+    the same whole model and keeps its shard of every parameter, so the
+    mesh changes no number; the moments take the shards' shapes."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.device_type != dev.type:
+        raise ValueError(f"a {mesh.device_type} mesh for a model on {dev}")
     with torch.device(dev):
         model = OpticalVLM(cfg)
     init_params(model, seed)
     model.to(dev).train()  # the buffers made from host arrays (RoPE tables)
+    if mesh is not None:
+        keep_shards(model, mesh)
     opt = make_optimizer(lr)
     params = dict(model.named_parameters())
     return model, opt, TrainState(params=params, opt_state=opt.init(params), step=0, cfg=cfg)
 
 
-def train_step(model: OpticalVLM, opt: AdamW, state: TrainState, batch: Dict[str, torch.Tensor]):
+def sum_gradients(params: Params, mesh) -> None:
+    """Sum every gradient over the mesh's `data` and `seq` ranks in place,
+    one flat all-reduce per dtype."""
+    if all(axis_size(mesh, a) == 1 for a in (AXIS_DATA, AXIS_SEQ)):
+        return
+    grads = [p.grad for p in params.values()]
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        group = [g for g in grads if g.dtype == dtype]
+        flat = sum_over(torch.cat([g.reshape(-1) for g in group]), (AXIS_DATA, AXIS_SEQ), mesh)
+        for g, part in zip(group, flat.split([g.numel() for g in group])):
+            g.copy_(part.view_as(g))
+
+
+def sharded_sq(params: Params, mesh):
+    """AdamW's `reduce_sq` on a mesh: each sharded leaf's sum of squares
+    summed over the `model`/`expert` ranks that hold its shards."""
+    axes = {k: param_mesh_axes(k, p.dim(), mesh) for k, p in params.items()}
+
+    def reduce_sq(names: List[str], sq: torch.Tensor) -> torch.Tensor:
+        out = sq.clone()
+        for group in dict.fromkeys(axes[k] for k in names):
+            if group:
+                idx = torch.tensor([i for i, k in enumerate(names) if axes[k] == group], device=sq.device)
+                out[idx] = sum_over(sq[idx], group, mesh)
+        return out
+
+    return reduce_sq
+
+
+def train_step(model: OpticalVLM, opt: AdamW, state: TrainState, batch: Dict[str, torch.Tensor], mesh=None):
     """One optimizer step on `batch` (device_batch's dict): (state, loss).
     The parameters are updated in place; their `.grad` holds this step's
-    gradients afterwards, before the clip."""
+    gradients afterwards, before the clip. With a `mesh`, the counterpart of
+    the reference's `make_jitted_train_step`: `batch` is this rank's `data`
+    rows (`parallel.sharding.shard_batch`), and the loss returned is the
+    whole batch's, the same on every rank."""
     for p in state.params.values():
         p.grad = None
-    loss = vlm_loss(model, batch)
-    loss.backward()
-    state.opt_state = opt.update(state.params, state.opt_state)
+    if mesh is None:
+        loss = vlm_loss(model, batch)
+        loss.backward()
+        state.opt_state = opt.update(state.params, state.opt_state)
+    else:
+        with use_mesh(mesh):
+            loss = vlm_loss(model, batch)
+            loss.backward()
+        sum_gradients(state.params, mesh)
+        state.opt_state = opt.update(state.params, state.opt_state, reduce_sq=sharded_sq(state.params, mesh))
+        loss = sum_over(loss.detach(), (AXIS_DATA, AXIS_SEQ), mesh)
     state.step += 1
     return state, loss.detach()
+
+
+def training_mesh(device: torch.device):
+    """The mesh of a training command line: `local_mesh()` (VCP_MESH_*)
+    over the ranks of a process group that a launcher set up
+    (`parallel.spawn`, or torchrun's WORLD_SIZE and friends), or None for
+    one process on its own, which trains without one."""
+    if not torch.distributed.is_initialized() and "WORLD_SIZE" not in os.environ:
+        return None
+    initialize_multihost(device_type=device.type)
+    return local_mesh(device.type)
+
+
+def load_whole_params(model: OpticalVLM, state_dict: Params, mesh=None) -> None:
+    """Copy a whole state_dict into the model, each rank its shards on a mesh."""
+    if mesh is None:
+        model.load_state_dict(state_dict)
+        return
+    with torch.no_grad():
+        for name, shard in shard_params(state_dict, mesh).items():
+            model.get_parameter(name).copy_(shard)
+
+
+def gather_state(state: TrainState, mesh) -> TrainState:
+    """The whole TrainState from every rank's shards (every rank takes part),
+    which a checkpoint saves as one device's would be."""
+    if mesh is None:
+        return state
+    opt = state.opt_state
+    return TrainState(
+        params=gather_params(state.params, mesh), step=state.step, cfg=state.cfg,
+        opt_state=None if opt is None else OptState(mu=gather_params(opt.mu, mesh), nu=gather_params(opt.nu, mesh),
+                                                    count=opt.count))
