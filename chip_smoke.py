@@ -8,9 +8,11 @@ extraction training and the embedder's contrastive training, the answer
 task, the prod preset (11.1B parameters, Switch-MoE) serving pages,
 Switch-MoE training (tiny_moe whole, prod at every width cut in depth), the
 multi-device layer (a one-rank NCCL group; the ring and the sharded search
-for virtual ranks at full width), and sharded training (the sharded step on
+for virtual ranks at full width), sharded training (the sharded step on
 a one-rank NCCL mesh, the ring's backward and a prod MoE block's TP/EP
-ranks, virtual, at full width).
+ranks, virtual, at full width) and pipeline-parallel training (GPipe
+through one stage, over a one-rank NCCL mesh and over virtual stages, at
+full width).
 
     python3 chip_smoke.py [--seed N]
 
@@ -201,6 +203,29 @@ with the port's own reader. One flushed line per phase, with seconds:
            launch forward and one backward a rank) and its 8 experts of
            hidden 4096; partial outputs summed and gathered gradients
            against the whole block's sublayers within GRAD_RTOL.
+  pp_train  GPipe pipeline-parallel training (parallel/pipeline.py,
+           train/pp_train.py): (a) ocr_real at mixC, batch 32, full width and
+           depth, PP_MICROBATCHES microbatches of 8 rows, PP_STEPS steps from
+           one seed on one batch through one stage, without a mesh and on a
+           mesh of 1 over NCCL (destroyed after): losses and every parameter
+           bit-equal, exactly 2 x 8 + 6 x 4 K1 and 8 + 6 x 4 backward
+           launches a step (the encoder's blocks with their remat recompute,
+           each decoder block once a microbatch, the decoder's 6 x 4 of each
+           counted by hooks on its blocks); step 1's loss and every
+           gradient against the unpipelined train_step's within PP_LOSS_RTOL
+           and PP_GRAD_RTOL; (b) 2 and 3 virtual stages in this process
+           through the same schedule: losses, parameters and launches equal
+           (a)'s to the bit; (c) tiny_moe in f32 through 2 virtual stages and
+           2 microbatches: the loss against the model applied to each
+           microbatch, its Switch terms averaged, within 1e-5; `train_vlm
+           --pp_microbatches 2` (tiny, text_len 160) in this process, its K1
+           launches counted; (d) each step's seconds and peak memory beside
+           the unpipelined step's, K1 and its backward at the microbatch
+           shape (8, 6:2, 1534, 64) against their plain versions and timed
+           eager and from a CUDA graph beside SDPA (its backward timed alone,
+           on one kept forward graph) and the bounds, and the
+           schedule's bubble (S - 1) / (M + S - 1) for 2 and 3 stages,
+           reckoned (no transfer between cards is timed on one card).
 
 The last three lines are the kernels' JSON record, the card's name and power
 limit as nvidia-smi reports them, and {"ok": true, "device": {...}}. Any
@@ -211,6 +236,7 @@ non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import difflib
@@ -218,6 +244,7 @@ import functools
 import gc
 import hashlib
 import http.client
+import io
 import itertools
 import json
 import os
@@ -259,6 +286,7 @@ from vision_compression_project_tpu_torch.parallel import (
     MeshConfig, build_mesh, distributed_topk, initialize_multihost, ring_all_gather_rows,
 )
 from vision_compression_project_tpu_torch.parallel.mesh import backend_for
+from vision_compression_project_tpu_torch.parallel.pipeline import bubble as pipeline_bubble
 from vision_compression_project_tpu_torch.parallel.collectives import local_topk, merge_topk
 from vision_compression_project_tpu_torch.ops.topk import (
     NEG_INF, cosine_topk, masked_similarity, masked_similarity_reference, topk_lowest_first,
@@ -285,7 +313,10 @@ from vision_compression_project_tpu_torch.train.embedder_train import (
     embedder_train_step, make_embedder_train_state, pair_batch, synthetic_pair_batches,
 )
 from vision_compression_project_tpu_torch.train.pages import ingest_texts, prose_pages
-from vision_compression_project_tpu_torch.train.train_step import cosine_lr, make_train_state, train_step, vlm_loss
+from vision_compression_project_tpu_torch.train.pp_train import make_pp_train_state, make_pp_vlm_train_step, pp_vlm_loss
+from vision_compression_project_tpu_torch.train.train_step import (
+    MOE_AUX_WEIGHT, cosine_lr, make_train_state, train_step, vlm_loss,
+)
 from vision_compression_project_tpu_torch.weights import params_from_jax, params_to_jax
 
 PRESET = "ocr_real"
@@ -341,17 +372,19 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+def graph_ms(fn, iters: int = 20, replays: int = 5, stream=None) -> float:
     """Per-launch time of `iters` calls of `fn` captured in one CUDA graph
-    and replayed: the device's time without the host's per-call cost."""
-    side = torch.cuda.Stream()
+    and replayed: the device's time without the host's per-call cost. A
+    `fn` that runs a backward is captured on the stream its forward ran on
+    (`stream`), where autograd puts the backward's kernels."""
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up outside the capture
         for _ in range(2):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -1871,10 +1904,12 @@ def backward_bound_ms(sh: AttnShape, dtype: torch.dtype):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def train_library_call(q, k, v, g, sh: AttnShape):
-    """SDPA's forward, and its forward + backward, on the same inputs, as
+def train_library_call(q, k, v, g, sh: AttnShape, stream=None):
+    """SDPA's forward, and its backward alone, on the same inputs, as
     yardsticks only: GQA's k/v expanded to every head before the call, the
-    causal rows as is_causal, ragged key lengths as a boolean mask."""
+    causal rows as is_causal, ragged key lengths as a boolean mask. The
+    backward is `torch.autograd.grad` of dO on one forward graph made here
+    (on `stream`, for graph_ms's capture) and kept for every call."""
     group = sh.h // sh.hkv
     leaves = [q.detach().requires_grad_(), *(t.repeat_interleave(group, dim=1).detach().requires_grad_()
                                               for t in (k, v))]
@@ -1886,7 +1921,11 @@ def train_library_call(q, k, v, g, sh: AttnShape):
     def fwd():
         return F.scaled_dot_product_attention(*leaves, attn_mask=mask, is_causal=sh.causal and mask is None)
 
-    return (lambda: fwd().detach()), (lambda: torch.autograd.grad(fwd(), leaves, g))
+    stream = stream or torch.cuda.current_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = fwd()
+    return (lambda: fwd().detach()), (lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -1975,10 +2014,10 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
                     lambda: tattn.flash_attention_bwd(q, k, v, kv_len, g, sh.causal, scale), 3, warmup=1)
                 row["plain_ms"] = cuda_ms(lambda: mha_reference(q, k, v, kv_len=kv_len, causal=sh.causal), 3,
                                           warmup=1)
-                lib_fwd, lib_fwd_bwd = train_library_call(q, k, v, g, sh)
+                lib_fwd, lib_bwd = train_library_call(q, k, v, g, sh)
                 row["library_ms"] = cuda_ms(lib_fwd, 10)
-                row["library_fwd_bwd_ms"] = cuda_ms(lib_fwd_bwd, 5, warmup=1)
-                row["library_bwd_ms"] = row["library_fwd_bwd_ms"] - row["library_ms"]
+                row["library_bwd_ms"] = cuda_ms(lib_bwd, 10)
+                del lib_fwd, lib_bwd
                 row["bound_ms"], row["bound_by"] = bound_ms(sh, dtype)
                 row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(sh, dtype)
                 if sh.path == "prod_train":
@@ -3422,8 +3461,9 @@ def ring_backward_phase(shapes: list, seed: int) -> dict:
                 row["whole_bwd_ms"] = cuda_ms(lambda: ring_step_bwd(*inputs, o, g, lse, kv_len, sh.causal, scale), 20)
                 row["plain_bwd_ms"] = cuda_ms(lambda: tattn.flash_attention_bwd_lse(
                     *inputs, o, g, lse, kv_len, sh.causal, scale), 3, warmup=1)
-                lib_fwd, lib_fwd_bwd = train_library_call(*inputs, g, sh)
-                row["library_bwd_ms"] = cuda_ms(lib_fwd_bwd, 5, warmup=1) - cuda_ms(lib_fwd, 10)
+                _, lib_bwd = train_library_call(*inputs, g, sh)
+                row["library_bwd_ms"] = cuda_ms(lib_bwd, 10)
+                del lib_bwd
                 out = ring_attention_virtual(*leaves, n, causal=sh.causal, kv_len=kv_len)
                 row["ring_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(out, leaves, g, retain_graph=True), 5,
                                              warmup=1)
@@ -3581,6 +3621,321 @@ def sharded_train_phase(cfg, prod_cfg, seed: int, workdir: Path) -> dict:
     return out
 
 
+PP_MICROBATCHES = 4
+PP_STEPS = 2
+PP_LR = 1e-4
+PP_VIRTUAL = (2, 3)     # virtual stages of (b): 3 and 2 decoder blocks a stage
+PP_MOE_BATCH, PP_MOE_MICROBATCHES, PP_MOE_TEXT_LEN = 4, 2, 160  # tiny_moe's decoder over 4 + 159 positions: K1
+PP_MOE_RTOL = 1e-5      # f32 pipelined loss against the per-microbatch reference (tests/test_torch_pp_train.py's)
+PP_CLI_ARGS = ["--preset", "tiny", "--steps", "2", "--batch", "4", "--text_len", "160", "--pp_microbatches", "2",
+               "--log_every", "1"]
+# The pipelined bf16 step against the unpipelined train_step on the same
+# batch and seed, step 1: the same per-row arithmetic, but the decoder's
+# matmuls and K1 run on 8-row microbatches instead of 32 rows (other GEMM
+# tilings, other f32 accumulation orders, each rounded to bf16 between
+# blocks) and without the remat recompute. The loss within PP_LOSS_RTOL;
+# every gradient within PP_GRAD_RTOL of its leaf's largest value, GRAD_RTOL's
+# bf16 limit (measured on an H100: the loss equal, the gradients 5.1e-3).
+PP_LOSS_RTOL = 1e-3
+PP_GRAD_RTOL = 2e-2
+
+
+def pp_launches_per_step(cfg, n_micro: int, text_len: int) -> tuple:
+    """K1's forward and backward launches in one pipelined step: the
+    encoder's calls that take K1 as in train_step (each block's forward and
+    its remat recompute, one backward), each decoder block once a
+    microbatch, forward and backward, with no recompute inside the
+    pipeline."""
+    enc = sum(sh.launches for sh in encoder_shapes(cfg.vision, 1, "pp_train"))
+    dec = cfg.decoder
+    blocks = dec.depth * n_micro if use_flash(cfg.vision.tokens_out + text_len - 1, dec.head_dim) else 0
+    return 2 * enc + blocks, enc + blocks
+
+
+def count_block_launches(blocks) -> tuple:
+    """Hooks on each decoder block that add the K1 forward launches made
+    inside the block's forward, and the backward kernel's made inside its
+    backward, to the returned counts; and the hooks' handles."""
+    counts = {"flash_attention": 0, "flash_attention_bwd": 0}
+    start = {}
+
+    def begin(name):
+        def hook(*_):
+            start[name] = kernels.launches[name]
+        return hook
+
+    def end(name):
+        def hook(*_):
+            counts[name] += kernels.launches[name] - start[name]
+        return hook
+
+    handles = []
+    for block in blocks:
+        handles += [block.register_forward_pre_hook(begin("flash_attention")),
+                    block.register_forward_hook(end("flash_attention")),
+                    block.register_full_backward_pre_hook(begin("flash_attention_bwd")),
+                    block.register_full_backward_hook(end("flash_attention_bwd"))]
+    return counts, handles
+
+
+def pp_run(cfg, batch: dict, seed: int, mesh=None, virtual_stages: int = 1, pipelined: bool = True) -> dict:
+    """PP_STEPS steps from the seed on one batch: make_pp_train_state and
+    make_pp_vlm_train_step (or, unpipelined, make_train_state and
+    train_step); losses, the launches (pipelined, also those made inside
+    the decoder blocks), each step's seconds, peak memory, the parameters
+    after and step 1's gradients."""
+    if pipelined:
+        model, opt, state = make_pp_train_state(cfg, DEVICE, seed=seed, lr=PP_LR, mesh=mesh)
+        step, rows = make_pp_vlm_train_step(model, opt, mesh, n_micro=PP_MICROBATCHES, virtual_stages=virtual_stages)
+        local = rows(batch)
+        decoder_launches, handles = count_block_launches(model.decoder.blocks)
+    else:
+        model, opt, state = make_train_state(cfg, DEVICE, seed=seed, lr=PP_LR)
+        step, local = functools.partial(train_step, model, opt), batch
+        decoder_launches, handles = None, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    out = {"losses": [], "step_s": []}
+    for i in range(PP_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, local)
+        out["step_s"].append(sync_s(t0))
+        out["losses"].append(float(loss))
+        if i == 0:
+            out["grads"] = {k: p.grad.detach().clone() for k, p in state.params.items()}
+    out["launches"] = dict(kernels.launches)
+    out["decoder_launches"] = decoder_launches
+    for handle in handles:
+        handle.remove()
+    out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / GB
+    out["params"] = {k: v.detach().clone() for k, v in state.params.items()}
+    del model, opt, state
+    return out
+
+
+def pp_stage_phase(cfg, seed: int, workdir: Path) -> dict:
+    """(a) one stage without a mesh and on a mesh of 1 over NCCL, bit-equal,
+    both against the unpipelined step; (b) the virtual stages, bit-equal to
+    (a)'s one stage."""
+    host = next(synthetic_batches(cfg, TRAIN_BATCH, seed=seed, workdir=workdir / "pp_data", **MIXC))
+    batch = device_batch(cfg, host, device=DEVICE)
+    fwd, bwd = pp_launches_per_step(cfg, PP_MICROBATCHES, MIXC["text_len"])
+    want = {"flash_attention": PP_STEPS * fwd, "flash_attention_bwd": PP_STEPS * bwd, "masked_similarity": 0}
+    plain = pp_run(cfg, batch, seed, pipelined=False)
+    one = pp_run(cfg, batch, seed)
+    initialize_multihost(f"file://{workdir / 'pp_nccl_store'}", 1, 0, DEVICE)
+    try:
+        meshed = pp_run(cfg, batch, seed, mesh=build_mesh(MeshConfig(1, 1, 1, 1), DEVICE))
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    virtual = {n: pp_run(cfg, batch, seed, virtual_stages=n) for n in PP_VIRTUAL}
+
+    def bit_equal(run):
+        return (run["losses"] == one["losses"] and run["launches"] == one["launches"]
+                and run["decoder_launches"] == one["decoder_launches"]
+                and all(torch.equal(run["params"][k], one["params"][k]) for k in one["params"]))
+
+    # Inside the decoder blocks: each block once a microbatch, forward and
+    # backward, measured by the blocks' hooks.
+    dec_want = {name: PP_STEPS * cfg.decoder.depth * PP_MICROBATCHES for name in one["decoder_launches"]}
+    dec_per_step = {name: n // PP_STEPS for name, n in one["decoder_launches"].items()}
+
+    grad_err = {k: rel_err(one["grads"][k], g) for k, g in plain["grads"].items()}
+    worst = max(grad_err, key=grad_err.get)
+    rec = {"backend": backend, "microbatches": PP_MICROBATCHES, "microbatch_rows": TRAIN_BATCH // PP_MICROBATCHES,
+           "positions": cfg.vision.tokens_out + MIXC["text_len"] - 1, "losses": one["losses"],
+           "launches_per_step": {"flash_attention": fwd, "flash_attention_bwd": bwd}, "launches": one["launches"],
+           "decoder_launches_per_step": dec_per_step, "decoder_launches": one["decoder_launches"],
+           "mesh1_bit_equal": bit_equal(meshed), "virtual_bit_equal": {n: bit_equal(r) for n, r in virtual.items()},
+           "unpipelined_losses": plain["losses"], "unpipelined_launches": plain["launches"],
+           "loss_rel_err": abs(one["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0]),
+           "grad_max_rel_err": grad_err[worst], "grad_worst_leaf": worst, "loss_rtol": PP_LOSS_RTOL,
+           "grad_rtol": PP_GRAD_RTOL,
+           "step_s": one["step_s"], "unpipelined_step_s": plain["step_s"], "mesh1_step_s": meshed["step_s"],
+           "virtual_step_s": {n: r["step_s"] for n, r in virtual.items()},
+           "max_memory_allocated_gb": one["max_memory_allocated_gb"],
+           "unpipelined_max_memory_allocated_gb": plain["max_memory_allocated_gb"],
+           "virtual_max_memory_allocated_gb": {n: r["max_memory_allocated_gb"] for n, r in virtual.items()}}
+    rec["main_launches"] = {name: sum(r["launches"].get(name, 0) for r in (one, meshed, *virtual.values()))
+                            for name in kernels.launches}
+    del plain, one, meshed, virtual
+    torch.cuda.empty_cache()
+    log("pp_train.stages", sum(rec["step_s"]), **{k: json.dumps(v) for k, v in rec.items() if k != "main_launches"})
+    if not (rec["launches"] == want and rec["decoder_launches"] == dec_want and rec["mesh1_bit_equal"]
+            and all(rec["virtual_bit_equal"].values())
+            and np.isfinite(rec["losses"]).all() and rec["loss_rel_err"] <= PP_LOSS_RTOL
+            and rec["grad_max_rel_err"] <= PP_GRAD_RTOL):
+        fail(f"pipelined ocr_real step: launches {rec['launches']} (expected {want}), inside the decoder blocks "
+             f"{rec['decoder_launches']} (expected {dec_want}), mesh of 1 bit-equal "
+             f"{rec['mesh1_bit_equal']}, virtual stages bit-equal {rec['virtual_bit_equal']}, against the "
+             f"unpipelined step: loss {rec['loss_rel_err']} (tol {PP_LOSS_RTOL}), gradients {rec['grad_max_rel_err']} "
+             f"at {worst} (tol {PP_GRAD_RTOL})")
+    return rec
+
+
+def pp_moe_phase(seed: int) -> dict:
+    """(c) tiny_moe in f32 through 2 virtual stages and 2 microbatches: the
+    loss against the model applied to each microbatch, its Switch terms
+    averaged over the microbatches."""
+    cfg = f32_config(get_preset(MOE_PRESET))
+    model, _, _ = make_train_state(cfg, DEVICE, seed=seed)
+    rng = np.random.default_rng(seed + 3)
+    v = cfg.vision
+    ids = torch.tensor(rng.integers(3, 256, size=(PP_MOE_BATCH, PP_MOE_TEXT_LEN)), device=DEVICE)
+    ids[:, 0] = BOS_ID
+    ids[1, -20:] = PAD_ID
+    batch = {"patch_tokens": torch.tensor(rng.standard_normal((PP_MOE_BATCH, v.grid * v.grid, v.patch ** 2 * 3)),
+                                          dtype=torch.float32, device=DEVICE), "token_ids": ids}
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        got = float(pp_vlm_loss(model, batch, None, n_micro=PP_MOE_MICROBATCHES, virtual_stages=2))
+        launches = dict(kernels.launches)
+        mb = PP_MOE_BATCH // PP_MOE_MICROBATCHES
+        logits, aux = [], []
+        for i in range(PP_MOE_MICROBATCHES):
+            terms = []
+            logits.append(model(batch["patch_tokens"][i * mb:(i + 1) * mb], ids[i * mb:(i + 1) * mb, :-1],
+                                aux_losses=terms))
+            aux.append(sum(terms))
+        logits = torch.cat(logits)
+        targets = ids[:, 1:]
+        mask = (targets != PAD_ID).float()
+        ce = F.cross_entropy(logits[:, v.tokens_out:].reshape(-1, logits.shape[-1]), targets.reshape(-1),
+                             reduction="none").view_as(mask)
+        ref_ce = float((ce * mask).sum() / mask.sum())
+        ref_aux = float(sum(aux) / PP_MOE_MICROBATCHES)
+    ref = ref_ce + MOE_AUX_WEIGHT * ref_aux
+    rec = {"loss": got, "reference": ref, "rel_err": abs(got - ref) / abs(ref), "rtol": PP_MOE_RTOL,
+           "aux": ref_aux, "aux_term": MOE_AUX_WEIGHT * ref_aux, "launches": launches,
+           "expected_k1": cfg.decoder.depth * PP_MOE_MICROBATCHES}
+    del model
+    if not (rec["rel_err"] <= PP_MOE_RTOL and abs(got - ref_ce) > 1e-7
+            and launches["flash_attention"] == rec["expected_k1"]):
+        fail(f"tiny_moe through 2 virtual stages: {rec}")
+    return rec
+
+
+def pp_cli_phase(workdir: Path) -> dict:
+    """`train_vlm --pp_microbatches 2` on the card, in this process (its
+    launches counted): tiny at text_len 160, so the decoder's 4 + 159
+    positions take K1 (the reference's rule: 128 or more); at text_len 32
+    they take the plain path, as in the reference."""
+    from vision_compression_project_tpu_torch.scripts import train_vlm as train_vlm_cli
+
+    ckpt_dir = workdir / "cli_pp"
+    buf = io.StringIO()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        train_vlm_cli.main(PP_CLI_ARGS + ["--ckpt_dir", str(ckpt_dir)])
+    seconds = sync_s(t0)
+    lines = buf.getvalue().strip().splitlines()
+    print("-- train_vlm " + " ".join(PP_CLI_ARGS) + "\n" + "\n".join(lines), flush=True)
+    tiny = get_preset("tiny")
+    want = 2 * tiny.decoder.depth * 2  # 2 steps, 2 blocks, 2 microbatches
+    rec = {"seconds": seconds, "launches": dict(kernels.launches), "lines": len(lines)}
+    if not (lines[1:2] == ["PP training: 2 microbatches over 1 pipeline stage(s)"]
+            and lines[-1] == f"final checkpoint: {(ckpt_dir / 'step_00000002').resolve()}"
+            and rec["launches"]["flash_attention"] == want and rec["launches"]["flash_attention_bwd"] == want):
+        fail(f"train_vlm {' '.join(PP_CLI_ARGS)}: {lines}, launches {rec['launches']} (expected {want} each)")
+    return rec
+
+
+def pp_kernel_phase(cfg, seed: int, decoder_launches: dict) -> dict:
+    """(d) K1 and its backward at the pipeline's microbatch shape, bf16:
+    held against their plain versions on the same inputs, then timed eager
+    and from a CUDA graph beside the plain versions, SDPA and the bounds.
+    `decoder_launches`: each kernel's launches at this shape in one
+    pipelined step, as (a) measured them inside the decoder blocks."""
+    dec, v = cfg.decoder, cfg.vision
+    mb = TRAIN_BATCH // PP_MICROBATCHES
+    s = v.tokens_out + MIXC["text_len"] - 1
+    sh = AttnShape("pp_decoder_microbatch", mb, dec.heads, dec.kv_heads, s, dec.head_dim, True, [s] * mb,
+                   dec.depth * PP_MICROBATCHES, "pp_train")
+    dtype, scale = torch.bfloat16, sh.d ** -0.5
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 17)
+
+    def rnd(heads):
+        return torch.randn((sh.b, heads, sh.s, sh.d), generator=gen, device=DEVICE).to(dtype)
+
+    q, k, vv, g = rnd(sh.h), rnd(sh.hkv), rnd(sh.hkv), rnd(sh.h)
+    kv_len = torch.tensor(sh.kv_len, dtype=torch.int32, device=DEVICE)
+    lse = torch.empty((sh.b, sh.h, sh.s), dtype=torch.float32, device=DEVICE)
+    o = kernels.flash_attention_fwd(q, k, vv, kv_len, True, scale, lse=lse)
+    want = mha_reference(q, k, vv, kv_len=kv_len, causal=True)
+    kgrads = kernels.flash_attention_bwd(q, k, vv, o, g, lse, kv_len, True, scale)
+    plain = tattn.flash_attention_bwd(q, k, vv, kv_len, g, True, scale)
+    rec = {"shape": sh.name, "q": [sh.b, sh.h, sh.s, sh.d], "kv": [sh.b, sh.hkv, sh.s, sh.d], "causal": True,
+           "launches_per_step": decoder_launches["flash_attention"],
+           "bwd_launches_per_step": decoder_launches["flash_attention_bwd"],
+           "max_abs_err": (o.float() - want.float()).abs().max().item(),
+           "tol": TOL[dtype], "bwd_rel_err": {n: rel_err(a, b) for n, a, b in zip(("dq", "dk", "dv"), kgrads, plain)},
+           "bwd_tol_rel": GRAD_RTOL[dtype]}
+
+    def k1():
+        return flash_attention(q, k, vv, kv_len=kv_len, causal=True)
+
+    def k1_bwd():
+        return kernels.flash_attention_bwd(q, k, vv, o, g, lse, kv_len, True, scale)
+
+    lib_fwd, lib_bwd = train_library_call(q, k, vv, g, sh)
+    rec["ms"] = cuda_ms(k1, 10)
+    rec["graph_ms"] = graph_ms(k1)
+    rec["plain_ms"] = cuda_ms(lambda: mha_reference(q, k, vv, kv_len=kv_len, causal=True), 3, warmup=1)
+    rec["bwd_ms"] = cuda_ms(k1_bwd, 10)
+    rec["bwd_graph_ms"] = graph_ms(k1_bwd, iters=10)
+    rec["bwd_plain_ms"] = cuda_ms(lambda: tattn.flash_attention_bwd(q, k, vv, kv_len, g, True, scale), 3, warmup=1)
+    rec["library_ms"] = cuda_ms(lib_fwd, 10)
+    rec["library_graph_ms"] = graph_ms(lib_fwd)
+    rec["library_bwd_ms"] = cuda_ms(lib_bwd, 10)
+    side = torch.cuda.Stream()
+    _, lib_bwd_side = train_library_call(q, k, vv, g, sh, stream=side)
+    rec["library_bwd_graph_ms"] = graph_ms(lib_bwd_side, iters=10, stream=side)
+    del lib_fwd, lib_bwd, lib_bwd_side
+    rec["bound_ms"], rec["bound_by"] = bound_ms(sh, dtype)
+    rec["bwd_bound_ms"], rec["bwd_bound_by"] = backward_bound_ms(sh, dtype)
+    print("kernel " + json.dumps(dict(kernel="flash_attention", path="pp_train", **rec)), flush=True)
+    del q, k, vv, g, o, lse, want, kgrads, plain
+    torch.cuda.empty_cache()
+    if not (rec["max_abs_err"] <= TOL[dtype] and max(rec["bwd_rel_err"].values()) <= GRAD_RTOL[dtype]):
+        fail(f"K1 at the pipeline's microbatch shape: {rec}")
+    return rec
+
+
+def pp_train_phase(cfg, seed: int, workdir: Path) -> dict:
+    """[pp_train]: (a)-(d) above, and the bubble the schedule implies."""
+    out = {}
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the runs of (a) and (b) must be the same sums
+    try:
+        out["stages"] = pp_stage_phase(cfg, seed, workdir)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    t0 = time.perf_counter()
+    out["moe"] = pp_moe_phase(seed)
+    log("pp_train.tiny_moe", sync_s(t0), **{k: json.dumps(v) for k, v in out["moe"].items()})
+    t0 = time.perf_counter()
+    out["cli"] = pp_cli_phase(workdir)
+    log("pp_train.cli", sync_s(t0), launches=json.dumps(out["cli"]["launches"]))
+    t0 = time.perf_counter()
+    out["kernel"] = pp_kernel_phase(cfg, seed, out["stages"]["decoder_launches_per_step"])
+    log("pp_train.kernel", sync_s(t0), **{k: json.dumps(out["kernel"][k]) for k in (
+        "ms", "graph_ms", "bwd_ms", "bwd_graph_ms", "library_ms", "library_bwd_ms", "library_bwd_graph_ms", "bound_ms",
+        "bwd_bound_ms")})
+    # Of the S * (M + S - 1) stage-steps of the schedule, S - 1 of each
+    # stage's are fill or drain: reckoned, not timed (no transfer between
+    # cards can be timed on one card).
+    out["bubble"] = {n: pipeline_bubble(PP_MICROBATCHES, n) for n in PP_VIRTUAL}
+    log("pp_train.bubble", 0.0, microbatches=PP_MICROBATCHES, bubble=json.dumps(out["bubble"]),
+        note="reckoned (S-1)/(M+S-1); no transfer between cards is timed on one card")
+    stages = out["stages"]["main_launches"]
+    out["launches"] = {name: stages[name] + out["moe"]["launches"].get(name, 0) + out["cli"]["launches"].get(name, 0)
+                       for name in kernels.launches}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3723,8 +4078,15 @@ def main() -> int:
         sharded = sharded_train_phase(cfg, prod_cfg, args.seed, workdir)
         log("sharded_train", time.perf_counter() - t0, launches=json.dumps(sharded["launches"]),
             ring_bwd=json.dumps(sharded["ring_bwd"]["shapes"]), smi=json.dumps(smi))
+        free_card()
+        t0 = time.perf_counter()
+        piped = pp_train_phase(cfg, args.seed, workdir)
+        log("pp_train", time.perf_counter() - t0, launches=json.dumps(piped["launches"]),
+            step_s=json.dumps(piped["stages"]["step_s"]), unpipelined_step_s=json.dumps(
+                piped["stages"]["unpipelined_step_s"]), bubble=json.dumps(piped["bubble"]), smi=json.dumps(smi))
 
     train_rec = trained["kernel"]["train"]
+    pp_rec = piped["kernel"]
     answer_rec = trained["kernel"]["train_answer"]
     prod_train_rec = trained["kernel"]["prod_train"]
 
@@ -3737,7 +4099,7 @@ def main() -> int:
                    "train": trained["launches"].get(name, 0), "answer": answered["launches"].get(name, 0),
                    "prod": prod_launches[name], "prod_serve": prod_served["launches"][name],
                    "moe_train": moe["launches"][name], "parallel": par["launches"][name],
-                   "sharded_train": sharded["launches"][name]}
+                   "sharded_train": sharded["launches"][name], "pp_train": piped["launches"][name]}
         return {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3757,7 +4119,10 @@ def main() -> int:
                                                             "bound_ms")},
               train_max_rel_err=trained["kernel"]["max_rel_err"],
               ring=par["ring"]["shapes"], ring_max_abs_err=par["ring"]["max_abs_err"],
-              ring_plain_max_abs_err=par["ring"]["plain_max_abs_err"]),
+              ring_plain_max_abs_err=par["ring"]["plain_max_abs_err"],
+              pp_microbatch={k: pp_rec[k] for k in ("q", "kv", "launches_per_step", "max_abs_err", "ms", "graph_ms",
+                                                    "plain_ms", "library_ms", "library_graph_ms", "bound_ms",
+                                                    "bound_by")}),
         entry("masked_similarity", "vision_compression_project_tpu_torch/kernels/masked_similarity.cu",
               "vision_compression_project_tpu/ops/topk.py:26", sim_record,
               gemv_no_mask_ms=sim_record["gemv_no_mask_ms"], topk_lowest_first_ms=retrieved["topk"]["ms"],
@@ -3785,7 +4150,10 @@ def main() -> int:
               prod_train_step_s=moe["prod_train"]["step_s"], prod_train_backward_s=moe["prod_train"]["backward_s"],
               ring_bwd=sharded["ring_bwd"]["shapes"], ring_bwd_max_rel_err=sharded["ring_bwd"]["max_rel_err"],
               ring_bwd_plain_max_rel_err=sharded["ring_bwd"]["plain_max_rel_err"],
-              tp_ep_block_max_rel_err=sharded["block"]["max_rel_err"]),
+              tp_ep_block_max_rel_err=sharded["block"]["max_rel_err"],
+              pp_microbatch={k: pp_rec[k] for k in ("q", "kv", "bwd_launches_per_step", "bwd_rel_err", "bwd_ms",
+                                                    "bwd_graph_ms", "bwd_plain_ms", "library_bwd_ms",
+                                                    "library_bwd_graph_ms", "bwd_bound_ms", "bwd_bound_by")}),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

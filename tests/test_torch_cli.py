@@ -230,13 +230,33 @@ def test_train_vlm_two_steps_on_the_cpu(tmp_path):
     assert warm[1] == "warm-started params from ck" and _STEP_LINE.match(warm[2])
 
 
-def test_train_vlm_refuses_pipeline_parallel(tmp_path):
+def test_train_vlm_pipeline_parallel_on_the_cpu(tmp_path):
+    """`train_vlm --pp_microbatches 2` alone: the decoder through one GPipe
+    stage, the reference's PP line, the step lines and a checkpoint that
+    load_runner reads."""
+    from vision_compression_project_tpu_torch.models import get_preset
+    from vision_compression_project_tpu_torch.train import checkpoint as tckpt
+
+    out = _run("train_vlm", ["--preset", "tiny", "--steps", "2", "--batch", "4", "--text_len", "32",
+                             "--pp_microbatches", "2", "--log_every", "1", "--ckpt_dir", "ck"], tmp_path).splitlines()
+    assert out[:2] == ["device: cpu (cpu)", "PP training: 2 microbatches over 1 pipeline stage(s)"]
+    assert len(out) == 5 and all(_STEP_LINE.match(line) for line in out[2:4]), out
+    assert out[4] == f"final checkpoint: {(tmp_path / 'ck' / 'step_00000002').resolve()}"
+    runner = tckpt.load_runner(get_preset("tiny"), tmp_path / "ck", device="cpu")
+    assert sorted(runner.model.state_dict()) == sorted(tckpt.load_runner(get_preset("tiny"), tmp_path / "none",
+                                                                          device="cpu").model.state_dict())
+
+
+def test_train_vlm_refuses_a_batch_the_microbatches_do_not_divide(tmp_path):
     env = dict(os.environ, PYTHONPATH=str(REPO), VCP_DEVICE="cpu")
     proc = subprocess.run(
-        [sys.executable, "-m", "vision_compression_project_tpu_torch.scripts.train_vlm", "--pp_microbatches", "2"],
+        [sys.executable, "-m", "vision_compression_project_tpu_torch.scripts.train_vlm", "--batch", "3",
+         "--pp_microbatches", "2"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120,
     )
-    assert proc.returncode == 2 and "GPipe" in proc.stderr and not (tmp_path / "checkpoints").exists()
+    assert proc.returncode == 2 and proc.stderr.splitlines()[-1].endswith(
+        "error: --batch must be divisible by --pp_microbatches")
+    assert not (tmp_path / "checkpoints").exists()
 
 
 def test_train_embedder_two_steps_on_the_cpu(tmp_path):

@@ -9,8 +9,11 @@ steps and the sharded search's per-shard step for virtual ranks, and
 search_sharded on one NCCL rank started by the launcher), and sharded
 training (the ring's backward for virtual ranks, the sharded step on a
 one-rank NCCL mesh, a prod MoE block's TP/EP virtual ranks; on 4 cards the
-sharded steps against one card's, which skips on fewer). They skip without
-a CUDA device.
+sharded steps against one card's, which skips on fewer), and pipeline-
+parallel training (the pipelined f32 step on the card against the CPU's; on
+4 cards ocr_real's pipelined steps at data 2 x model 2 against one card's,
+and the dry run over NCCL on 2 and 4 cards, which skip on fewer). They skip
+without a CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed. On the GPU machine, from the repository root:
@@ -1053,3 +1056,107 @@ def test_four_card_sharded_steps_match_one_card(cuda):
             assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0
             for got, w in zip(losses, want):
                 assert abs(got - w) <= 2e-2 * max(abs(w), 1.0), (name, losses, want)
+
+
+def test_pp_ocr_real_step_card_equals_cpu(cuda):
+    """One pipelined ocr_real step (make_pp_vlm_train_step, 2 microbatches
+    through 2 virtual stages) at batch 2 in f32, the same seeded weights and
+    batch on the card and on the CPU, with the limits of
+    test_ocr_real_train_step_card_equals_cpu. The step launches K1 28 times
+    (8 encoder blocks, forward and remat recompute, and 6 decoder blocks once
+    a microbatch, no recompute inside the pipeline) and its backward kernel
+    20 times (8 + 6 x 2)."""
+    from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID
+    from vision_compression_project_tpu_torch.train.pp_train import make_pp_train_state, make_pp_vlm_train_step
+
+    cfg = get_preset("ocr_real")
+    cfg = dataclasses.replace(cfg, vision=dataclasses.replace(cfg.vision, dtype="float32"),
+                              decoder=dataclasses.replace(cfg.decoder, dtype="float32"))
+    rng = np.random.default_rng(0)
+    v = cfg.vision
+    patches = torch.tensor(rng.standard_normal((2, v.grid * v.grid, v.patch * v.patch * 3)), dtype=torch.float32)
+    ids = torch.tensor(rng.integers(0, cfg.decoder.vocab, size=(2, 511)))
+    ids[:, 0] = BOS_ID
+    lr = 1e-5
+    results = {}
+    for device in ("cpu", cuda):
+        model, opt, state = make_pp_train_state(cfg, device=device, seed=0, lr=lr)
+        step, rows = make_pp_vlm_train_step(model, opt, None, n_micro=2, virtual_stages=2)
+        kernels.reset_launch_counts()
+        state, loss = step(state, rows({"patch_tokens": patches.to(device), "token_ids": ids.to(device)}))
+        results[str(device)] = (float(loss), {k: p.grad.float().cpu() for k, p in state.params.items()},
+                                {k: p.detach().cpu() for k, p in state.params.items()},
+                                (kernels.launches["flash_attention"], kernels.launches["flash_attention_bwd"]))
+    (cpu_loss, cpu_grads, cpu_params, _), (loss, grads, params, launches) = results["cpu"], results["cuda"]
+    assert launches == (28, 20)
+    assert abs(loss - cpu_loss) <= 1e-4
+    for name, want in cpu_grads.items():
+        got = grads[name]
+        assert bool(torch.isfinite(got).all()), name
+        assert (got - want).abs().max().item() <= 1e-3 * want.abs().max().item() + 1e-6, name
+        assert (params[name] - cpu_params[name]).abs().max().item() <= 2 * lr, name
+
+
+PP_CARD_MICROBATCHES = 2
+
+
+def _pp_card_steps(mesh_shape, batch):
+    """FOUR_CARD_STEPS pipelined ocr_real steps on a mesh (None: one card)."""
+    from vision_compression_project_tpu_torch.parallel import MeshConfig, build_mesh
+    from vision_compression_project_tpu_torch.train.pp_train import make_pp_train_state, make_pp_vlm_train_step
+
+    cfg = get_preset("ocr_real")
+    mesh = None if mesh_shape is None else build_mesh(MeshConfig(*mesh_shape), "cuda")
+    model, opt, state = make_pp_train_state(cfg, "cuda", seed=0, lr=1e-4, mesh=mesh)
+    step, rows = make_pp_vlm_train_step(model, opt, mesh, n_micro=PP_CARD_MICROBATCHES)
+    local = rows({k: v.to("cuda") for k, v in batch.items()})
+    kernels.reset_launch_counts()
+    losses = [float(step(state, local)[1]) for _ in range(FOUR_CARD_STEPS)]
+    return losses, dict(kernels.launches)
+
+
+def _pp_cards_match_one_card(n, mesh_shape):
+    """World size n over NCCL: ocr_real's pipelined step on `mesh_shape`,
+    FOUR_CARD_STEPS steps on a mixC batch of 4 pages with 2 microbatches:
+    every rank's losses equal, within 2e-2 x max(loss, 1) of one card's
+    (bf16, the clip's norm summed in another order), and each rank
+    launching K1 and its backward."""
+    from vision_compression_project_tpu_torch.parallel import spawn
+
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        kernels.build(name)  # once, before the ranks load it
+    batch = _four_card_batch(get_preset("ocr_real"), 511, 4, 0)
+    want, _ = _pp_card_steps(None, batch)
+    torch.cuda.empty_cache()
+    outs = spawn(_pp_card_steps, n, mesh_shape, batch, device_type="cuda", timeout_s=900)
+    for losses, launches in outs:
+        assert losses == outs[0][0]
+        assert launches["flash_attention"] > 0 and launches["flash_attention_bwd"] > 0
+        for got, w in zip(losses, want):
+            assert abs(got - w) <= 2e-2 * max(abs(w), 1.0), (losses, want)
+
+
+def test_pp_two_cards_match_one_card(cuda):
+    """Two stages on two cards (model 2, 3 decoder blocks a stage): the
+    activations and their gradients cross between cards by NCCL send/recv."""
+    _pp_cards_match_one_card(2, (1, 1, 1, 2))
+
+
+def test_pp_four_cards_match_one_card(cuda):
+    """Data 2 x model 2 on four cards: two pipelines of two stages, each
+    gradient also summed over `data`."""
+    _pp_cards_match_one_card(4, (2, 1, 1, 2))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_dryrun_multichip_over_nccl(cuda, n, capsys):
+    from vision_compression_project_tpu_torch.dryrun import dryrun_multichip
+
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA devices")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        kernels.build(name)
+    lines = dryrun_multichip(n, "cuda")
+    assert lines[-1].startswith(f"dryrun_multichip OK: n={n} meshes=2 ") and "pipeline(model)" in lines[-1]

@@ -1,10 +1,9 @@
 """The multi-device layer over torch.distributed: the mesh, the active mesh
-and the logical-axis rules, the retrieval collectives, and a rank launcher.
-The port of vision_compression_project_tpu/parallel/ without GPipe
-(parallel/pipeline.py), which comes with the pipeline-parallel slice:
+and the logical-axis rules, the retrieval collectives, a rank launcher,
 parameter sharding and the collectives of sharded training
-(tensor_parallel.py) are here, and multihost_demo.py drives the sharded
-train step over processes."""
+(tensor_parallel.py), and GPipe pipeline parallelism (pipeline.py). The
+port of vision_compression_project_tpu/parallel/; multihost_demo.py drives
+the sharded train step over processes."""
 
 from .collectives import distributed_topk, ring_all_gather_rows, sharded_cosine_topk
 from .launch import spawn
@@ -19,6 +18,7 @@ from .mesh import (
     initialize_multihost,
     local_mesh,
 )
+from .pipeline import gpipe, shard_stacked_params
 from .sharding import LOGICAL_RULES, active_mesh, gather_params, shard_batch, shard_params, use_mesh
 
 __all__ = [
@@ -41,4 +41,6 @@ __all__ = [
     "distributed_topk",
     "sharded_cosine_topk",
     "ring_all_gather_rows",
+    "gpipe",
+    "shard_stacked_params",
 ]

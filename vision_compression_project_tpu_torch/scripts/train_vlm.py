@@ -7,11 +7,15 @@ VCP_CHECKPOINT_DIR read. Run alone it trains on one device; under a
 launcher (torchrun, or `parallel.spawn` of `main`) every rank runs it on the
 mesh `local_mesh()` builds from VCP_MESH_* (the sharded train step,
 train/train_step.py), rank 0 logs and saves the gathered parameters, a
-checkpoint equal to one device's. --pp_microbatches > 0 (GPipe) is refused
-until the pipeline-parallel slice.
+checkpoint equal to one device's. --pp_microbatches M > 0 pipelines the
+decoder blocks over the mesh `model` dimension (GPipe, train/pp_train.py)
+with M microbatches a step: one stage run alone, VCP_MESH_MODEL stages under
+a launcher; rank 0 saves the whole state, gathered from the stages.
 
     python -m vision_compression_project_tpu_torch.scripts.train_vlm --preset tiny --steps 2
     VCP_MESH_MODEL=2 torchrun --nproc_per_node 4 -m vision_compression_project_tpu_torch.scripts.train_vlm
+    VCP_MESH_MODEL=2 torchrun --nproc_per_node 2 -m vision_compression_project_tpu_torch.scripts.train_vlm \
+        --batch 8 --pp_microbatches 4
 """
 
 import argparse
@@ -54,19 +58,23 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--init_from", default=None,
                         help="checkpoint dir to warm-start params from (curriculum transfer)")
-    parser.add_argument("--pp_microbatches", type=int, default=0,
-                        help="GPipe microbatches: not ported yet; only 0 runs")
+    parser.add_argument(
+        "--pp_microbatches", type=int, default=0,
+        help="if > 0, pipeline the decoder blocks over the mesh `model` axis (GPipe) with this many microbatches "
+        "per step; needs a uniform decoder (dense or expert_every=1) and batch %% microbatches == 0",
+    )
     args = parser.parse_args(argv)
-    if args.pp_microbatches > 0:
-        parser.error("--pp_microbatches > 0: pipeline-parallel training (GPipe) is not ported yet; it comes "
-                     "with the next slice (ROADMAP queue 1 item 5)")
+    if args.pp_microbatches > 0 and args.batch % args.pp_microbatches:
+        parser.error("--batch must be divisible by --pp_microbatches")
 
     import torch
 
     from ..models import get_preset
     from ..train.checkpoint import load_params, save_checkpoint
     from ..train.data import device_batch, prefetch_batches, synthetic_batches
-    from ..parallel import MESH_AXES, shard_batch
+    from ..parallel import AXIS_MODEL, MESH_AXES, shard_batch
+    from ..parallel.mesh import axis_size
+    from ..train.pp_train import gather_pp_state, make_pp_train_state, make_pp_vlm_train_step
     from ..train.train_step import (cosine_lr, gather_state, load_whole_params, make_train_state, resolve_device,
                                     train_step, training_mesh)
     from ..weights import params_from_jax
@@ -77,21 +85,34 @@ def main(argv=None):
     device = resolve_device()
     mesh = training_mesh(device)
     rank0 = mesh is None or torch.distributed.get_rank() == 0
-    model, opt, state = make_train_state(cfg, device, seed=args.seed, lr=schedule, mesh=mesh)
+    pp = args.pp_microbatches > 0
+    warm = None
+    if args.init_from:
+        tree = load_params(args.init_from)
+        if tree is None:
+            parser.error(f"--init_from {args.init_from}: no complete checkpoint there")
+        warm = params_from_jax(tree)
+    if pp:
+        # Every rank loads the whole warm start, then keeps its stage's part.
+        model, opt, state = make_pp_train_state(cfg, device, seed=args.seed, lr=schedule, mesh=mesh, params=warm)
+        step_fn, local_rows = make_pp_vlm_train_step(model, opt, mesh, n_micro=args.pp_microbatches)
+    else:
+        model, opt, state = make_train_state(cfg, device, seed=args.seed, lr=schedule, mesh=mesh)
+        if warm is not None:
+            load_whole_params(model, warm, mesh)
     device = next(model.parameters()).device
     log = print if rank0 else (lambda *a, **k: None)
     log(f"device: {device} ({torch.cuda.get_device_name(device) if device.type == 'cuda' else 'cpu'})")
     if mesh is not None:
         log(f"mesh: {dict(zip(MESH_AXES, mesh.shape))} devices={torch.distributed.get_world_size()}")
-    if args.init_from:
-        tree = load_params(args.init_from)
-        if tree is None:
-            parser.error(f"--init_from {args.init_from}: no complete checkpoint there")
-        load_whole_params(model, params_from_jax(tree), mesh)
+    if warm is not None:
         log(f"warm-started params from {args.init_from}")
+    if pp:
+        stages = 1 if mesh is None else axis_size(mesh, AXIS_MODEL)
+        log(f"PP training: {args.pp_microbatches} microbatches over {stages} pipeline stage(s)")
 
     def save():
-        whole = gather_state(state, mesh)
+        whole = gather_pp_state(state, cfg.decoder.depth, mesh) if pp else gather_state(state, mesh)
         return save_checkpoint(args.ckpt_dir, whole) if rank0 else None
 
     data = prefetch_batches(
@@ -106,9 +127,12 @@ def main(argv=None):
     t_last, step_last = t_start, 0
     for step in range(1, args.steps + 1):
         batch = device_batch(cfg, next(data), device=device)
-        if mesh is not None:
-            batch = shard_batch(batch, mesh)
-        state, loss = train_step(model, opt, state, batch, mesh=mesh)
+        if pp:
+            state, loss = step_fn(state, local_rows(batch))
+        else:
+            if mesh is not None:
+                batch = shard_batch(batch, mesh)
+            state, loss = train_step(model, opt, state, batch, mesh=mesh)
         if step % args.log_every == 0 or step == 1:
             loss_v = float(loss)
             now = time.time()

@@ -264,15 +264,15 @@ def make_train_state(cfg: VLMConfig, device=None, seed: int = 0, lr: Union[float
     return model, opt, TrainState(params=params, opt_state=opt.init(params), step=0, cfg=cfg)
 
 
-def sum_gradients(params: Params, mesh) -> None:
-    """Sum every gradient over the mesh's `data` and `seq` ranks in place,
-    one flat all-reduce per dtype."""
-    if all(axis_size(mesh, a) == 1 for a in (AXIS_DATA, AXIS_SEQ)):
+def sum_gradients(params: Params, mesh, axes=(AXIS_DATA, AXIS_SEQ)) -> None:
+    """Sum every gradient over the mesh's ranks along `axes` (`data` and
+    `seq`) in place, one flat all-reduce per dtype."""
+    if all(axis_size(mesh, a) == 1 for a in axes):
         return
     grads = [p.grad for p in params.values()]
     for dtype in dict.fromkeys(g.dtype for g in grads):
         group = [g for g in grads if g.dtype == dtype]
-        flat = sum_over(torch.cat([g.reshape(-1) for g in group]), (AXIS_DATA, AXIS_SEQ), mesh)
+        flat = sum_over(torch.cat([g.reshape(-1) for g in group]), axes, mesh)
         for g, part in zip(group, flat.split([g.numel() for g in group])):
             g.copy_(part.view_as(g))
 
