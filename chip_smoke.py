@@ -2004,12 +2004,20 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
                        bwd_bit_identical=identical, bwd_launches_for_2_calls=bwd_launches, ok=ok,
                        launches_per_step=sh.launches, path=sh.path)
             if dtype == torch.bfloat16:
+                def fwd_lse():
+                    return kernels.flash_attention_fwd(q, k, v, kv_len, sh.causal, scale, lse=lse)
+
+                def bwd():
+                    return kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale)
                 with torch.no_grad():
                     row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal), 10)
-                row["fwd_lse_ms"] = cuda_ms(
-                    lambda: kernels.flash_attention_fwd(q, k, v, kv_len, sh.causal, scale, lse=lse), 10)
-                row["bwd_ms"] = cuda_ms(
-                    lambda: kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale), 10)
+                row["fwd_lse_ms"] = cuda_ms(fwd_lse, 10)
+                row["bwd_ms"] = cuda_ms(bwd, 10)
+                row["bwd_graph_ms"] = graph_ms(bwd, iters=10)
+                # The wrappers' host cost per call: the backward encodes four
+                # TMA tensor maps a call.
+                row["fwd_host_us"] = host_us(fwd_lse)
+                row["bwd_host_us"] = host_us(bwd)
                 row["bwd_plain_ms"] = cuda_ms(
                     lambda: tattn.flash_attention_bwd(q, k, v, kv_len, g, sh.causal, scale), 3, warmup=1)
                 row["plain_ms"] = cuda_ms(lambda: mha_reference(q, k, v, kv_len=kv_len, causal=sh.causal), 3,
@@ -2017,12 +2025,17 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
                 lib_fwd, lib_bwd = train_library_call(q, k, v, g, sh)
                 row["library_ms"] = cuda_ms(lib_fwd, 10)
                 row["library_bwd_ms"] = cuda_ms(lib_bwd, 10)
-                del lib_fwd, lib_bwd
+                side = torch.cuda.Stream()
+                _, lib_bwd_side = train_library_call(q, k, v, g, sh, stream=side)
+                row["library_bwd_graph_ms"] = graph_ms(lib_bwd_side, iters=10, stream=side)
+                del lib_fwd, lib_bwd, lib_bwd_side
                 row["bound_ms"], row["bound_by"] = bound_ms(sh, dtype)
                 row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(sh, dtype)
-                if sh.path == "prod_train":
-                    row["bwd_graph_ms"] = graph_ms(
-                        lambda: kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale), iters=10)
+                log("train.kernel_shape", 0.0, shape=sh.name, path=sh.path,
+                    calls_per_step=sh.launches // (1 if sh.path == "train_embedder" else 2),
+                    **{k: row[k] for k in ("bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms",
+                                           "bwd_bound_ms", "bwd_bound_by", "bwd_host_us", "fwd_host_us")},
+                    bwd_share_of_bound=row["bwd_bound_ms"] / row["bwd_graph_ms"])
             print("kernel " + json.dumps(row), flush=True)
             rows.append(row)
             if not ok:
@@ -2044,12 +2057,12 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
             **{k: sum(r[k] * r["launches_per_step"] for r in main)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             **{k: sum(r[k] * (r["launches_per_step"] // per_block) for r in main)
-               for k in ("bwd_ms", "bwd_plain_ms", "library_bwd_ms", "bwd_bound_ms")},
+               for k in ("bwd_ms", "bwd_graph_ms", "bwd_plain_ms", "library_bwd_ms", "library_bwd_graph_ms",
+                         "bwd_bound_ms")},
+            **{f"{k}_per_call": {r["shape"]: r[k] for r in main}
+               for k in ("bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms", "bwd_bound_ms",
+                         "bwd_host_us")},
         }
-        if path == "prod_train":
-            rec[path]["bwd_graph_ms"] = sum(r["bwd_graph_ms"] * (r["launches_per_step"] // per_block) for r in main)
-            rec[path]["bwd_ms_per_call"] = {r["shape"]: r["bwd_ms"] for r in main}
-            rec[path]["bwd_graph_ms_per_call"] = {r["shape"]: r["bwd_graph_ms"] for r in main}
         ops_ms = sum(r["bwd_bound_ms"] * (r["launches_per_step"] // per_block)
                      for r in main if r["bwd_bound_by"] == "operations")
         rec[path]["bwd_bound_by"] = "operations" if ops_ms >= rec[path]["bwd_bound_ms"] / 2 else "bytes"
@@ -4135,7 +4148,10 @@ def main() -> int:
                   "max_abs_err": trained["kernel"]["bwd_max_abs_err"], "ms": train_rec["bwd_ms"],
                   "plain_ms": train_rec["bwd_plain_ms"], "bound_ms": train_rec["bwd_bound_ms"],
                   "bound_by": train_rec["bwd_bound_by"], "library_ms": train_rec["library_bwd_ms"]},
-              kernel_route=kernels.FLASH_BWD_ROUTES[torch.bfloat16],
+              kernel_route=kernels.FLASH_BWD_ROUTES[torch.bfloat16], graph_ms=train_rec["bwd_graph_ms"],
+              library_graph_ms=train_rec["library_bwd_graph_ms"],
+              mixc_per_call={k: train_rec[f"{k}_per_call"] for k in (
+                  "bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms", "bwd_bound_ms", "bwd_host_us")},
               calls_per_step=trained["k1_bwd_per_step"], embedder_train_step={
                   k: trained["kernel"]["train_embedder"][k]
                   for k in ("bwd_ms", "bwd_plain_ms", "library_bwd_ms", "bwd_bound_ms")},
@@ -4146,7 +4162,8 @@ def main() -> int:
               mixc_backward_s=trained["mixc"]["backward_s"],
               prod_train_step={k: prod_train_rec[k] for k in (
                   "bwd_launches_per_step", "bwd_ms", "bwd_graph_ms", "bwd_plain_ms", "library_bwd_ms",
-                  "bwd_bound_ms", "bwd_bound_by", "bwd_ms_per_call", "bwd_graph_ms_per_call")},
+                  "library_bwd_graph_ms", "bwd_bound_ms", "bwd_bound_by", "bwd_ms_per_call",
+                  "bwd_graph_ms_per_call")},
               prod_train_step_s=moe["prod_train"]["step_s"], prod_train_backward_s=moe["prod_train"]["backward_s"],
               ring_bwd=sharded["ring_bwd"]["shapes"], ring_bwd_max_rel_err=sharded["ring_bwd"]["max_rel_err"],
               ring_bwd_plain_max_rel_err=sharded["ring_bwd"]["plain_max_rel_err"],

@@ -7,13 +7,15 @@ it, at small sizes on the CPU, against the JAX package.
   `mha_reference` builds them): f32, atol 1e-5 (the same f32 products and
   one log-sum-exp, reduced in another order).
 - `kernel_passes_bwd` below, the backward kernel's algorithm written as torch
-  tensor code pass by pass (Delta = rowsum(dO * O); a dK/dV pass over 64-key
-  blocks that loops over the query heads of its kv head and 64-row query
-  tiles from the diagonal; a dQ pass over 64-row query blocks and 64-key
-  tiles up to the block's key end; P = exp(scale * s - lse) with no running
-  max), against `jax.grad` of the JAX package's `flash_attention` (its Pallas
-  forward in interpret mode, its XLA `core_bwd`): f32, atol 2e-3, the JAX
-  package's own for its kernel against its reference
+  tensor code pass by pass (Delta = rowsum(dO * O); a dK/dV pass over
+  128-key work items of two 64-key warpgroups that loop over the query
+  heads of their kv head and 64-row query tiles from the tile that holds
+  the diagonal, skipping tiles without a pair of theirs; a dQ pass over
+  128-row work items of two 64-row warpgroups and 64-key tiles up to each
+  one's key end; P = exp(scale * s - lse) with no running max), against `jax.grad`
+  of the JAX package's `flash_attention` (its Pallas forward in interpret
+  mode, its XLA `core_bwd`) at every head_dim the kernel takes: f32, atol
+  2e-3, the JAX package's own for its kernel against its reference
   (tests/test_attention_grad.py).
 - The wrapper's refusals that hold before anything is built, and the
   routing: on a CPU tensor FlashAttentionFn's backward is the plain
@@ -32,7 +34,11 @@ from vision_compression_project_tpu_torch.ops import attention as tattn
 
 ATOL = 2e-3
 LSE_ATOL = 1e-5
-TILE = 64  # the backward kernel's key block, query tile and key tile
+# The backward kernel's bf16 tiling: pass 1 takes work items of KB keys,
+# two warpgroups of WG keys, over query tiles of BQ rows (at every
+# head_dim); pass 2 work items of QB query rows, two warpgroups of WG rows,
+# over tiles of KT keys.
+KB, BQ, QB, KT, WG = 128, 64, 128, 64, 64
 
 
 def _inputs(seed, b, h, hkv, s, d):
@@ -82,7 +88,8 @@ def test_lse_equals_jax_logsumexp(b, h, hkv, s, d, kv_len, causal):
 
 def kernel_passes_bwd(q, k, v, o, g, lse, kv_len, causal, scale):
     """The backward kernel's algorithm in torch tensor code, f32: its three
-    passes, tiles, loop bounds and masks as flash_attention_bwd.cu has them."""
+    passes, blocks, warpgroups, tiles, loop bounds, skipped tiles and masks as
+    flash_attention_bwd.cu has them."""
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = h // hkv
@@ -92,40 +99,48 @@ def kernel_passes_bwd(q, k, v, o, g, lse, kv_len, causal, scale):
     dk = torch.zeros_like(k)
     dv = torch.zeros_like(v)
     for bi, n in enumerate(lens):
-        for hk in range(hkv):  # pass 1: one block per 64 keys of (batch, kv head)
-            for k0 in range(0, sk, TILE):
+        for hk in range(hkv):  # pass 1: one work item per 128 keys of (batch, kv head)
+            for k0 in range(0, sk, KB):
                 if k0 >= n:
                     continue  # at or past kv_len: zeros
-                keys = torch.arange(k0, min(k0 + TILE, sk))
-                kt, vt = k[bi, hk, keys], v[bi, hk, keys]
-                dk_acc, dv_acc = torch.zeros_like(kt), torch.zeros_like(vt)
-                for hq in range(hk * group, (hk + 1) * group):
-                    for r0 in range(k0 if causal else 0, sq, TILE):
-                        rows = torch.arange(r0, min(r0 + TILE, sq))
-                        qt, gt = q[bi, hq, rows], g[bi, hq, rows]
-                        mask = (keys < n)[:, None] & ((keys[:, None] <= rows[None, :]) if causal else True)
-                        pt = torch.exp(kt @ qt.T * scale - lse[bi, hq, rows][None, :])
-                        pt = torch.where(mask, pt, torch.zeros(()))
-                        dst = pt * (vt @ gt.T - delta[bi, hq, rows][None, :])
-                        dv_acc += pt @ gt
-                        dk_acc += dst @ qt
-                dk[bi, hk, keys] = dk_acc * scale
-                dv[bi, hk, keys] = dv_acc
-        for hq in range(h):  # pass 2: one block per 64 query rows of (batch, head)
-            hk = hq // group
-            for q0 in range(0, sq, TILE):
-                rows = torch.arange(q0, min(q0 + TILE, sq))
-                kend = min(n, q0 + TILE) if causal else n
-                acc = torch.zeros((len(rows), d))
-                for t0 in range(0, kend, TILE):
-                    keys = torch.arange(t0, min(t0 + TILE, kend))
+                qb0 = k0 // BQ if causal else 0  # the tile that holds the block's diagonal
+                for kw in range(k0, min(k0 + KB, sk), WG):  # its two consumer warpgroups
+                    keys = torch.arange(kw, min(kw + WG, sk))
                     kt, vt = k[bi, hk, keys], v[bi, hk, keys]
-                    mask = (keys < n)[None, :] & ((keys[None, :] <= rows[:, None]) if causal else True)
-                    p = torch.exp(q[bi, hq, rows] @ kt.T * scale - lse[bi, hq, rows][:, None])
-                    p = torch.where(mask, p, torch.zeros(()))
-                    ds = p * (g[bi, hq, rows] @ vt.T - delta[bi, hq, rows][:, None])
-                    acc += ds @ kt
-                dq[bi, hq, rows] = acc * scale
+                    dk_acc, dv_acc = torch.zeros_like(kt), torch.zeros_like(vt)
+                    for hq in range(hk * group, (hk + 1) * group):
+                        for r0 in range(qb0 * BQ, sq, BQ):
+                            if kw >= n or (causal and kw > r0 + BQ - 1):
+                                continue  # no pair of this warpgroup in the tile
+                            rows = torch.arange(r0, min(r0 + BQ, sq))
+                            qt, gt = q[bi, hq, rows], g[bi, hq, rows]
+                            mask = (keys < n)[:, None] & ((keys[:, None] <= rows[None, :]) if causal else True)
+                            pt = torch.exp(kt @ qt.T * scale - lse[bi, hq, rows][None, :])
+                            pt = torch.where(mask, pt, torch.zeros(()))
+                            dst = pt * (vt @ gt.T - delta[bi, hq, rows][None, :])
+                            dv_acc += pt @ gt
+                            dk_acc += dst @ qt
+                    dk[bi, hk, keys] = dk_acc * scale
+                    dv[bi, hk, keys] = dv_acc
+        for hq in range(h):  # pass 2: one work item per 128 query rows of (batch, head)
+            hk = hq // group
+            for q0 in range(0, sq, QB):
+                kend = min(n, q0 + QB) if causal else n  # the block's key end
+                for qw in range(q0, min(q0 + QB, sq), WG):  # its two consumer warpgroups
+                    rows = torch.arange(qw, min(qw + WG, sq))
+                    wkend = min(n, qw + WG) if causal else n
+                    acc = torch.zeros((len(rows), d))
+                    for t0 in range(0, kend, KT):
+                        if t0 >= wkend:
+                            continue  # past this warpgroup's key end
+                        keys = torch.arange(t0, min(t0 + KT, sk))
+                        kt, vt = k[bi, hk, keys], v[bi, hk, keys]
+                        mask = (keys < n)[None, :] & ((keys[None, :] <= rows[:, None]) if causal else True)
+                        p = torch.exp(q[bi, hq, rows] @ kt.T * scale - lse[bi, hq, rows][:, None])
+                        p = torch.where(mask, p, torch.zeros(()))
+                        ds = p * (g[bi, hq, rows] @ vt.T - delta[bi, hq, rows][:, None])
+                        acc += ds @ kt
+                    dq[bi, hq, rows] = acc * scale
     return dq, dk, dv
 
 
@@ -147,6 +162,15 @@ def _passes(q, k, v, g, kv_len, causal):
         (2, 4, 2, 130, 16, [130, 77], False),
         (2, 6, 2, 130, 16, [130, 1], True),
         (2, 4, 4, 200, 32, [200, 64], True),
+        # Each head_dim of the kernel; lengths that are not multiples of
+        # 64 or 128, ragged rows that end inside a warpgroup or after one
+        # key, GQA 3:1 and 4:1 (a row with no key: the test below).
+        (1, 6, 2, 200, 64, None, True),
+        (2, 3, 1, 193, 64, [193, 100], False),
+        (2, 4, 1, 150, 96, [150, 1], True),
+        (1, 4, 4, 130, 96, None, False),
+        (2, 4, 1, 140, 128, [140, 65], True),
+        (1, 2, 2, 257, 128, [200], False),
     ],
 )
 def test_kernel_passes_equal_jax_gradient(b, h, hkv, s, d, kv_len, causal):

@@ -591,6 +591,17 @@ BWD_CASES = [
     (3, 8, 2, 333, 96, [333, 0, 1], True),
     (3, 8, 2, 333, 128, [333, 1, 200], False),
     (2, 4, 1, 77, 128, [77, 5], True),
+    # The warp-specialised bf16 kernel's 128-key and 128-row blocks: each
+    # head_dim at GQA 1:1, 3:1 and 4:1, lengths 1534, 766, 575 and 200 (not
+    # multiples of 64 or 128), ragged rows with a 0, causal and not.
+    (2, 6, 2, 766, 32, [766, 0], True),
+    (2, 8, 2, 200, 32, None, False),
+    (2, 3, 1, 575, 64, [575, 300], False),
+    (2, 8, 2, 200, 64, [0, 200], True),
+    (1, 12, 4, 1534, 96, None, True),
+    (2, 8, 8, 575, 96, [575, 0], False),
+    (2, 8, 2, 200, 128, None, True),
+    (1, 6, 2, 1534, 128, [1534], False),
 ]
 
 
@@ -645,14 +656,66 @@ def test_forward_lse_matches_plain(cuda, dtype, b, h, hkv, s, d, kv_len, causal)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_backward_kernel_is_deterministic(cuda, dtype):
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_backward_kernel_is_deterministic(cuda, dtype, d):
     """Two runs on the same inputs give bit-identical dq, dk and dv: every
     element is summed by one thread in a fixed order, with no atomics."""
-    q, k, v, w, kv, o, lse = _bwd_inputs(cuda, dtype, 4, 6, 2, 1534, 64, [1534, 700, 1, 1200], True)
-    first = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, True, 0.125)
-    second = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, True, 0.125)
+    q, k, v, w, kv, o, lse = _bwd_inputs(cuda, dtype, 4, 6, 2, 1534, d, [1534, 700, 1, 1200], True)
+    first = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, True, d ** -0.5)
+    second = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, True, d ** -0.5)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# Query and key lengths that differ, as a ring hop's call has them (the
+# kernel's causal mask is key <= query row, from the first row of each).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,d,kv_len,causal", [
+    (2, 6, 2, 384, 1534, 64, None, False),
+    (2, 6, 2, 1534, 384, 64, [384, 100], False),
+    (1, 16, 4, 192, 766, 128, None, False),
+    (2, 8, 8, 200, 575, 32, [575, 0], False),
+    (2, 6, 2, 256, 512, 96, None, True),
+    (2, 6, 6, 575, 200, 32, [200, 77], True),
+])
+def test_backward_kernel_matches_plain_across_lengths(cuda, dtype, b, h, hkv, sq, sk, d, kv_len, causal):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, w = (torch.randn((b, h, sq, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn((b, hkv, sk, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    kv = None if kv_len is None else torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=cuda)
+    o = kernels.flash_attention_fwd(q, k, v, kv, causal, d ** -0.5, lse=lse)
+    got = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, causal, d ** -0.5)
+    want = flash_attention_bwd(q, k, v, kv, w, causal, d ** -0.5)
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for gt, wt in zip(got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape
+        err = (gt.float() - wt.float()).abs().max().item()
+        assert bool(torch.isfinite(gt).all()) and err <= tol * wt.float().abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_backward_kernel_reads_head_split_views_in_place(cuda, dtype, d):
+    """q, k, v, o and dO as head-split views of (B, S, H * D) tensors give
+    the gradients of contiguous copies, bit for bit (the tensor maps carry
+    the strides), in (B, H, S, D) views of contiguous (B, S, H, D) tensors."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    b, s, h, hkv = 2, 575, 6, 2
+    proj = torch.randn((b, s, (h + 2 * hkv) * d), generator=g, device=cuda).to(dtype)
+    q = proj[..., : h * d].view(b, s, h, d).transpose(1, 2)
+    k = proj[..., h * d : (h + hkv) * d].view(b, s, hkv, d).transpose(1, 2)
+    v = proj[..., (h + hkv) * d :].view(b, s, hkv, d).transpose(1, 2)
+    w = torch.randn((b, s, h * d), generator=g, device=cuda).to(dtype).view(b, s, h, d).transpose(1, 2)
+    kv = torch.tensor([575, 300], dtype=torch.int32, device=cuda)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda)
+    o = kernels.flash_attention_fwd(q, k, v, kv, True, d ** -0.5, lse=lse)
+    got = kernels.flash_attention_bwd(q, k, v, o, w, lse, kv, True, d ** -0.5)
+    want = kernels.flash_attention_bwd(*(t.contiguous() for t in (q, k, v, o, w)), lse, kv, True, d ** -0.5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(got, want))
+    assert all(t.transpose(1, 2).is_contiguous() for t in got)
 
 
 def test_backward_kernel_refuses(cuda):

@@ -134,15 +134,17 @@ FLASH_BWD_HEAD_DIMS = (32, 64, 96, 128)
 # Which kernel each input type takes (kernels/flash_attention.cu and, for the
 # gradient, kernels/flash_attention_bwd.cu).
 FLASH_ROUTES = {torch.bfloat16: "tensor-core bf16 (mma.sync)", torch.float32: "scalar f32"}
-FLASH_BWD_ROUTES = {torch.bfloat16: "tensor-core bf16 (mma.sync), dK/dV pass + dQ pass",
+FLASH_BWD_ROUTES = {torch.bfloat16: "wgmma + TMA, warp-specialised, dK/dV pass + dQ pass",
                     torch.float32: "scalar f32, dK/dV pass + dQ pass"}
 
 
 def flash_layout_ok(t: torch.Tensor) -> bool:
     """Whether the kernel reads `t` (B, H, S, D) in place: last dimension
     contiguous, the other strides multiples of 8 elements, the base 16-byte
-    aligned (the bf16 route copies 16-byte rows with cp.async). A head-split
-    view of a (B, S, H * D) projection qualifies."""
+    aligned (the forward's bf16 route copies 16-byte rows with cp.async; the
+    backward's reads them through TMA tensor maps, whose strides and base
+    need the same). A head-split view of a (B, S, H * D) projection
+    qualifies."""
     st = t.stride()
     return st[3] == 1 and not (st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16)
 
@@ -237,7 +239,9 @@ def flash_attention_bwd(
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev).transpose(1, 2)
     dk = torch.empty((b, sk, hkv, d), dtype=q.dtype, device=dev).transpose(1, 2)
     dv = torch.empty((b, sk, hkv, d), dtype=q.dtype, device=dev).transpose(1, 2)
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=dev)
+    # Delta and, on the bf16 route, lse * log2(e), each with every head's rows
+    # padded to a multiple of 128 (see the source).
+    delta = torch.empty(2 * b * h * -(-sq // 128) * 128, dtype=torch.float32, device=dev)
     params = array.array("q", (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(), lse.data_ptr(),
         0 if kv_len is None else kv_len.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),

@@ -12,50 +12,69 @@
 // valid key has lse = +inf, so its P, and its gradients, are 0, as its
 // forward output is. The gradients come back in the input type.
 //
+// Bound on this card: 10 * D operations per query-key pair that the masks
+// leave (S = Q K^T and dP = dO V^T, dV += P^T dO, dK += dS^T Q, dQ += dS K)
+// at the tensor cores' bf16 rate, or the bytes (q, k, v, o, dO read once,
+// dq, dk, dv written once) at the memory's rate, whichever is longer. Long
+// sequences (ocr_real's global encoder and decoder, the pipeline's
+// microbatch) are bound by the operations; the 256-token windows and
+// prod_train's calls by the bytes.
+//
 // Three launches (FlashAttention-2's backward, with dQ split off):
 //
-// * pass 0: Delta = rowsum(dO * O) in f32, (B, H, Sq), into the caller's
-//   scratch. dS = P * (dP - Delta) needs it for every query row.
-// * pass 1 (dK, dV): a block owns 64 keys of one (batch, kv head) and loops
-//   over the H / Hkv query heads that share them and over 64-row query tiles,
-//   from the key block's diagonal (causal) to Sq. dK and dV accumulate in f32
-//   registers and are written once: GQA is folded inside the block, with no
-//   per-head copies, f32 (B, H, Sk, D) buffers or atomics. A key block at or
-//   past kv_len writes zeros and does nothing else.
-// * pass 2 (dQ): a block owns 16 * WARPS query rows of one (batch, head) and
-//   loops over 64-key tiles up to the block's key end, as the forward does;
-//   dQ accumulates in f32 registers and is written once.
+// * pass 0: Delta = rowsum(dO * O) in f32 into the caller's scratch; dS = P
+//   (dP - Delta) needs it for every query row. A row is a few lanes of a
+//   warp reading 16 bytes each. The bf16 route pads each (batch, head) to
+//   Sp rows, Sq rounded up to 128, and writes lse log2(e) beside Delta: rows
+//   past Sq get Delta 0 and lse +inf, so their P and dS are 0 without a
+//   mask, and every tile's 64 rows are one aligned bulk copy.
+// * pass 1 (dK, dV): a work item is 128 keys of one (batch, kv head); it
+//   loops over the H / Hkv query heads that share them and over 64-row
+//   query tiles, from the tile that holds the item's diagonal (causal) to
+//   Sq. dK and dV accumulate in f32 registers and are written once, dK times
+//   scale: GQA is folded inside the item, with no per-head copies or
+//   atomics. An item at or past kv_len writes zeros and does nothing else.
+// * pass 2 (dQ): a work item is 128 query rows of one (batch, head); it
+//   loops over 64-key tiles up to its key end, min(kv_len, diagonal); dQ
+//   accumulates in f32 registers and is written once.
 //
-// Splitting dQ from dK/dV keeps every gradient deterministic: each output
-// element is summed by one thread in a fixed order, so the same inputs give
-// bit-identical dq, dk and dv on every run. The price is Q K^T and dO V^T
-// computed in both passes (14 * D operations per query-key pair against
-// 10 * D with dQ added by atomics).
+// dQ stays a pass of its own to keep every gradient deterministic: each
+// output element is summed by one thread in one fixed order, so the same
+// inputs give bit-identical dq, dk and dv on every run. The price is Q K^T
+// and dO V^T computed in both passes (14 * D operations per pair against
+// 10 * D with dQ added by atomics from pass 1).
 //
 // Two routes, chosen by dtype:
 //
-// * bf16 (the training path): tensor cores, mma.sync m16n8k16 bf16 -> f32.
-//   Tiles are staged in shared memory through 16-byte cp.async, two in
-//   flight, rows of D + 8 bf16 so that ldmatrix's 8 rows hit 8 distinct bank
-//   groups. A warp owns 16 rows (keys in pass 1, queries in pass 2). At D <=
-//   64 it keeps their two operands (K and V, or Q and dO) as mma A fragments
-//   in registers; they arrive through the second stage's slots before the
-//   pipeline starts, so the block needs only two tile pairs of shared memory.
-//   At D = 96 and 128 the f32 accumulators alone take D (pass 1: dK and dV)
-//   or D / 2 (pass 2: dQ) registers a lane, and the fragments would take D /
-//   2 more: past the 255 a thread has. There the two operands stay in shared
-//   memory slots of their own and each k-step reads its A fragment with
-//   ldmatrix (one more ldmatrix.x4 per 16-deep step, against spilling the
-//   accumulators to local memory every tile), and pass 1 takes 32 query rows
-//   a tile instead of 64, which halves the S^T and dP^T tiles it holds.
-//   Pass 1 computes S^T = K Q^T and dP^T = V dO^T (queries as the mma's n),
-//   turns S^T into P^T with one FMA and ex2 per element (lse in log2 units),
-//   dS^T = P^T (dP^T - Delta), and feeds their C fragments straight back as
-//   A fragments into dV += P^T dO and dK += dS^T Q (ldmatrix .trans for dO
-//   and Q). Pass 2 computes S = Q K^T and dP = dO V^T, and dQ += dS K
-//   (.trans for K). P and dS enter their products as single bf16 terms;
-//   every product accumulates in f32. Only a tile that straddles kv_len or
-//   the diagonal is masked element by element.
+// * bf16 (the training path): warp-specialised, persistent blocks of three
+//   warpgroups, one block per SM, each taking work items in rounds that
+//   alternate in direction (causal grids list the longest items first:
+//   pass 1's first key blocks, pass 2's last query blocks; otherwise the
+//   items of one (batch, head) sit side by side and share their operands in
+//   L2). The producer warpgroup gives up registers (setmaxnreg.dec to 40)
+//   and one of its threads issues every load: TMA copies of a 4-D tensor
+//   map (D, S, H, B) over each strided input, 64 rows x 32 columns a box in
+//   64-byte swizzle (the layout wgmma reads; rows past S arrive as zeros),
+//   and bulk copies of lse and Delta rows, completing on mbarriers. Two
+//   consumer warpgroups (setmaxnreg.inc to 232) own 64 keys (pass 1) or 64
+//   query rows (pass 2) each and do every product with wgmma m64nNk16, bf16
+//   in, f32 accumulators in registers. An item's fixed operands (K and V in
+//   pass 1, Q and dO in pass 2) arrive in one of two pairs of slots, so that
+//   the next item's are loaded while this one runs; the streamed ones (Q and dO tiles
+//   with their lse and Delta rows in pass 1, K and V tiles in pass 2) pass
+//   through a ring of 3 slots, each with a full and an empty barrier, both
+//   consumer warpgroups reading the same tile.
+//   Pass 1: S^T = K Q^T and dP^T = V dO^T (keys as M, Q and dO as K-major
+//   B); P^T = 2^(S^T scale log2(e) - lse log2(e)) and dS^T = P^T (dP^T -
+//   Delta) stay in registers and enter dV += P^T dO and dK += dS^T Q as
+//   wgmma RS A operands: the accumulator's layout is the A fragment's, as
+//   FlashAttention-3 does for P V; dO and Q are MN-major B (transpose bit).
+//   Pass 2: S = Q K^T and dP = dO V^T, dQ += dS K (RS, K MN-major). The
+//   last product of a tile runs on while the next tile's S and dP are
+//   issued (pass 1 at D <= 96; pass 2 always). P and dS enter their
+//   products as single bf16 terms; every product accumulates in f32. Only a
+//   tile that straddles kv_len or the diagonal is masked element by
+//   element; a warpgroup skips a tile that holds none of its pairs.
 // * f32 (the f32 checks only): scalar kernels, one thread per key (pass 1,
 //   K and V in dynamic shared memory, opted in above 48 KB at D = 96 and
 //   128; dK and dV in registers) or per query row (pass 2). At D = 96 and 128
@@ -63,22 +82,20 @@
 //   -Xptxas -v report says how much); only f32 checks take this route. f32
 //   tensor-core math (TF32) would not hold the f32 limit.
 //
-// Bound on this card: at the training shapes the backward is bound by the
-// tensor cores (10 * D operations per query-key pair that the masks leave);
-// the bytes (q, k, v, o, dO read once, dq, dk, dv written once) are a tenth
-// of that time or less. The design recomputes instead of storing P, reads
-// each K/V tile once per key block and each Q/dO tile once per query block,
-// and skips the tiles above the diagonal.
-//
 // Layouts: q, o and dO (B, H, Sq, D), k and v (B, Hkv, Sk, D), dq, dk and dv
 // likewise, each given by element strides for batch, head and sequence with
 // the last dimension contiguous; the bf16 route needs the input strides to be
-// multiples of 8 and the bases 16-byte aligned (cp.async), and every output
-// stride even. lse and Delta are contiguous (B, H, Sq) f32.
+// multiples of 8 and the bases 16-byte aligned (TMA, and pass 0's 16-byte
+// loads), and every output stride even. lse is contiguous (B, H, Sq) f32.
+// The tensor maps are encoded on the host for each call with the driver's
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda), and passed
+// as __grid_constant__ kernel parameters.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <cstdint>
@@ -94,30 +111,65 @@ struct Strides {
 
 // ----------------------------------------------------------- pass 0: Delta
 
-constexpr int DELTA_WARPS = 8;  // rows per block, one warp per row
+constexpr int DELTA_THREADS = 256;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
+// Lanes a row takes in pass 0: its 16-byte pieces, rounded up to a power of two.
 template <typename T, int D>
-__global__ void __launch_bounds__(DELTA_WARPS * 32) delta_kernel(
-    const T* __restrict__ o, const T* __restrict__ g, float* __restrict__ delta,
-    int H, int Sq, long long rows, Strides os, Strides gs) {
-  const long long r = static_cast<long long>(blockIdx.x) * DELTA_WARPS + (threadIdx.x >> 5);
-  if (r >= rows) return;  // the whole warp
-  const int lane = threadIdx.x & 31;
-  const int s = static_cast<int>(r % Sq);
-  const long long bh = r / Sq;
-  const int h = static_cast<int>(bh % H);
-  const int b = static_cast<int>(bh / H);
-  const T* op = o + b * os.b + h * os.h + s * os.s;
-  const T* gp = g + b * gs.b + h * gs.h + s * gs.s;
+__host__ __device__ constexpr int delta_lanes() {
+  return D * static_cast<int>(sizeof(T)) / 16 <= 4    ? 4
+         : D * static_cast<int>(sizeof(T)) / 16 <= 8  ? 8
+         : D * static_cast<int>(sizeof(T)) / 16 <= 16 ? 16
+                                                      : 32;
+}
+
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, float) {
+  return __uint_as_float(a.x) * __uint_as_float(b.x) + __uint_as_float(a.y) * __uint_as_float(b.y) +
+         __uint_as_float(a.z) * __uint_as_float(b.z) + __uint_as_float(a.w) * __uint_as_float(b.w);
+}
+
+__device__ __forceinline__ float dot16(uint4 a, uint4 b, bf16) {
+  const auto* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const auto* y = reinterpret_cast<const __nv_bfloat162*>(&b);
   float acc = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) acc += to_f32(op[d]) * to_f32(gp[d]);
+  for (int i = 0; i < 4; ++i) {
+    const float2 u = __bfloat1622float2(x[i]), v = __bfloat1622float2(y[i]);
+    acc += u.x * v.x + u.y * v.y;
+  }
+  return acc;
+}
+
+// Row r of (B, H, Sp), Sp >= Sq: Delta = rowsum(dO * O), 0 past Sq. With
+// lse2, also lse * log2(e) there, +inf past Sq (the bf16 route's padded
+// rows, whose P is then 0). A row is LANES lanes of a warp, each reading
+// 16-byte pieces of O and dO (aligned: flash_layout_ok).
+template <typename T, int D>
+__global__ void __launch_bounds__(DELTA_THREADS) delta_kernel(
+    const T* __restrict__ o, const T* __restrict__ g, const float* __restrict__ lse, float* __restrict__ delta,
+    float* __restrict__ lse2, int H, int Sq, int Sp, long long rows, Strides os, Strides gs) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));
+  constexpr int PIECES = D / VEC;
+  constexpr int LANES = delta_lanes<T, D>();
+  static_assert(PIECES <= LANES && LANES <= 32, "a row is at most a warp");
+  const long long r = (static_cast<long long>(blockIdx.x) * DELTA_THREADS + threadIdx.x) / LANES;
+  const int part = threadIdx.x % LANES;
+  const bool row_ok = r < rows;
+  const int s = row_ok ? static_cast<int>(r % Sp) : Sq;
+  const long long bh = r / Sp;
+  float acc = 0.f;
+  if (s < Sq && part < PIECES) {
+    const int h = static_cast<int>(bh % H);
+    const int b = static_cast<int>(bh / H);
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + b * os.b + h * os.h + s * os.s + part * VEC);
+    const uint4 gv = *reinterpret_cast<const uint4*>(g + b * gs.b + h * gs.h + s * gs.s + part * VEC);
+    acc = dot16(ov, gv, T());
+  }
 #pragma unroll
-  for (int w = 16; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  if (lane == 0) delta[r] = acc;
+  for (int w = LANES / 2; w > 0; w >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, w);
+  if (row_ok && part == 0) {
+    delta[r] = acc;
+    if (lse2) lse2[r] = s < Sq ? lse[bh * Sq + s] * LOG2E : INFINITY;
+  }
 }
 
 // ---------------------------------------------------------------- f32 route
@@ -290,46 +342,234 @@ __global__ void __launch_bounds__(SC_BM) dq_scalar_kernel(
 
 // -------------------------------------------------------------- bf16 route
 
-constexpr int TILE = 64;   // keys per pass-1 block and per pass-2 tile; query rows per pass-1 tile
-constexpr int STAGES = 2;  // tiles in flight
-constexpr int PAD = 8;     // bf16 per smem row (16 bytes)
-constexpr int KV_WARPS = TILE / 16;
+constexpr int KB = 128;               // pass 1: keys per work item
+constexpr int BQ = 64;                // pass 1: query rows per tile
+constexpr int QB = 128;               // pass 2: query rows per work item
+constexpr int KT = 64;                // pass 2: keys per tile
+constexpr int KV_STAGES = 2;          // pairs of slots for the fixed operands
+constexpr int STAGES = 3;             // slots of the ring of streamed tiles (227 KB hold 3 at D = 128)
+constexpr int CONSUMERS = 256;        // two consumer warpgroups of 64 rows (keys or queries) each
+constexpr int THREADS = CONSUMERS + 128;  // and the producer warpgroup
+constexpr int CONSUMER_WARPS = CONSUMERS / 32;
+// setmaxnreg moves registers inside the block's own allocation, 384 x 168
+// at launch (__launch_bounds__(384, 1)): 128 x 40 + 256 x 232 = 384 x 168.
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int BOX_ROWS = 64;          // rows of a TMA box; its 32 columns are one 64-byte swizzle row
+constexpr int CHUNK = 32;             // bf16 columns of a swizzled chunk
+
+// A tile of R rows x D bf16 in shared memory is D / 32 chunks, chunk c holding
+// columns 32c .. 32c + 31 of every row as R rows of 64 bytes, 64-byte swizzled
+// (16-byte unit u of row r at u ^ ((r / 2) % 4)): what TMA writes for a box
+// {32, 64} with CU_TENSOR_MAP_SWIZZLE_64B, and what wgmma's 64-byte-swizzle
+// descriptors read, both as K-major (rows are M or N, columns K) and as
+// MN-major (rows are K, columns N). Every tile starts at a multiple of 1024.
+template <int R, int D>
+__host__ __device__ constexpr int tile_bytes() {
+  return R * D * 2;
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared; with valid == false nothing is read and the
-// destination is zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
+// ---- mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrives once and adds `bytes` to the transactions the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// This warp no longer reads slot `slot` of the ring whose empty barriers
+// start at `bars` (one arrival a warp).
+__device__ __forceinline__ void release(uint32_t bars, int slot, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bars + 8 * slot);
+}
+
+// Waits for the phase of parity `parity` to complete. A wait that outlasts
+// about ten seconds traps (the launch fails with an error) instead of
+// holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity)) {
+    if (clock64() - start > 20000000000ll) __trap();
+  }
+}
+
+// Rows row .. row + 63 of (batch, head) at columns col .. col + 31 into dst.
+__device__ __forceinline__ void tma_box(const CUtensorMap* map, uint32_t dst, uint32_t bar, int col, int row, int head,
+                                        int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head), "r"(batch), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from src (16-byte aligned) into dst.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// Rows row .. row + R - 1 of (batch, head), every column, as the R x D tile at dst.
+template <int R, int D>
+__device__ __forceinline__ void load_tile(const CUtensorMap* map, uint32_t dst, uint32_t bar, int row, int head,
+                                          int batch) {
+#pragma unroll
+  for (int c = 0; c < D / CHUNK; ++c) {
+#pragma unroll
+    for (int r = 0; r < R / BOX_ROWS; ++r) {
+      tma_box(map, dst + c * R * 64 + r * BOX_ROWS * 64, bar, c * CHUNK, row + r * BOX_ROWS, head, batch);
+    }
+  }
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+// ---- warpgroup products
+
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_wait_all() { asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory"); }
+
+// After wgmma_wait_all: the registers a product wrote (or read as A) are
+// ordered after the wait, so the compiler neither reads nor reuses them early.
+template <int N>
+__device__ __forceinline__ void keep(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]));
+}
+
+template <int N>
+__device__ __forceinline__ void keep(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]));
+  }
+}
+
+// A shared-memory matrix descriptor in 64-byte swizzle (layout type 2):
+// start address, leading and stride byte offsets, each in 16-byte units.
+// In a swizzled tile, eight rows are 512 bytes apart (SBO = 512). K-major
+// (rows are M or N): a 16-deep step inside a chunk moves the start by 32
+// bytes, the next chunk by R * 64 (k_step); LBO is unused. MN-major (rows
+// are K): a 16-deep step moves the start by 16 rows, 1024 bytes, and the 32
+// columns of the next chunk are R * 64 bytes on (LBO).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 2ull << 62;
+}
+
+// d (64 x N f32, N / 2 a thread) += A (64 x 16 bf16) B (16 x N). wgmma_ss:
+// A and B from shared memory (descriptors a and b, both K-major);
+// wgmma_ss_init writes d = A B and does not read d (an accumulator not yet
+// set is no input of it). wgmma_rs: A from registers, B an MN-major
+// descriptor (the transpose bit).
+__device__ __forceinline__ void wgmma_ss_init(float (&d)[32], uint64_t a, uint64_t b) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // Two f32 -> one register of two bf16, the lower index in the low half.
@@ -345,419 +585,492 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// The C fragments of the 8-wide blocks 2 * kk and 2 * kk + 1 as the A
-// fragment of a 16-deep product (PTX ISA, mma.m16n8k16: lane = 4 * g + t; A
-// holds rows g, g + 8 and columns 2t, 2t + 1, 2t + 8, 2t + 9; C rows g, g + 8
-// and columns 2t, 2t + 1).
-template <int N>
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[N][4], int kk) {
-  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+// Column block j of a 64 x N accumulator (thread t of warp w holds, for
+// each 8-column block j, rows 16w + t/4 and 16w + t/4 + 8 at columns 8j +
+// 2(t%4) + {0, 1}: d[4j .. 4j + 3], here v) into the bf16 A fragment of step
+// j / 2 of 16 columns: the wgmma A register layout is the accumulator's for
+// those columns (a0, a1 the first 8 columns, a2, a3 the next).
+template <int S>
+__device__ __forceinline__ void put_a(uint32_t (&a)[S][4], int j, const float (&v)[4]) {
+  a[j >> 1][(j & 1) * 2] = pack_bf16(v[0], v[1]);
+  a[j >> 1][(j & 1) * 2 + 1] = pack_bf16(v[2], v[3]);
 }
 
-// One 16-deep step kk of mma_abt, with A's fragment af for that step.
-template <int NB, int LD>
-__device__ __forceinline__ void mma_abt_step(float (&acc)[NB][4], const uint32_t (&af)[4], const bf16* t, int kk,
-                                             int lane) {
-#pragma unroll
-  for (int n2 = 0; n2 < NB / 2; ++n2) {
-    uint32_t f[4];
-    const int row = n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
-    const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-    ldmatrix_x4(f, smem_u32(&t[row * LD + col]));
-    mma_bf16(acc[2 * n2], af, f[0], f[1]);
-    mma_bf16(acc[2 * n2 + 1], af, f[2], f[3]);
-  }
+// The bf16 route's rows of lse and Delta per (batch, head): Sq rounded up
+// to a whole pass-2 block.
+__host__ __device__ constexpr int padded_rows(int Sq) { return (Sq + QB - 1) / QB * QB; }
+
+// A descriptor the compiler must recompute where it is used: it cannot keep
+// a loop-invariant descriptor per step in registers across the loop.
+__device__ __forceinline__ uint64_t opaque(uint64_t d) {
+  asm volatile("" : "+l"(d));
+  return d;
 }
 
-// acc (16 rows x 8 * NB columns) += A (16 rows x D, fragments a) times the
-// transpose of the 8 * NB rows x D smem tile t: one ldmatrix.x4 gives the B
-// fragments of two 8-row blocks of t.
-template <int NB, int KD, int LD>
-__device__ __forceinline__ void mma_abt(float (&acc)[NB][4], const uint32_t (&a)[KD][4], const bf16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) mma_abt_step<NB, LD>(acc, a[kk], t, kk, lane);
+// The offset of step kk of a K-major operand in an R-row tile, in 16-byte
+// units: added to a descriptor, it moves the start address.
+template <int R>
+__device__ __forceinline__ uint64_t k_step(int kk) {
+  return static_cast<uint64_t>(((kk >> 1) * R * 64 + (kk & 1) * 32) >> 4);
 }
 
-// acc (16 rows x D) += A (16 rows x 16, fragment a) times rows 16 * kk ..
-// 16 * kk + 15 of the smem tile t (x D): ldmatrix.x4.trans gives the B
-// fragments of two 8-wide column blocks.
-template <int ND, int LD>
-__device__ __forceinline__ void mma_ab(float (&acc)[ND][4], const uint32_t (&a)[4], const bf16* t, int kk,
-                                       int lane) {
-#pragma unroll
-  for (int n2 = 0; n2 < ND / 2; ++n2) {
-    uint32_t f[4];
-    const int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-    const int col = n2 * 16 + (lane >> 4) * 8;
-    ldmatrix_x4_trans(f, smem_u32(&t[row * LD + col]));
-    mma_bf16(acc[2 * n2], a, f[0], f[1]);
-    mma_bf16(acc[2 * n2 + 1], a, f[2], f[3]);
-  }
-}
+template <int D>
+struct DkdvSmem {  // byte offsets from a 1024-aligned base
+  static constexpr int KV = 2 * tile_bytes<KB, D>();            // one K and V pair
+  static constexpr int K = 0;                                   // KV_STAGES x (K, V), each KB x D
+  static constexpr int Q = K + KV_STAGES * KV;                  // STAGES x BQ x D
+  static constexpr int G = Q + STAGES * tile_bytes<BQ, D>();
+  static constexpr int LSE = G + STAGES * tile_bytes<BQ, D>();  // STAGES x BQ f32
+  static constexpr int DELTA = LSE + STAGES * BQ * 4;
+  static constexpr int BAR = DELTA + STAGES * BQ * 4;           // kv_full, kv_empty, full, empty
+  static constexpr int BYTES = BAR + 16 * (KV_STAGES + STAGES) + 1024;  // + the alignment of the base
+};
 
-// Writes rows row0 and row0 + 8 (< S) of a warp's 16 x D f32 accumulator,
-// times mul, as bf16 into out (row stride rs).
-template <int ND>
-__device__ __forceinline__ void store_rows(bf16* out, long long rs, const float (&acc)[ND][4], float mul,
-                                           int row0, int S, int lane) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = row0 + i * 8;
-    if (row >= S) continue;
-    bf16* p = out + row * rs + (lane & 3) * 2;
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      *reinterpret_cast<uint32_t*>(p + n * 8) = pack_bf16(acc[n][2 * i] * mul, acc[n][2 * i + 1] * mul);
+template <int D>
+struct DqSmem {
+  static constexpr int QG = 2 * tile_bytes<QB, D>();            // one Q and dO pair
+  static constexpr int Q = 0;                                   // KV_STAGES x (Q, dO), each QB x D
+  static constexpr int K = Q + KV_STAGES * QG;                  // STAGES x KT x D
+  static constexpr int V = K + STAGES * tile_bytes<KT, D>();
+  static constexpr int BAR = V + STAGES * tile_bytes<KT, D>();  // qg_full, qg_empty, full, empty
+  static constexpr int BYTES = BAR + 16 * (KV_STAGES + STAGES) + 1024;
+};
+
+// A slot of a ring: its index and the parity of its current phase.
+struct Ring {
+  int slot = 0, phase = 0;
+  template <int N>
+  __device__ __forceinline__ void next() {
+    if (++slot == N) {
+      slot = 0;
+      phase ^= 1;
     }
   }
+};
+
+// Round r's work item of this block, rounds alternating in direction: the
+// items a block takes add up to about the same work when they are ordered
+// longest first.
+__device__ __forceinline__ int snake(int r) {
+  return r * gridDim.x + ((r & 1) ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
 }
 
-// The A fragment (16 rows x 16, rows of LD bf16) of an smem tile's rows 0-15
-// at columns 16 * kk .. 16 * kk + 15.
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&af)[4], const bf16* a, int kk, int lane) {
-  ldmatrix_x4(af, smem_u32(&a[(lane & 15) * LD + kk * 16 + (lane >> 4) * 8]));
-}
-
-// mma_abt with A read from shared memory: acc (16 rows x 8 * NB) += rows
-// 0-15 of the smem tile a (x D) times the transpose of the 8 * NB rows of t.
-template <int NB, int KD, int LD>
-__device__ __forceinline__ void mma_abt_smem(float (&acc)[NB][4], const bf16* a, const bf16* t, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) {
-    uint32_t af[4];
-    load_a<LD>(af, a, kk, lane);
-    mma_abt_step<NB, LD>(acc, af, t, kk, lane);
+// Pass 1's work item w of nbh x nkb (batch, kv head) x key block. Causal:
+// key block w / nbh, the first (the longest) first. Otherwise w / nkb's
+// key blocks side by side, so that blocks running at once share its Q and
+// dO in L2.
+struct DkdvItem {
+  int b, hk, k0, len, qb0, nqb;
+  __device__ __forceinline__ DkdvItem(int w, int nbh, int nkb, int Hkv, int Sq, int Sk, int causal,
+                                      const int* kv_len) {
+    const int bh = causal ? w % nbh : w / nkb;
+    b = bh / Hkv;
+    hk = bh % Hkv;
+    k0 = (causal ? w / nbh : w % nkb) * KB;
+    len = kv_len ? max(0, min(kv_len[b], Sk)) : Sk;
+    qb0 = causal ? k0 / BQ : 0;  // the first query tile that sees a key of this block
+    nqb = k0 < len ? max(0, (Sq + BQ - 1) / BQ - qb0) : 0;
   }
-}
+};
 
-// Where each pass keeps the two operands its warps multiply in every tile
-// (registers at D <= 64, shared memory at D = 96 and 128; see the top of the
-// file), and pass 1's query rows per tile (32 at D >= 96, else TILE).
+// Pass 1: persistent blocks, one per SM, each taking one work item a round
+// (snake); the producer loads the next item's K and V into the other pair
+// of slots while the consumers finish the current one.
 template <int D>
-__host__ __device__ constexpr bool operands_in_smem() {
-  return D >= 96;
-}
+__global__ void __launch_bounds__(THREADS, 1) dkdv_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+    const float* __restrict__ lse2, const float* __restrict__ delta, const int* __restrict__ kv_len,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int H, int Hkv, int Sq, int Sp, int Sk, float scale,
+    float scale_log2, int causal, Strides dks, Strides dvs) {
+  using L = DkdvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const unsigned char* sm = smem_raw + (base - smem_u32(smem_raw));  // base as a pointer
+  const uint32_t kv_full = base + L::BAR;
+  const uint32_t kv_empty = kv_full + 8 * KV_STAGES;
+  const uint32_t full = kv_empty + 8 * KV_STAGES;
+  const uint32_t empty = full + 8 * STAGES;
 
-template <int D>
-__host__ __device__ constexpr int dkdv_rows() {
-  return operands_in_smem<D>() ? 32 : TILE;
-}
-
-// Pass 1. Shared memory (dynamic): STAGES Q tiles, STAGES dO tiles (BQ rows
-// of D + PAD bf16 each), at D >= 96 the block's K and V (TILE rows each),
-// then STAGES x BQ lse (log2 units) and STAGES x BQ Delta. At D <= 64 (BQ =
-// TILE) the block's K and V arrive first in the second Q and dO slots, and
-// every warp takes its 16 rows into registers before tile 1 is loaded there.
-// Tile t (query head hk * group + t / nqb, query block qb0 + t % nqb) lives
-// in slot t % STAGES.
-template <int D>
-constexpr int dkdv_smem_bytes() {
-  return (STAGES * 2 * dkdv_rows<D>() + (operands_in_smem<D>() ? 2 * TILE : 0)) * (D + PAD) *
-             static_cast<int>(sizeof(bf16)) +
-         STAGES * 2 * dkdv_rows<D>() * static_cast<int>(sizeof(float));
-}
-
-template <int D>
-__global__ void __launch_bounds__(KV_WARPS * 32) dkdv_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ kv_len, bf16* __restrict__ dk, bf16* __restrict__ dv,
-    int H, int Hkv, int Sq, int Sk, float scale, float scale_log2, int causal,
-    Strides qs, Strides ks, Strides vs, Strides gs, Strides dks, Strides dvs) {
-  constexpr bool KV_SMEM = operands_in_smem<D>();
-  constexpr int BQ = dkdv_rows<D>();  // query rows per tile
-  constexpr int LD = D + PAD;
-  constexpr int CH = D / 8;     // 16-byte chunks per row
-  constexpr int NT = KV_WARPS * 32;
-  constexpr int NB = BQ / 8;    // 8-query blocks per tile
-  constexpr int ND = D / 8;     // 8-wide output blocks
-  constexpr int KD = D / 16;    // 16-deep steps over D
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qsm = reinterpret_cast<bf16*>(smem_raw);
-  bf16* gsm = qsm + STAGES * BQ * LD;
-  bf16* ksm = KV_SMEM ? gsm + STAGES * BQ * LD : qsm + TILE * LD;
-  bf16* vsm = KV_SMEM ? ksm + TILE * LD : gsm + TILE * LD;
-  float* lsm = reinterpret_cast<float*>(qsm + (STAGES * 2 * BQ + (KV_SMEM ? 2 * TILE : 0)) * LD);
-  float* dsm = lsm + STAGES * BQ;
-
-  const int b = blockIdx.x / Hkv;
-  const int hk = blockIdx.x % Hkv;
   const int group = H / Hkv;
-  const int k0 = blockIdx.y * TILE;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int len = kv_len ? max(0, min(kv_len[b], Sk)) : Sk;
-  const int qb0 = causal ? k0 / BQ : 0;  // the first query block that sees a key of this block
-  const int nqb = k0 < len ? max(0, (Sq + BQ - 1) / BQ - qb0) : 0;
-  const int ntiles = group * nqb;
-  const int key0 = k0 + warp * 16 + (lane >> 2);  // this lane's keys: key0, key0 + 8
+  const int nbh = B * Hkv;
+  const int nkb = (Sk + KB - 1) / KB;
+  const int nwork = nbh * nkb;
 
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-  }
-
-  if (ntiles > 0) {
-    const bf16* kp = k + b * ks.b + hk * ks.h;
-    const bf16* vp = v + b * vs.b + hk * vs.h;
-    for (int i = threadIdx.x; i < TILE * CH; i += NT) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = k0 + r < Sk;
-      cp_async16(smem_u32(&ksm[r * LD + c]), ok ? kp + (k0 + r) * ks.s + c : kp, ok);
-      cp_async16(smem_u32(&vsm[r * LD + c]), ok ? vp + (k0 + r) * vs.s + c : vp, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(kv_full + 8 * s, 1);
+      mbar_init(kv_empty + 8 * s, CONSUMER_WARPS);
     }
-    auto load_tile = [&](int t) {
-      const int hq = hk * group + t / nqb;
-      const int r0 = (qb0 + t % nqb) * BQ;
-      const int slot = t % STAGES;
-      const bf16* qp = q + b * qs.b + hq * qs.h;
-      const bf16* gp = g + b * gs.b + hq * gs.h;
-      bf16* qt = qsm + slot * BQ * LD;
-      bf16* gt = gsm + slot * BQ * LD;
-      for (int i = threadIdx.x; i < BQ * CH; i += NT) {
-        const int r = i / CH, c = (i % CH) * 8;
-        const bool ok = r0 + r < Sq;
-        cp_async16(smem_u32(&qt[r * LD + c]), ok ? qp + (r0 + r) * qs.s + c : qp, ok);
-        cp_async16(smem_u32(&gt[r * LD + c]), ok ? gp + (r0 + r) * gs.s + c : gp, ok);
-      }
-      const long long base = (static_cast<long long>(b) * H + hq) * Sq + r0;
-      for (int i = threadIdx.x; i < BQ; i += NT) {
-        const bool ok = r0 + i < Sq;  // rows past Sq: P = 2^-inf = 0
-        lsm[slot * BQ + i] = ok ? lse[base + i] * LOG2E : INFINITY;
-        dsm[slot * BQ + i] = ok ? delta[base + i] : 0.f;
-      }
-    };
-    load_tile(0);
-    cp_async_commit();
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
 
-    const bf16* kw = ksm + warp * 16 * LD;  // this warp's 16 keys
-    const bf16* vw = vsm + warp * 16 * LD;
-    uint32_t kf[KD][4], vf[KD][4];  // D <= 64: the same rows as A fragments
-    for (int t = 0; t < ntiles; ++t) {
-      cp_async_wait_all();  // tile t (and at t = 0 K and V) arrived for this thread ...
-      __syncthreads();      // ... and every thread's; the slot read last is free
-      if constexpr (!KV_SMEM) {
-        if (t == 0) {
-#pragma unroll
-          for (int kk = 0; kk < KD; ++kk) {
-            load_a<LD>(kf[kk], kw, kk, lane);
-            load_a<LD>(vf[kk], vw, kk, lane);
-          }
-          __syncthreads();  // every warp holds its K and V: the second slots are free
+  if (threadIdx.x >= CONSUMERS) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS) return;
+    Ring kv, ring;
+    for (int r = 0, w = snake(0); w < nwork; w = snake(++r)) {
+      const DkdvItem it(w, nbh, nkb, Hkv, Sq, Sk, causal, kv_len);
+      if (it.nqb == 0) continue;
+      mbar_wait(kv_empty + 8 * kv.slot, kv.phase ^ 1);
+      const uint32_t kvb = base + L::K + kv.slot * L::KV;
+      mbar_expect_tx(kv_full + 8 * kv.slot, L::KV);
+      load_tile<KB, D>(&tk, kvb, kv_full + 8 * kv.slot, it.k0, it.hk, it.b);
+      load_tile<KB, D>(&tv, kvb + tile_bytes<KB, D>(), kv_full + 8 * kv.slot, it.k0, it.hk, it.b);
+      kv.next<KV_STAGES>();
+      // The tiles: each query head of the group, from query tile qb0 to Sq.
+      for (int hq = it.hk * group; hq < (it.hk + 1) * group; ++hq) {
+        const long long rows = (static_cast<long long>(it.b) * H + hq) * Sp;  // the head's padded rows
+        for (int r0 = it.qb0 * BQ; r0 < Sq; r0 += BQ) {
+          mbar_wait(empty + 8 * ring.slot, ring.phase ^ 1);
+          const uint32_t bar = full + 8 * ring.slot;
+          mbar_expect_tx(bar, 2 * tile_bytes<BQ, D>() + 2 * BQ * 4);
+          load_tile<BQ, D>(&tq, base + L::Q + ring.slot * tile_bytes<BQ, D>(), bar, r0, hq, it.b);
+          load_tile<BQ, D>(&tg, base + L::G + ring.slot * tile_bytes<BQ, D>(), bar, r0, hq, it.b);
+          bulk_copy(base + L::LSE + ring.slot * BQ * 4, lse2 + rows + r0, BQ * 4, bar);
+          bulk_copy(base + L::DELTA + ring.slot * BQ * 4, delta + rows + r0, BQ * 4, bar);
+          ring.next<STAGES>();
         }
       }
-      if (t + 1 < ntiles) load_tile(t + 1);
-      cp_async_commit();
-
-      const int slot = t % STAGES;
-      const bf16* qt = qsm + slot * BQ * LD;
-      const bf16* gt = gsm + slot * BQ * LD;
-      const float* l2 = lsm + slot * BQ;
-      const float* dl = dsm + slot * BQ;
-      const int r0 = (qb0 + t % nqb) * BQ;
-
-      // S^T = K Q^T and dP^T = V dO^T: this warp's 16 keys x BQ queries.
-      float s[NB][4], dp[NB][4];
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      }
-      if constexpr (KV_SMEM) {
-        mma_abt_smem<NB, KD, LD>(s, kw, qt, lane);
-        mma_abt_smem<NB, KD, LD>(dp, vw, gt, lane);
-      } else {
-        mma_abt<NB, KD, LD>(s, kf, qt, lane);
-        mma_abt<NB, KD, LD>(dp, vf, gt, lane);
-      }
-
-      // P^T = 2^(scale log2(e) s - lse log2(e)) and dS^T = P^T (dP^T - Delta);
-      // keys past kv_len and (causal) keys right of the query are masked,
-      // in a tile that straddles either.
-      const bool edge = k0 + TILE > len || (causal && k0 + TILE - 1 > r0);
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = n * 8 + (lane & 3) * 2 + (e & 1);
-          float p = fast_exp2(fmaf(s[n][e], scale_log2, -l2[col]));
-          if (edge) {
-            const int key = key0 + (e >> 1) * 8;
-            if (key >= len || (causal && key > r0 + col)) p = 0.f;
-          }
-          s[n][e] = p;
-          dp[n][e] = p * (dp[n][e] - dl[col]);
-        }
-      }
-
-      // dV += P^T dO and dK += dS^T Q, 16 queries at a time.
-#pragma unroll
-      for (int kk = 0; kk < BQ / 16; ++kk) {
-        uint32_t pa[4], da[4];
-        c_to_a(pa, s, kk);
-        c_to_a(da, dp, kk);
-        mma_ab<ND, LD>(dva, pa, gt, kk, lane);
-        mma_ab<ND, LD>(dka, da, qt, kk, lane);
-      }
     }
-    cp_async_wait_all();
+    return;
   }
 
-  store_rows(dk + b * dks.b + hk * dks.h, dks.s, dka, scale, key0, Sk, lane);
-  store_rows(dv + b * dvs.b + hk * dvs.h, dvs.s, dva, 1.f, key0, Sk, lane);
-}
-
-// Pass 2. Shared memory (dynamic): STAGES K tiles, then STAGES V tiles,
-// each TILE rows of D + PAD bf16, then at D >= 96 the block's Q and dO rows
-// (16 * WARPS <= TILE each). At D <= 64 those arrive first in the second K
-// and V slots, and every warp takes its rows into registers.
-template <int D, int WARPS>
-constexpr int dq_smem_bytes() {
-  return (STAGES * 2 * TILE + (operands_in_smem<D>() ? 2 * 16 * WARPS : 0)) * (D + PAD) *
-         static_cast<int>(sizeof(bf16));
-}
-
-template <int D, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32) dq_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const bf16* __restrict__ g, const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ kv_len, bf16* __restrict__ dq,
-    int H, int Hkv, int Sq, int Sk, float scale, float scale_log2, int causal,
-    Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs) {
-  constexpr bool QG_SMEM = operands_in_smem<D>();
-  constexpr int BM = 16 * WARPS;
-  static_assert(BM <= TILE, "Q and dO are staged in a K/V slot");
-  constexpr int LD = D + PAD;
-  constexpr int CH = D / 8;
-  constexpr int NT = WARPS * 32;
-  constexpr int NB = TILE / 8;  // 8-key blocks per tile
-  constexpr int ND = D / 8;
-  constexpr int KD = D / 16;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ksm = reinterpret_cast<bf16*>(smem_raw);
-  bf16* vsm = ksm + STAGES * TILE * LD;
-  bf16* qsm = QG_SMEM ? vsm + STAGES * TILE * LD : ksm + TILE * LD;
-  bf16* gsm = QG_SMEM ? qsm + BM * LD : vsm + TILE * LD;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest causal blocks first
-  const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5;
+  // Two consumer warpgroups, 64 keys each.
+  regs_inc<CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
   const int lane = threadIdx.x & 31;
-  const int len = kv_len ? max(0, min(kv_len[b], Sk)) : Sk;
-  const int kend = causal ? min(len, q0 + BM) : len;
-  const int ntiles = (kend + TILE - 1) / TILE;
-  const int row0 = q0 + warp * 16 + (lane >> 2);  // this lane's rows: row0, row0 + 8
-
-  float dqa[ND][4];
+  const int col0 = (lane & 3) * 2;  // this thread's columns in each 8-wide block: col0, col0 + 1
+  Ring kv, ring;
+  for (int r = 0, w = snake(0); w < nwork; w = snake(++r)) {
+    const DkdvItem it(w, nbh, nkb, Hkv, Sq, Sk, causal, kv_len);
+    const int kw = it.k0 + wg * 64;                   // the warpgroup's first key
+    const int key0 = kw + warp * 16 + (lane >> 2);    // this thread's keys: key0, key0 + 8
+    float dka[D / 2], dva[D / 2];
 #pragma unroll
-  for (int n = 0; n < ND; ++n) dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 
-  if (ntiles > 0) {
-    const bf16* qp = q + b * qs.b + h * qs.h;
-    const bf16* gp = g + b * gs.b + h * gs.h;
-    const bf16* kp = k + b * ks.b + hk * ks.h;
-    const bf16* vp = v + b * vs.b + hk * vs.h;
-    for (int i = threadIdx.x; i < BM * CH; i += NT) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const bool ok = q0 + r < Sq;
-      cp_async16(smem_u32(&qsm[r * LD + c]), ok ? qp + (q0 + r) * qs.s + c : qp, ok);
-      cp_async16(smem_u32(&gsm[r * LD + c]), ok ? gp + (q0 + r) * gs.s + c : gp, ok);
-    }
-    auto load_kv = [&](int tile) {
-      bf16* kt = ksm + (tile % STAGES) * TILE * LD;
-      bf16* vt = vsm + (tile % STAGES) * TILE * LD;
-      for (int i = threadIdx.x; i < TILE * CH; i += NT) {
-        const int r = i / CH, c = (i % CH) * 8;
-        const int key = tile * TILE + r;
-        const bool ok = key < kend;
-        cp_async16(smem_u32(&kt[r * LD + c]), ok ? kp + key * ks.s + c : kp, ok);
-        cp_async16(smem_u32(&vt[r * LD + c]), ok ? vp + key * vs.s + c : vp, ok);
+    if (it.nqb > 0) {
+      const uint32_t kb = base + L::K + kv.slot * L::KV;
+      const uint32_t vb = kb + tile_bytes<KB, D>();
+      mbar_wait(kv_full + 8 * kv.slot, kv.phase);
+      const bool live = kw < it.len;
+      // At D <= 96 a tile's dK and dV products run on while the next tile's
+      // S^T and dP^T are issued, as in pass 2; at D = 128 the registers hold
+      // only one tile's fragments, and each tile waits for its own.
+      constexpr bool OVERLAP = D <= 96;
+      uint32_t pa[BQ / 16][4] = {}, da[BQ / 16][4] = {};  // P^T and dS^T as bf16 A fragments
+      int pending = -1;
+      for (int head = 0; head < group; ++head) {
+        for (int r0 = it.qb0 * BQ; r0 < Sq; r0 += BQ) {
+          mbar_wait(full + 8 * ring.slot, ring.phase);
+          if (live && !(causal && kw > r0 + BQ - 1)) {
+            const uint32_t qt = base + L::Q + ring.slot * tile_bytes<BQ, D>();
+            const uint32_t gt = base + L::G + ring.slot * tile_bytes<BQ, D>();
+            const uint64_t qd = make_desc(qt, 16, 512);
+            const uint64_t gd = make_desc(gt, 16, 512);
+
+            // S^T = K Q^T and dP^T = V dO^T: 64 keys x BQ queries.
+            float s[BQ / 2], dp[BQ / 2];
+            const uint64_t kd = opaque(make_desc(kb + wg * 64 * 64, 16, 512));
+            const uint64_t vd = opaque(make_desc(vb + wg * 64 * 64, 16, 512));
+            wgmma_fence();
+            wgmma_ss_init(s, kd, qd);
+#pragma unroll
+            for (int kk = 1; kk < D / 16; ++kk) wgmma_ss(s, kd + k_step<KB>(kk), qd + k_step<BQ>(kk));
+            wgmma_ss_init(dp, vd, gd);
+#pragma unroll
+            for (int kk = 1; kk < D / 16; ++kk) wgmma_ss(dp, vd + k_step<KB>(kk), gd + k_step<BQ>(kk));
+            wgmma_commit();
+            wgmma_wait_all();
+            keep(s);
+            keep(dp);
+            keep(pa);  // the previous tile's product has read them
+            keep(da);
+            if (pending >= 0) release(empty, pending, lane);
+
+            // P^T = 2^(scale log2(e) s - lse log2(e)), dS^T = P^T (dP^T - Delta);
+            // keys past kv_len and (causal) keys right of the row are masked,
+            // in a tile that straddles either. Rows past Sq have lse = +inf.
+            const float* lse_t = reinterpret_cast<const float*>(sm + L::LSE) + ring.slot * BQ + col0;
+            const float* delta_t = reinterpret_cast<const float*>(sm + L::DELTA) + ring.slot * BQ + col0;
+            const bool edge = kw + 64 > it.len || (causal && kw + 63 > r0);
+#pragma unroll
+            for (int j = 0; j < BQ / 8; ++j) {
+              const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * j);
+              const float2 d2 = *reinterpret_cast<const float2*>(delta_t + 8 * j);
+              float p[4], ds[4];
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int c = e & 1;
+                p[e] = fast_exp2(fmaf(s[4 * j + e], scale_log2, -(c ? l2.y : l2.x)));
+                if (edge) {
+                  const int key = key0 + (e >> 1) * 8;
+                  if (key >= it.len || (causal && key > r0 + 8 * j + col0 + c)) p[e] = 0.f;
+                }
+                ds[e] = p[e] * (dp[4 * j + e] - (c ? d2.y : d2.x));
+              }
+              put_a(pa, j, p);
+              put_a(da, j, ds);
+            }
+
+            // dV += P^T dO and dK += dS^T Q, 16 queries a step (dO and Q MN-major).
+            const uint64_t gm = make_desc(gt, BQ * 64, 512);
+            const uint64_t qm = make_desc(qt, BQ * 64, 512);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk) {
+              wgmma_rs(dva, pa[kk], gm + kk * 64);
+              wgmma_rs(dka, da[kk], qm + kk * 64);
+            }
+            wgmma_commit();
+            if constexpr (OVERLAP) {
+              pending = ring.slot;
+            } else {
+              wgmma_wait_all();
+              keep(dva);
+              keep(dka);
+              keep(pa);
+              keep(da);
+              release(empty, ring.slot, lane);
+            }
+          } else {
+            if (pending >= 0) {  // released before a later tile can need its slot
+              wgmma_wait_all();
+              keep(dva);
+              keep(dka);
+              keep(pa);
+              keep(da);
+              release(empty, pending, lane);
+              pending = -1;
+            }
+            release(empty, ring.slot, lane);
+          }
+          ring.next<STAGES>();
+        }
       }
-    };
-    load_kv(0);
-    cp_async_commit();
+      wgmma_wait_all();
+      keep(dva);
+      keep(dka);
+      keep(pa);
+      keep(da);
+      if (pending >= 0) release(empty, pending, lane);
+      release(kv_empty, kv.slot, lane);
+      kv.next<KV_STAGES>();
+    }
 
-    float lse2[2], dl[2];  // rows past Sq: P = 2^-inf = 0
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int row = row0 + i * 8;
-      const long long idx = (static_cast<long long>(b) * H + h) * Sq + row;
-      lse2[i] = row < Sq ? lse[idx] * LOG2E : INFINITY;
-      dl[i] = row < Sq ? delta[idx] : 0.f;
-    }
-
-    const bf16* qw = qsm + warp * 16 * LD;  // this warp's 16 rows
-    const bf16* gw = gsm + warp * 16 * LD;
-    uint32_t qf[KD][4], gf[KD][4];  // D <= 64: the same rows as A fragments
-    for (int tile = 0; tile < ntiles; ++tile) {
-      cp_async_wait_all();
-      __syncthreads();
-      if constexpr (!QG_SMEM) {
-        if (tile == 0) {
+      const int key = key0 + 8 * i;
+      if (key >= Sk) continue;
+      bf16* pk = dk + it.b * dks.b + it.hk * dks.h + key * dks.s + col0;
+      bf16* pv = dv + it.b * dvs.b + it.hk * dvs.h + key * dvs.s + col0;
 #pragma unroll
-          for (int kk = 0; kk < KD; ++kk) {
-            load_a<LD>(qf[kk], qw, kk, lane);
-            load_a<LD>(gf[kk], gw, kk, lane);
-          }
-          __syncthreads();
-        }
-      }
-      if (tile + 1 < ntiles) load_kv(tile + 1);
-      cp_async_commit();
-      const bf16* kt = ksm + (tile % STAGES) * TILE * LD;
-      const bf16* vt = vsm + (tile % STAGES) * TILE * LD;
-
-      // S = Q K^T and dP = dO V^T: this warp's 16 rows x TILE keys.
-      float s[NB][4], dp[NB][4];
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-      }
-      if constexpr (QG_SMEM) {
-        mma_abt_smem<NB, KD, LD>(s, qw, kt, lane);
-        mma_abt_smem<NB, KD, LD>(dp, gw, vt, lane);
-      } else {
-        mma_abt<NB, KD, LD>(s, qf, kt, lane);
-        mma_abt<NB, KD, LD>(dp, gf, vt, lane);
-      }
-
-      const int t0 = tile * TILE;
-      const bool edge = t0 + TILE > len || (causal && t0 + TILE - 1 > q0);
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          float p = fast_exp2(fmaf(s[n][e], scale_log2, -lse2[i]));
-          if (edge) {
-            const int key = t0 + n * 8 + (lane & 3) * 2 + (e & 1);
-            if (key >= len || (causal && key > row0 + i * 8)) p = 0.f;
-          }
-          dp[n][e] = p * (dp[n][e] - dl[i]);
-        }
-      }
-
-      // dQ += dS K, 16 keys at a time.
-#pragma unroll
-      for (int kk = 0; kk < TILE / 16; ++kk) {
-        uint32_t da[4];
-        c_to_a(da, dp, kk);
-        mma_ab<ND, LD>(dqa, da, kt, kk, lane);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(pk + 8 * j) = pack_bf16(dka[4 * j + 2 * i] * scale, dka[4 * j + 2 * i + 1] * scale);
+        *reinterpret_cast<uint32_t*>(pv + 8 * j) = pack_bf16(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
       }
     }
-    cp_async_wait_all();
+  }
+}
+
+// Pass 2's work item w of nbh x nqb (batch, head) x query block. Causal:
+// query block nqb - 1 - w / nbh, the last (the longest) first. Otherwise
+// w / nqb's query blocks side by side, sharing its K and V in L2.
+struct DqItem {
+  int b, h, q0, len, kend;
+  __device__ __forceinline__ DqItem(int w, int nbh, int nqb, int H, int Sk, int causal, const int* kv_len) {
+    const int bh = causal ? w % nbh : w / nqb;
+    b = bh / H;
+    h = bh % H;
+    q0 = (causal ? nqb - 1 - w / nbh : w % nqb) * QB;
+    len = kv_len ? max(0, min(kv_len[b], Sk)) : Sk;
+    kend = causal ? min(len, q0 + QB) : len;
+  }
+};
+
+// Pass 2: persistent as pass 1, Q and dO in the double-buffered slots.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1) dq_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tg,
+    const float* __restrict__ lse2, const float* __restrict__ delta, const int* __restrict__ kv_len,
+    bf16* __restrict__ dq, int B, int H, int Hkv, int Sq, int Sp, int Sk, float scale, float scale_log2, int causal,
+    Strides dqs) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qg_full = base + L::BAR;
+  const uint32_t qg_empty = qg_full + 8 * KV_STAGES;
+  const uint32_t full = qg_empty + 8 * KV_STAGES;
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int group = H / Hkv;
+  const int nbh = B * H;
+  const int nqb = (Sq + QB - 1) / QB;
+  const int nwork = nbh * nqb;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < KV_STAGES; ++s) {
+      mbar_init(qg_full + 8 * s, 1);
+      mbar_init(qg_empty + 8 * s, CONSUMER_WARPS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS) return;
+    Ring qg, ring;
+    for (int r = 0, w = snake(0); w < nwork; w = snake(++r)) {
+      const DqItem it(w, nbh, nqb, H, Sk, causal, kv_len);
+      const int ntiles = (it.kend + KT - 1) / KT;
+      if (ntiles == 0) continue;
+      const int hk = it.h / group;
+      mbar_wait(qg_empty + 8 * qg.slot, qg.phase ^ 1);
+      const uint32_t qgb = base + L::Q + qg.slot * L::QG;
+      mbar_expect_tx(qg_full + 8 * qg.slot, L::QG);
+      load_tile<QB, D>(&tq, qgb, qg_full + 8 * qg.slot, it.q0, it.h, it.b);
+      load_tile<QB, D>(&tg, qgb + tile_bytes<QB, D>(), qg_full + 8 * qg.slot, it.q0, it.h, it.b);
+      qg.next<KV_STAGES>();
+      for (int t = 0; t < ntiles; ++t) {
+        mbar_wait(empty + 8 * ring.slot, ring.phase ^ 1);
+        const uint32_t bar = full + 8 * ring.slot;
+        mbar_expect_tx(bar, 2 * tile_bytes<KT, D>());
+        load_tile<KT, D>(&tk, base + L::K + ring.slot * tile_bytes<KT, D>(), bar, t * KT, hk, it.b);
+        load_tile<KT, D>(&tv, base + L::V + ring.slot * tile_bytes<KT, D>(), bar, t * KT, hk, it.b);
+        ring.next<STAGES>();
+      }
+    }
+    return;
   }
 
-  store_rows(dq + b * dqs.b + h * dqs.h, dqs.s, dqa, scale, row0, Sq, lane);
+  // Two consumer warpgroups, 64 query rows each.
+  regs_inc<CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int col0 = (lane & 3) * 2;
+  Ring qg, ring;
+  for (int r = 0, w = snake(0); w < nwork; w = snake(++r)) {
+    const DqItem it(w, nbh, nqb, H, Sk, causal, kv_len);
+    const int ntiles = (it.kend + KT - 1) / KT;
+    const int qw = it.q0 + wg * 64;                      // the warpgroup's first row
+    const int row0 = qw + warp * 16 + (lane >> 2);       // this thread's rows: row0, row0 + 8
+    const int wkend = causal ? min(it.len, qw + 64) : it.len;  // the warpgroup's key end
+    float dqa[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dqa[i] = 0.f;
+
+    if (ntiles > 0) {
+      float l2[2], dl[2];  // rows past Sq: lse = +inf, P = 2^-inf = 0
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const long long idx = (static_cast<long long>(it.b) * H + it.h) * Sp + row0 + 8 * i;
+        l2[i] = lse2[idx];
+        dl[i] = delta[idx];
+      }
+      const uint32_t qb = base + L::Q + qg.slot * L::QG;
+      const uint32_t gb = qb + tile_bytes<QB, D>();
+      mbar_wait(qg_full + 8 * qg.slot, qg.phase);
+      // A tile's dQ product runs on while the next tile's S and dP are
+      // issued; its slot (`pending`) is released once the next wait shows
+      // it done, and its dS fragments stay untouched until then.
+      uint32_t da[KT / 16][4] = {};  // dS as bf16 A fragments
+      int pending = -1;
+      for (int t = 0; t < ntiles; ++t) {
+        const int t0 = t * KT;
+        mbar_wait(full + 8 * ring.slot, ring.phase);
+        if (t0 < wkend && qw < Sq) {
+          const uint32_t kt = base + L::K + ring.slot * tile_bytes<KT, D>();
+          const uint32_t vt = base + L::V + ring.slot * tile_bytes<KT, D>();
+          const uint64_t kd = make_desc(kt, 16, 512);
+          const uint64_t vd = make_desc(vt, 16, 512);
+
+          // S = Q K^T and dP = dO V^T: 64 rows x KT keys.
+          float s[KT / 2], dp[KT / 2];
+          const uint64_t qd = opaque(make_desc(qb + wg * 64 * 64, 16, 512));
+          const uint64_t gd = opaque(make_desc(gb + wg * 64 * 64, 16, 512));
+          wgmma_fence();
+          wgmma_ss_init(s, qd, kd);
+#pragma unroll
+          for (int kk = 1; kk < D / 16; ++kk) wgmma_ss(s, qd + k_step<QB>(kk), kd + k_step<KT>(kk));
+          wgmma_ss_init(dp, gd, vd);
+#pragma unroll
+          for (int kk = 1; kk < D / 16; ++kk) wgmma_ss(dp, gd + k_step<QB>(kk), vd + k_step<KT>(kk));
+          wgmma_commit();
+          wgmma_wait_all();
+          keep(s);
+          keep(dp);
+          keep(da);  // the previous tile's product has read them
+          if (pending >= 0) release(empty, pending, lane);
+
+          const bool edge = t0 + KT > it.len || (causal && t0 + KT - 1 > qw);
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j) {
+            float ds[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = e >> 1;
+              float p = fast_exp2(fmaf(s[4 * j + e], scale_log2, -l2[i]));
+              if (edge) {
+                const int key = t0 + 8 * j + col0 + (e & 1);
+                if (key >= it.len || (causal && key > row0 + 8 * i)) p = 0.f;
+              }
+              ds[e] = p * (dp[4 * j + e] - dl[i]);
+            }
+            put_a(da, j, ds);
+          }
+
+          // dQ += dS K, 16 keys a step (K MN-major).
+          const uint64_t km = make_desc(kt, KT * 64, 512);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < KT / 16; ++kk) wgmma_rs(dqa, da[kk], km + kk * 64);
+          wgmma_commit();
+          pending = ring.slot;
+        } else {
+          if (pending >= 0) {  // released before a later tile can need its slot
+            wgmma_wait_all();
+            keep(dqa);
+            keep(da);
+            release(empty, pending, lane);
+            pending = -1;
+          }
+          release(empty, ring.slot, lane);
+        }
+        ring.next<STAGES>();
+      }
+      wgmma_wait_all();
+      keep(dqa);
+      keep(da);
+      if (pending >= 0) release(empty, pending, lane);
+      release(qg_empty, qg.slot, lane);
+      qg.next<KV_STAGES>();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 8 * i;
+      if (row >= Sq) continue;
+      bf16* p = dq + it.b * dqs.b + it.h * dqs.h + row * dqs.s + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(p + 8 * j) = pack_bf16(dqa[4 * j + 2 * i] * scale, dqa[4 * j + 2 * i + 1] * scale);
+      }
+    }
+  }
 }
 
 int sm_count() {
@@ -800,17 +1113,18 @@ cudaError_t allow_smem(Kernel* kernel, std::atomic<unsigned long long>& done, in
 }
 
 template <typename T, int D>
-cudaError_t launch_delta(const Args& a) {
-  const long long rows = static_cast<long long>(a.B) * a.H * a.Sq;
-  const unsigned blocks = static_cast<unsigned>((rows + DELTA_WARPS - 1) / DELTA_WARPS);
-  delta_kernel<T, D><<<blocks, DELTA_WARPS * 32, 0, a.stream>>>(
-      static_cast<const T*>(a.o), static_cast<const T*>(a.g), a.delta, a.H, a.Sq, rows, a.os, a.gs);
+cudaError_t launch_delta(const Args& a, int Sp, float* lse2) {
+  const long long rows = static_cast<long long>(a.B) * a.H * Sp;
+  constexpr int per_block = DELTA_THREADS / delta_lanes<T, D>();
+  const unsigned blocks = static_cast<unsigned>((rows + per_block - 1) / per_block);
+  delta_kernel<T, D><<<blocks, DELTA_THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.o), static_cast<const T*>(a.g), a.lse, a.delta, lse2, a.H, a.Sq, Sp, rows, a.os, a.gs);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_scalar(const Args& a) {
-  cudaError_t err = launch_delta<float, D>(a);
+  cudaError_t err = launch_delta<float, D>(a, a.Sq, nullptr);
   if (err != cudaSuccess) return err;
   const auto* q = static_cast<const float*>(a.q);
   const auto* k = static_cast<const float*>(a.k);
@@ -832,44 +1146,84 @@ cudaError_t launch_scalar(const Args& a) {
   return cudaGetLastError();
 }
 
-template <int D, int WARPS>
-cudaError_t launch_dq_tc(const Args& a, const bf16* q, const bf16* k, const bf16* v, const bf16* g) {
-  constexpr int BM = 16 * WARPS;
-  constexpr int smem = dq_smem_bytes<D, WARPS>();
-  static_assert(smem <= 227 * 1024, "more shared memory than a Hopper block can have");
-  static std::atomic<unsigned long long> opted{0};
-  const cudaError_t err = allow_smem(dq_tc_kernel<D, WARPS>, opted, a.device, smem);
-  if (err != cudaSuccess) return err;
-  dq_tc_kernel<D, WARPS><<<dim3(a.B * a.H, (a.Sq + BM - 1) / BM), WARPS * 32, smem, a.stream>>>(
-      q, k, v, g, a.lse, a.delta, a.kv_len, static_cast<bf16*>(a.dq), a.H, a.Hkv, a.Sq, a.Sk, a.scale,
-      a.scale * LOG2E, a.causal, a.qs, a.ks, a.vs, a.gs, a.dqs);
-  return cudaGetLastError();
+// The driver's cuTensorMapEncodeTiled, looked up once through the runtime.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled find_encoder() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+  const cudaError_t err =
+      cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+  const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+  return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(fn) : nullptr;
+}
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = find_encoder();
+  return fn;
+}
+
+// The (B, heads, S, D) bf16 tensor at p with element strides st as a 4-D
+// map (D, S, heads, B), boxes of 32 columns x 64 rows, 64-byte swizzle.
+cudaError_t encode_rows(CUtensorMap* map, const void* p, int B, int heads, int S, int D, Strides st) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2, static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {CHUNK, BOX_ROWS, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(p), dims, strides, box,
+                              unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <int D>
 cudaError_t launch_tc(const Args& a) {
-  cudaError_t err = launch_delta<bf16, D>(a);
+  CUtensorMap tq, tk, tv, tg;
+  cudaError_t err;
+  if ((err = encode_rows(&tq, a.q, a.B, a.H, a.Sq, D, a.qs)) != cudaSuccess ||
+      (err = encode_rows(&tk, a.k, a.B, a.Hkv, a.Sk, D, a.ks)) != cudaSuccess ||
+      (err = encode_rows(&tv, a.v, a.B, a.Hkv, a.Sk, D, a.vs)) != cudaSuccess ||
+      (err = encode_rows(&tg, a.g, a.B, a.H, a.Sq, D, a.gs)) != cudaSuccess) {
+    return err;
+  }
+  // Delta and lse * log2(e), each (B, H, Sp) in the scratch: every query
+  // tile and block lies inside its head's padded rows, 256-byte aligned.
+  const int Sp = padded_rows(a.Sq);
+  float* lse2 = a.delta + static_cast<long long>(a.B) * a.H * Sp;
+  err = launch_delta<bf16, D>(a, Sp, lse2);
   if (err != cudaSuccess) return err;
-  const auto* q = static_cast<const bf16*>(a.q);
-  const auto* k = static_cast<const bf16*>(a.k);
-  const auto* v = static_cast<const bf16*>(a.v);
-  const auto* g = static_cast<const bf16*>(a.g);
-  constexpr int smem = dkdv_smem_bytes<D>();
-  static_assert(smem <= 227 * 1024, "more shared memory than a Hopper block can have");
-  static std::atomic<unsigned long long> opted{0};
-  err = allow_smem(dkdv_tc_kernel<D>, opted, a.device, smem);
+
+  constexpr int smem1 = DkdvSmem<D>::BYTES;
+  static_assert(smem1 <= 227 * 1024, "more shared memory than a Hopper block can have");
+  static std::atomic<unsigned long long> opted1{0};
+  err = allow_smem(dkdv_kernel<D>, opted1, a.device, smem1);
   if (err != cudaSuccess) return err;
-  dkdv_tc_kernel<D><<<dim3(a.B * a.Hkv, (a.Sk + TILE - 1) / TILE), KV_WARPS * 32, smem, a.stream>>>(
-      q, k, v, g, a.lse, a.delta, a.kv_len, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
-      a.H, a.Hkv, a.Sq, a.Sk, a.scale, a.scale * LOG2E, a.causal, a.qs, a.ks, a.vs, a.gs, a.dks, a.dvs);
+  const long long work1 = static_cast<long long>(a.B) * a.Hkv * ((a.Sk + KB - 1) / KB);
+  dkdv_kernel<D><<<static_cast<unsigned>(std::min<long long>(work1, sm_count())), THREADS, smem1, a.stream>>>(
+      tq, tk, tv, tg, lse2, a.delta, a.kv_len, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.B, a.H, a.Hkv,
+      a.Sq, Sp, a.Sk, a.scale, a.scale * LOG2E, a.causal, a.dks, a.dvs);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  // Most rows per block that still gives every SM a block, as the forward.
-  const long long heads = static_cast<long long>(a.B) * a.H;
-  const long long sms = sm_count();
-  if (heads * ((a.Sq + 63) / 64) >= sms) return launch_dq_tc<D, 4>(a, q, k, v, g);
-  if (heads * ((a.Sq + 31) / 32) >= sms) return launch_dq_tc<D, 2>(a, q, k, v, g);
-  return launch_dq_tc<D, 1>(a, q, k, v, g);
+
+  constexpr int smem2 = DqSmem<D>::BYTES;
+  static_assert(smem2 <= 227 * 1024, "more shared memory than a Hopper block can have");
+  static std::atomic<unsigned long long> opted2{0};
+  err = allow_smem(dq_kernel<D>, opted2, a.device, smem2);
+  if (err != cudaSuccess) return err;
+  const long long work2 = static_cast<long long>(a.B) * a.H * ((a.Sq + QB - 1) / QB);
+  dq_kernel<D><<<static_cast<unsigned>(std::min<long long>(work2, sm_count())), THREADS, smem2, a.stream>>>(
+      tq, tk, tv, tg, lse2, a.delta, a.kv_len, static_cast<bf16*>(a.dq), a.B, a.H, a.Hkv, a.Sq, Sp, a.Sk, a.scale,
+      a.scale * LOG2E, a.causal, a.dqs);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -878,11 +1232,13 @@ extern "C" {
 
 // One backward (three kernel launches on `stream`). p holds 45 integers: the
 // device addresses q, k, v, o, dO, lse, kv_len (0 for "every key valid"),
-// dq, dk, dv and delta (f32 scratch of B * H * Sq); B, H, Hkv, Sq, Sk, D,
-// causal, dtype (0 = float32, scalar route; 1 = bfloat16, tensor cores); the
-// element strides (batch, head, sequence) of q, k, v, o, dO, dq, dk and dv;
-// the CUDA device and the stream. Every tensor is of the dtype except lse
-// and delta ((B, H, Sq) contiguous f32) and kv_len ((B,) int32). Nothing is
+// dq, dk, dv and delta (f32 scratch of 2 * B * H * Sp, Sp = Sq rounded up
+// to a multiple of 128; the f32 route uses the first B * H * Sq); B, H,
+// Hkv, Sq, Sk, D, causal, dtype (0 = float32, scalar route; 1 = bfloat16,
+// tensor cores); the element strides (batch, head, sequence) of q, k, v, o,
+// dO, dq, dk and dv; the CUDA device and the stream. Every tensor is of the
+// dtype except lse ((B, H, Sq) contiguous f32), delta and kv_len ((B,)
+// int32). Nothing is
 // allocated here. The current device is switched for the launches and
 // restored. Returns the first cudaError_t of the launches (0 on success).
 int vcp_flash_attention_bwd(const long long* p, float scale) {
