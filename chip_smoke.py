@@ -38,7 +38,7 @@ with the port's own reader. One flushed line per phase, with seconds:
            the card's bound for the same work; K1 and its yardstick also as
            20 launches replayed from a CUDA graph, which leaves out the
            host's per-call cost; one `kernel {...}` line per case, K1's
-           naming the route (tensor-core bf16 or scalar f32) that ran;
+           naming the route (wgmma + TMA bf16 or scalar f32) that ran;
   slice    VLMRunner(ocr_real, seed).extract_batch on 4 gray 1023x791 pages
            (US Letter at dpi 93) with max_new=256, launch counts zeroed just
            before and read just after; then the same path timed by stage,
@@ -132,9 +132,10 @@ with the port's own reader. One flushed line per phase, with seconds:
            backward-kernel launch; the forward's log-sum-exp against
            attention_lse; the backward kernel against the plain
            flash_attention_bwd on the same inputs, and twice for
-           bit-identical gradients; the forward (K1), the backward kernel,
-           the plain backward, SDPA's forward and backward and both bounds
-           timed; (b) the shipped ocr_real's loss on a fixed batch from train/pages.py, the card (f32
+           bit-identical gradients; the forward (K1, writing lse as a step
+           does), the backward kernel, the plain backward, SDPA's forward and
+           backward and both bounds timed, the kernels and SDPA eager and from
+           CUDA graphs, one `[train.kernel_shape]` line a bf16 shape; (b) the shipped ocr_real's loss on a fixed batch from train/pages.py, the card (f32
            and bf16) against the CPU's plain path in f32, then the shipped
            weights trained at the curriculum stage mixC (real prose, half the
            pages jumbled, font 24, 14 lines, dpi 93, batch 32, lr 8e-4):
@@ -1944,14 +1945,21 @@ def lse_check(lse: torch.Tensor, want: torch.Tensor) -> tuple:
     return rel_err(lse[finite], want[finite]), same_inf
 
 
+# The per-call numbers of a bf16 training shape: the lse-writing forward's and
+# the backward's, each beside SDPA's and its bound.
+FWD_CALL_KEYS = ("fwd_lse_ms", "fwd_lse_graph_ms", "library_ms", "library_graph_ms", "bound_ms", "fwd_host_us")
+BWD_CALL_KEYS = ("bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms", "bwd_bound_ms", "bwd_host_us")
+
+
 def train_kernel_phase(shapes: list, seed: int) -> dict:
     """FlashAttentionFn at each training shape, bf16 and f32: output and
     dq/dk/dv against autograd through mha_reference on the card, one forward
     and one backward launch; then the kernels alone on the same inputs: the
     forward's log-sum-exp against attention_lse, the backward kernel against
     the plain flash_attention_bwd, and run twice for bit-identical gradients.
-    In bf16 the forward (K1), the backward kernel, the plain backward, SDPA's
-    forward and backward, and their bounds, timed."""
+    In bf16 the forward (K1, writing lse as a training step runs it), the
+    backward kernel, the plain backward, SDPA's forward and backward, and
+    their bounds, timed eager and (but the plain versions) from CUDA graphs."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     rows = []
     want_launches = {"flash_attention": 1, "flash_attention_bwd": 1, "masked_similarity": 0}
@@ -2004,18 +2012,18 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
                        bwd_bit_identical=identical, bwd_launches_for_2_calls=bwd_launches, ok=ok,
                        launches_per_step=sh.launches, path=sh.path)
             if dtype == torch.bfloat16:
+                # The forward as a training step launches it: writing lse.
                 def fwd_lse():
                     return kernels.flash_attention_fwd(q, k, v, kv_len, sh.causal, scale, lse=lse)
 
                 def bwd():
                     return kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale)
-                with torch.no_grad():
-                    row["ms"] = cuda_ms(lambda: flash_attention(q, k, v, kv_len=kv_len, causal=sh.causal), 10)
                 row["fwd_lse_ms"] = cuda_ms(fwd_lse, 10)
+                row["fwd_lse_graph_ms"] = graph_ms(fwd_lse, iters=10)
                 row["bwd_ms"] = cuda_ms(bwd, 10)
                 row["bwd_graph_ms"] = graph_ms(bwd, iters=10)
-                # The wrappers' host cost per call: the backward encodes four
-                # TMA tensor maps a call.
+                # The wrappers' host cost per call: each encodes its TMA
+                # tensor maps a call (three forward, four backward).
                 row["fwd_host_us"] = host_us(fwd_lse)
                 row["bwd_host_us"] = host_us(bwd)
                 row["bwd_plain_ms"] = cuda_ms(
@@ -2024,6 +2032,7 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
                                           warmup=1)
                 lib_fwd, lib_bwd = train_library_call(q, k, v, g, sh)
                 row["library_ms"] = cuda_ms(lib_fwd, 10)
+                row["library_graph_ms"] = graph_ms(lib_fwd, iters=10)
                 row["library_bwd_ms"] = cuda_ms(lib_bwd, 10)
                 side = torch.cuda.Stream()
                 _, lib_bwd_side = train_library_call(q, k, v, g, sh, stream=side)
@@ -2033,8 +2042,8 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
                 row["bwd_bound_ms"], row["bwd_bound_by"] = backward_bound_ms(sh, dtype)
                 log("train.kernel_shape", 0.0, shape=sh.name, path=sh.path,
                     calls_per_step=sh.launches // (1 if sh.path == "train_embedder" else 2),
-                    **{k: row[k] for k in ("bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms",
-                                           "bwd_bound_ms", "bwd_bound_by", "bwd_host_us", "fwd_host_us")},
+                    **{k: row[k] for k in FWD_CALL_KEYS + BWD_CALL_KEYS + ("bound_by", "bwd_bound_by")},
+                    fwd_share_of_bound=row["bound_ms"] / row["fwd_lse_graph_ms"],
                     bwd_share_of_bound=row["bwd_bound_ms"] / row["bwd_graph_ms"])
             print("kernel " + json.dumps(row), flush=True)
             rows.append(row)
@@ -2046,7 +2055,8 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
             del q, k, v, g, out, grads, o, lse, kgrads
     torch.cuda.empty_cache()
     # Per training step: the forward launches (in the VLMs' blocks the
-    # forward and the remat recompute) and one backward per block.
+    # forward and the remat recompute, each writing lse) and one backward
+    # per block.
     rec = {}
     for path in ("train", "train_embedder", "train_answer", "prod_train"):
         main = [r for r in rows if r["dtype"] == "bfloat16" and r["path"] == path]
@@ -2054,18 +2064,20 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
         rec[path] = {
             "launches_per_step": sum(r["launches_per_step"] for r in main),
             "bwd_launches_per_step": sum(r["launches_per_step"] // per_block for r in main),
+            "ms": sum(r["fwd_lse_ms"] * r["launches_per_step"] for r in main),
+            "graph_ms": sum(r["fwd_lse_graph_ms"] * r["launches_per_step"] for r in main),
             **{k: sum(r[k] * r["launches_per_step"] for r in main)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+               for k in ("plain_ms", "library_ms", "library_graph_ms", "bound_ms")},
             **{k: sum(r[k] * (r["launches_per_step"] // per_block) for r in main)
                for k in ("bwd_ms", "bwd_graph_ms", "bwd_plain_ms", "library_bwd_ms", "library_bwd_graph_ms",
                          "bwd_bound_ms")},
-            **{f"{k}_per_call": {r["shape"]: r[k] for r in main}
-               for k in ("bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms", "bwd_bound_ms",
-                         "bwd_host_us")},
+            **{f"{k}_per_call": {r["shape"]: r[k] for r in main} for k in FWD_CALL_KEYS + BWD_CALL_KEYS},
         }
         ops_ms = sum(r["bwd_bound_ms"] * (r["launches_per_step"] // per_block)
                      for r in main if r["bwd_bound_by"] == "operations")
         rec[path]["bwd_bound_by"] = "operations" if ops_ms >= rec[path]["bwd_bound_ms"] / 2 else "bytes"
+    rec["per_shape"] = {r["shape"]: {k: r[k] for k in FWD_CALL_KEYS + BWD_CALL_KEYS}
+                        for r in rows if r["dtype"] == "bfloat16"}
     rec["max_rel_err"] = max(r["max_rel_err"] for r in rows)
     rec["bwd_max_abs_err"] = max(r["bwd_vs_plain_max_abs_err"] for r in rows if r["dtype"] == "bfloat16")
     rec["bwd_max_rel_err"] = max(max(r["bwd_vs_plain_rel_err"].values()) for r in rows)
@@ -3856,17 +3868,24 @@ def pp_cli_phase(workdir: Path) -> dict:
     return rec
 
 
+def pp_microbatch_shape(cfg) -> AttnShape:
+    """K1's call in a decoder block of the pipelined mixC step: one
+    microbatch of TRAIN_BATCH / PP_MICROBATCHES rows, causal over 1534
+    tokens; once a block and microbatch."""
+    dec, v = cfg.decoder, cfg.vision
+    mb = TRAIN_BATCH // PP_MICROBATCHES
+    s = v.tokens_out + MIXC["text_len"] - 1
+    return AttnShape("pp_decoder_microbatch", mb, dec.heads, dec.kv_heads, s, dec.head_dim, True, [s] * mb,
+                     dec.depth * PP_MICROBATCHES, "pp_train")
+
+
 def pp_kernel_phase(cfg, seed: int, decoder_launches: dict) -> dict:
     """(d) K1 and its backward at the pipeline's microbatch shape, bf16:
     held against their plain versions on the same inputs, then timed eager
     and from a CUDA graph beside the plain versions, SDPA and the bounds.
     `decoder_launches`: each kernel's launches at this shape in one
     pipelined step, as (a) measured them inside the decoder blocks."""
-    dec, v = cfg.decoder, cfg.vision
-    mb = TRAIN_BATCH // PP_MICROBATCHES
-    s = v.tokens_out + MIXC["text_len"] - 1
-    sh = AttnShape("pp_decoder_microbatch", mb, dec.heads, dec.kv_heads, s, dec.head_dim, True, [s] * mb,
-                   dec.depth * PP_MICROBATCHES, "pp_train")
+    sh = pp_microbatch_shape(cfg)
     dtype, scale = torch.bfloat16, sh.d ** -0.5
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 17)
 

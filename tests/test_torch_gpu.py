@@ -87,9 +87,30 @@ def cuda():
         (3, 8, 2, 333, 96, [0, 1, 333], True),
         (3, 8, 2, 333, 128, [0, 1, 200], True),
         (2, 4, 1, 77, 128, [77, 5], False),
+        # The bf16 route's edges: mixC's decoder (Sq 1534, every key valid);
+        # one row past a 64-row half and a 128-row work item; D = 128 at GQA
+        # 16:4 with key lengths 0, 1 and 200.
+        (2, 6, 2, 1534, 64, [1534, 1534], True),
+        (2, 6, 6, 65, 64, None, True),
+        (2, 6, 6, 65, 32, [65, 3], False),
+        (2, 6, 2, 129, 32, None, False),
+        (2, 8, 8, 129, 96, [129, 64], True),
+        (3, 16, 4, 333, 128, [0, 1, 200], False),
+        (3, 16, 4, 333, 128, [0, 1, 200], True),
+        # The ring's hops of 4 ranks at full width: ocr_real's decoder prefill
+        # (272-row chunks, clamped key lengths down to 0), prod's (80 rows at
+        # 128) and ocr_real's global call (256 rows, not causal).
+        (4, 6, 2, 272, 64, [272, 0, 156, 271], True),
+        (4, 6, 2, 272, 64, [272, 2, 0, 272], False),
+        (4, 16, 4, 80, 128, [80, 2, 80, 0], True),
+        (4, 6, 6, 256, 64, None, False),
     ],
 )
 def test_kernel_matches_plain(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
+    """K1 against mha_reference within TOL, one launch; with `lse=` the same
+    output to the bit and the row log-sum-exp against attention_lse (1e-5 of
+    the largest |lse| in f32, 1e-4 in bf16), +inf exactly on rows without
+    keys."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, hkv, s, d), generator=g, device=cuda).to(dtype)
@@ -102,6 +123,63 @@ def test_kernel_matches_plain(cuda, dtype, b, h, hkv, s, d, kv_len, causal):
     want = mha_reference(q, k, v, kv_len=kv, causal=causal)
     assert got.dtype == dtype and got.shape == q.shape
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda)
+    assert torch.equal(kernels.flash_attention_fwd(q, k, v, kv, causal, d ** -0.5, lse=lse), got)
+    want_lse = attention_lse(q, k, v, kv_len=kv, causal=causal)
+    inf = torch.isinf(want_lse)
+    assert torch.equal(torch.isposinf(lse), inf)
+    if bool((~inf).any()):
+        tol = 1e-4 if dtype == torch.bfloat16 else 1e-5
+        assert (lse[~inf] - want_lse[~inf]).abs().max().item() <= tol * want_lse[~inf].abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_forward_kernel_is_deterministic(cuda, dtype, d):
+    """Two runs on the same inputs give bit-identical O and lse: each row is
+    summed by one warpgroup in a fixed order, whatever block takes it."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((4, 8, 1534, d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((4, 2, 1534, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    kv = torch.tensor([1534, 700, 1, 0], dtype=torch.int32, device=cuda)
+    runs = []
+    for _ in range(2):
+        lse = torch.empty((4, 8, 1534), dtype=torch.float32, device=cuda)
+        runs.append((kernels.flash_attention_fwd(q, k, v, kv, True, d ** -0.5, lse=lse), lse))
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,causal", [(32, False), (64, True), (96, False), (128, True)])
+def test_forward_kernel_in_cuda_graph(cuda, dtype, d, causal):
+    """A call captured in a CUDA graph and replayed gives what the same call
+    gives eagerly, bit for bit: O and lse (the tensor maps are kernel
+    parameters, kept by the capture), also after the inputs change in
+    place."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    b, h, hkv, s = 2, 8, 4, 333
+    q = torch.randn((b, h, s, d), generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((b, hkv, s, d), generator=g, device=cuda).to(dtype) for _ in range(2))
+    kv = torch.tensor([333, 100], dtype=torch.int32, device=cuda)
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kernels.flash_attention_fwd(q, k, v, kv, causal, d ** -0.5, lse=lse)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kernels.flash_attention_fwd(q, k, v, kv, causal, d ** -0.5, lse=lse)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        eager_lse = torch.empty_like(lse)
+        eager = kernels.flash_attention_fwd(q, k, v, kv, causal, d ** -0.5, lse=eager_lse)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager) and torch.equal(lse, eager_lse)
+        q.copy_(torch.randn(q.shape, generator=g, device=cuda).to(dtype))
+        kv.fill_(200)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -3,8 +3,9 @@ with ctypes, launch on PyTorch's current stream.
 
 Each kernel is compiled on first use with `nvcc` alone (no PyTorch headers, no
 ninja) into a shared library with a plain C interface, under `_build/` in the
-package, keyed by a hash of its source and flags. Nothing here runs at import
-time, so the CPU-only test suite can import the package.
+package, keyed by a hash of its source, the headers beside it and the flags
+(`build_key`). Nothing here runs at import time, so the CPU-only test suite
+can import the package.
 
 `launches` counts, per kernel, the launches made since the last
 `reset_launch_counts()`: a run can show which kernels its path went through.
@@ -54,16 +55,29 @@ def _nvcc() -> str:
     return str(path)
 
 
+def build_key(name: str, src_dir: Optional[Path] = None) -> str:
+    """The hash a build of `<name>.cu` is kept under: of that source, of every
+    `*.cuh` header in its directory (by name and bytes: the sources include
+    them, so a changed header rebuilds every library) and of the flags."""
+    src_dir = _HERE if src_dir is None else Path(src_dir)
+    digest = hashlib.sha256((src_dir / f"{name}.cu").read_bytes())
+    for header in sorted(src_dir.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return digest.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile `<name>.cu` into `_build/<name>-<hash>.so` unless it is there.
+    """Compile `<name>.cu` into `_build/<name>-<build_key>.so` unless it is
+    there.
 
     The library is written under a temporary name and moved into place with
     `os.replace`, so a concurrent build never loads a half-written file. The
     compiler's report (registers, shared memory, spills) is kept beside it as
-    `<name>-<hash>.log`.
+    `<name>-<build_key>.log`.
     """
     src = _HERE / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    digest = build_key(name)
     lib = BUILD_DIR / f"{name}-{digest}.so"
     with _build_locks[name]:
         if lib.exists():
@@ -133,7 +147,7 @@ FLASH_HEAD_DIMS = (32, 64, 96, 128)
 FLASH_BWD_HEAD_DIMS = (32, 64, 96, 128)
 # Which kernel each input type takes (kernels/flash_attention.cu and, for the
 # gradient, kernels/flash_attention_bwd.cu).
-FLASH_ROUTES = {torch.bfloat16: "tensor-core bf16 (mma.sync)", torch.float32: "scalar f32"}
+FLASH_ROUTES = {torch.bfloat16: "wgmma + TMA, warp-specialised, P V as bf16 hi + lo", torch.float32: "scalar f32"}
 FLASH_BWD_ROUTES = {torch.bfloat16: "wgmma + TMA, warp-specialised, dK/dV pass + dQ pass",
                     torch.float32: "scalar f32, dK/dV pass + dQ pass"}
 
@@ -141,10 +155,9 @@ FLASH_BWD_ROUTES = {torch.bfloat16: "wgmma + TMA, warp-specialised, dK/dV pass +
 def flash_layout_ok(t: torch.Tensor) -> bool:
     """Whether the kernel reads `t` (B, H, S, D) in place: last dimension
     contiguous, the other strides multiples of 8 elements, the base 16-byte
-    aligned (the forward's bf16 route copies 16-byte rows with cp.async; the
-    backward's reads them through TMA tensor maps, whose strides and base
-    need the same). A head-split view of a (B, S, H * D) projection
-    qualifies."""
+    aligned (the bf16 routes of the forward and the backward read them
+    through TMA tensor maps, whose strides and base need that). A head-split
+    view of a (B, S, H * D) projection qualifies."""
     st = t.stride()
     return st[3] == 1 and not (st[0] % 8 or st[1] % 8 or st[2] % 8 or t.data_ptr() % 16)
 

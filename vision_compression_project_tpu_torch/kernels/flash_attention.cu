@@ -13,23 +13,47 @@
 //
 // Two routes, chosen by dtype:
 //
-// * bf16 (the main path): tensor cores. A block of WARPS warps owns 16 * WARPS
-//   query rows, 16 per warp; Q is staged once in shared memory and held in
-//   registers as mma fragments (ldmatrix). K and V tiles of 64 keys x D stay
-//   bf16 in shared memory, two tiles in flight through 16-byte cp.async (rows
-//   past the key end zero-filled, one barrier per tile), and feed mma.sync
-//   m16n8k16 bf16 -> f32 through ldmatrix (.trans for V). S = Q K^T
-//   accumulates in f32 and is scaled in f32; row max and sum are kept in f32
-//   and reduced over the quad of lanes that shares a row. P enters the P V product as two bf16 terms, hi = bf16(P) and
-//   lo = bf16(P - hi), each multiplied into the same f32 accumulators: P keeps
-//   about 16 bits, where bf16(P) alone keeps 8 and put outputs of rows with
-//   few keys a bf16 ulp (1.6e-2 at |o| in [2, 4)) off the reference, whose
-//   P V is f32. The split costs a third more tensor-core work per tile.
-//   The key loop ends at the block's key end (causal and kv_len), and only a
-//   tile that straddles the diagonal or kv_len is masked element by element.
-//   The grid is (B * H, q-blocks) with the q-block taken in reverse, so the
-//   heaviest causal blocks start first; the host takes 4, 2 or 1 warps per
-//   block, the most that still gives at least one block per SM.
+// * bf16 (the main path): warp-specialised persistent blocks of three
+//   warpgroups, at most one block per SM, walking work items of QB = 128
+//   query rows of one (batch, head) in rounds that alternate in direction
+//   (hopper.cuh's snake and QueryItem: causal items longest first; otherwise
+//   a (batch, head)'s items side by side, the heads of a GQA group next to
+//   each other, so their K and V tiles come again from L2). The producer
+//   warpgroup gives up registers (setmaxnreg.dec to 40) and one of its
+//   threads issues every load: the item's Q tile once, into one of two
+//   slots (the next item's Q arrives while this one runs), then its K and V
+//   tiles of KT = 64 keys into a ring of STAGES slots, each a TMA copy of a
+//   4-D tensor map (D, S, H, B) over the strided input, 64 rows x 32
+//   columns a box in 64-byte swizzle, completing on mbarriers; rows past S
+//   arrive as zeros. Two consumer warpgroups (setmaxnreg.inc to 232) own 64
+//   query rows each and read the same K and V tiles:
+//   S = Q K^T by wgmma m64n64k16 with both operands in shared memory (SS);
+//   the online softmax in registers, in log2 units (scale * log2(e) folded
+//   into one FMA before ex2), the row max reduced over the quad of lanes
+//   that shares a row; P packed from the S accumulators (their layout is the
+//   A fragment's) into two bf16 terms, hi = bf16(P) and lo = bf16(P - hi),
+//   each a wgmma RS product into the same f32 O accumulator with V as the
+//   MN-major B operand (m64nDk16). P keeps about 16 bits: bf16(P) alone
+//   keeps 8 and put outputs of rows with few keys a bf16 ulp (1.6e-2 at
+//   |o| in [2, 4)) off the reference, whose P V is f32. The split costs
+//   half as much again tensor-core work per tile (6 * D operations a
+//   query-key pair instead of 4 * D).
+//   Overlap: tile t's S product is issued, then tile t - 1's P V, and the
+//   softmax of tile t runs while P V still runs; O is rescaled once P V is
+//   done. So a warpgroup holds one S tile, one P tile (hi and lo) and O in
+//   registers (at D = 128: 32 + 32 + 64 floats a thread), and the two
+//   warpgroups' products interleave on the SM's tensor cores.
+//   A warpgroup masks element by element only a tile that straddles
+//   kv_len, Sk or its diagonal, and skips (releases unread) the tiles past
+//   its own key end (causal: the block's last tile for the first 64 rows;
+//   every tile for rows that start past Sq). O leaves as bf16 pairs from
+//   the accumulators, rows past Sq not written; lse rows are plain stores.
+//   The grid is min(items, SMs): a call with fewer items than SMs gets one
+//   block an item. Tried on the card and dropped (PERF.md §6): the next
+//   tile's S issued before this tile's softmax (two S tiles in registers:
+//   the compiler then serialises every product for want of registers),
+//   128-key tiles (faster at D = 32 only), and the two warpgroups taking
+//   turns to issue their products (within 7% either way, 1% net).
 // * f32 (the f32 checks only): the scalar kernel. One thread owns one query
 //   row and keeps q and the accumulator in registers; f32 tensor-core math
 //   (TF32) would not hold the f32 limit. It is not on the bf16 path. At
@@ -38,48 +62,43 @@
 //   local memory: nvcc's -Xptxas -v report says how much.
 //
 // Head dims: 32 and 64 (ocr_real, ocr_bpe, the embedder), 96 (prod's global
-// vision stage) and 128 (prod's decoder). At 96 and 128 a bf16 block needs
-// 56-87 KB of shared memory, above the 48 KB a launch gets by default; the
-// host opts each such kernel in with cudaFuncSetAttribute before its first
-// launch on a device (Hopper allows 227 KB a block).
+// vision stage) and 128 (prod's decoder). A bf16 block takes 49-193 KB of
+// shared memory (two Q slots of 128 rows, STAGES K and V tiles), opted in
+// with cudaFuncSetAttribute before its first launch on a device.
 //
-// Bound on this card: in bf16 the ocr_real encoder's global calls and the
-// decoder prefill are bound by the tensor cores (4 * D operations per
-// query-key pair), the 256-token windows and the ocr_bpe answer's calls by the
-// bytes of q, k, v and o. Every call is small (at most 6.4 GFLOP or 25 MB), so
-// grid fill, latency and instruction issue set its time well above either
-// bound; the design answers with small per-warp tiles, a grid sized to the
-// SMs, no pad copies and no masking work outside the edge tiles.
+// Bound on this card: in bf16 the long calls (ocr_real's global encoder and
+// decoder, the training step's, the pipeline microbatch) are bound by the
+// tensor cores (4 * D operations per query-key pair that the masks leave),
+// the 256-token windows and the short serving calls by the bytes of q, k, v
+// and o. The design keeps the tensor cores fed from TMA without per-thread
+// address work, shares every K and V tile between 128 query rows, and hides
+// the softmax under the previous tile's P V.
 //
 // Layouts: q (B, H, Sq, D), k and v (B, Hkv, Sk, D), each given by element
 // strides for batch, head and sequence with the last dimension contiguous;
 // the bf16 route needs those strides to be multiples of 8 and the bases
-// 16-byte aligned (cp.async). o is written as a contiguous (B, Sq, H, D)
-// tensor, the layout the output projection reads.
+// 16-byte aligned (TMA). Keys past kv_len inside a loaded tile are read and
+// enter P V with weight 0, so they must be finite, as every caller's are. o
+// is written as a contiguous (B, Sq, H, D) tensor, the layout the output
+// projection reads.
 //
 // Given an lse address (the forward of a gradient), both routes also write
 // the row log-sum-exp, lse = log sum_valid exp(scale * s) in natural-log
 // units, as a contiguous (B, H, Sq) f32 tensor, +inf for a row with no valid
 // key; the backward (flash_attention_bwd.cu) recomputes the weights from it.
-// Serving passes 0 and writes nothing more.
+// Serving passes 0 and writes nothing more. The tensor maps are encoded on
+// the host for each call (hopper.cuh's encode_rows) and passed as
+// __grid_constant__ kernel parameters, so a CUDA graph keeps them.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <atomic>
+#include <algorithm>
 #include <cmath>
-#include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
 constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-
-struct Strides {
-  long long b, h, s;
-};
 
 // ---------------------------------------------------------------- f32 route
 
@@ -177,333 +196,283 @@ __global__ void __launch_bounds__(SC_BM) flash_fwd_scalar_kernel(
 
 // -------------------------------------------------------------- bf16 route
 
-constexpr int TC_BN = 64;  // keys per shared-memory tile
-constexpr int STAGES = 2;  // tiles in flight
-constexpr int PAD = 8;     // bf16 per smem row (16 bytes): ldmatrix's 8 rows hit 8 distinct bank groups
+constexpr int QB = 128;     // query rows per work item, 64 per consumer warpgroup
+constexpr int KT = 64;      // keys per K and V tile
+constexpr int Q_STAGES = 2; // Q slots: this item's and the next one's
+constexpr int STAGES = 4;   // K and V slots of the ring (227 KB hold 4 at D = 128)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+template <int D>
+struct FwdSmem {  // byte offsets from a 1024-aligned base
+  static constexpr int Q = 0;                                   // Q_STAGES x QB x D
+  static constexpr int K = Q + Q_STAGES * tile_bytes<QB, D>();  // STAGES x KT x D
+  static constexpr int V = K + STAGES * tile_bytes<KT, D>();
+  static constexpr int BAR = V + STAGES * tile_bytes<KT, D>();  // q_full, q_empty, full, empty
+  static constexpr int BYTES = BAR + 16 * (Q_STAGES + STAGES) + 1024;  // + the alignment of the base
+};
+
+using FwdItem = QueryItem<QB>;
+
+// put_a of the weights v in two bf16 terms: hi = bf16(v) into `hi`, and
+// lo = bf16(v - hi) into `lo`.
+template <int S>
+__device__ __forceinline__ void put_a_split(uint32_t (&hi)[S][4], uint32_t (&lo)[S][4], int j, const float (&v)[4]) {
+  put_a(hi, j, v);
+  const uint32_t a = hi[j >> 1][(j & 1) * 2], b = hi[j >> 1][(j & 1) * 2 + 1];
+  const float rest[4] = {v[0] - __uint_as_float(a << 16), v[1] - __uint_as_float(a & 0xffff0000u),
+                         v[2] - __uint_as_float(b << 16), v[3] - __uint_as_float(b & 0xffff0000u)};
+  put_a(lo, j, rest);
 }
 
-// 16 bytes global -> shared; with valid == false nothing is read and the
-// destination is zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
+// O += P V for one KT-key tile: P as hi and lo A fragments, V the MN-major
+// B operand of the tile at vt.
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// c (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two f32 -> one register of two bf16, the lower index in the low half.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// pack_bf16 of what bf16 rounding left of the pair: x - float(bf16(x)).
-__device__ __forceinline__ uint32_t pack_bf16_rest(float lo, float hi, uint32_t packed) {
-  const float lo_hi = __uint_as_float(packed << 16);
-  const float hi_hi = __uint_as_float(packed & 0xffff0000u);
-  return pack_bf16(lo - lo_hi, hi - hi_hi);
-}
-
-// 2^x with the SFU (ex2.approx, ~2 ulp); 2^-inf = 0.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 * g + t. A holds rows g
-// and g + 8, columns 2t, 2t + 1 and 2t + 8, 2t + 9; B holds k rows 2t, 2t + 1
-// and 2t + 8, 2t + 9 of column g; C holds rows g and g + 8, columns 2t, 2t + 1.
-//
-// Shared memory (dynamic): Q (BM rows), then STAGES K tiles, then STAGES V
-// tiles, each row D + PAD bf16. Tile t lives in slot t % STAGES; cp.async
-// group t carries tile t (group 0 also Q), so waiting for all but the newest
-// STAGES - 2 groups means tile t arrived.
-template <int D, int WARPS>
-constexpr int tc_smem_bytes() {
-  return (16 * WARPS + 2 * STAGES * TC_BN) * (D + PAD) * static_cast<int>(sizeof(bf16));
-}
-
-template <int D, int WARPS>
-__global__ void __launch_bounds__(WARPS * 32) flash_fwd_tc_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ kv_len, bf16* __restrict__ o, float* __restrict__ lse,
-    int H, int Hkv, int Sq, int Sk, float scale_log2, int causal, Strides qs, Strides ks, Strides vs) {
-  constexpr int BM = 16 * WARPS;
-  constexpr int BN = TC_BN;
-  constexpr int LD = D + PAD;  // smem row stride, elements
-  constexpr int CH = D / 8;    // 16-byte chunks per row
-  constexpr int NT = WARPS * 32;
-  constexpr int NB = BN / 8;   // 8-key score blocks per tile
-  constexpr int ND = D / 8;    // 8-wide output blocks
-  constexpr int KD = D / 16;   // 16-deep steps over D
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* qsm = reinterpret_cast<bf16*>(smem_raw);
-  bf16* ksm = qsm + BM * LD;
-  bf16* vsm = ksm + STAGES * BN * LD;
-
-  const int b = blockIdx.x / H;
-  const int h = blockIdx.x % H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest causal blocks first
-  const int hk = h / (H / Hkv);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  const int len = kv_len ? max(0, min(kv_len[b], Sk)) : Sk;
-  const int kend = causal ? min(len, q0 + BM) : len;
-  const int ntiles = (kend + BN - 1) / BN;
-
-  const bf16* qp = q + b * qs.b + h * qs.h;
-  const bf16* kp = k + b * ks.b + hk * ks.h;
-  const bf16* vp = v + b * vs.b + hk * vs.h;
-
-  for (int i = threadIdx.x; i < BM * CH; i += NT) {
-    const int r = i / CH, c = (i % CH) * 8;
-    const bool ok = q0 + r < Sq;
-    cp_async16(smem_u32(&qsm[r * LD + c]), ok ? qp + (q0 + r) * qs.s + c : qp, ok);
+__device__ __forceinline__ void pv_product(float (&acc)[N], const uint32_t (&ph)[KT / 16][4],
+                                           const uint32_t (&pl)[KT / 16][4], uint32_t vt) {
+  const uint64_t vm = make_desc(vt, KT * 64, 512);
+#pragma unroll
+  for (int kk = 0; kk < KT / 16; ++kk) {
+    wgmma_rs(acc, ph[kk], vm + kk * 64);
+    wgmma_rs(acc, pl[kk], vm + kk * 64);
   }
-  auto load_kv = [&](int tile) {
-    bf16* kt = ksm + (tile % STAGES) * BN * LD;
-    bf16* vt = vsm + (tile % STAGES) * BN * LD;
-    for (int i = threadIdx.x; i < BN * CH; i += NT) {
-      const int r = i / CH, c = (i % CH) * 8;
-      const int key = tile * BN + r;
-      const bool ok = key < kend;
-      cp_async16(smem_u32(&kt[r * LD + c]), ok ? kp + key * ks.s + c : kp, ok);
-      cp_async16(smem_u32(&vt[r * LD + c]), ok ? vp + key * vs.s + c : vp, ok);
-    }
-  };
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < ntiles) load_kv(t);
-    cp_async_commit();
-  }
-
-  uint32_t qf[KD][4];
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};  // running max of this lane's two rows, scaled, log2 units
-  float l[2] = {0.f, 0.f};              // this lane's part of the running sums
-  const int row0 = q0 + warp * 16 + (lane >> 2);  // this lane's rows: row0, row0 + 8
-
-  for (int tile = 0; tile < ntiles; ++tile) {
-    cp_async_wait<STAGES - 2>();  // this tile (and Q) arrived for this thread ...
-    __syncthreads();              // ... and every thread's; the slot read last is free
-    if (tile + STAGES - 1 < ntiles) load_kv(tile + STAGES - 1);
-    cp_async_commit();
-    if (tile == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        ldmatrix_x4(qf[kk], smem_u32(&qsm[(warp * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8]));
-      }
-    }
-    const bf16* kt = ksm + (tile % STAGES) * BN * LD;
-    const bf16* vt = vsm + (tile % STAGES) * BN * LD;
-
-    // S = Q K^T: one ldmatrix.x4 gives the B fragments of two 8-key blocks.
-    float s[NB][4];
-#pragma unroll
-    for (int n = 0; n < NB; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int n2 = 0; n2 < NB / 2; ++n2) {
-        uint32_t kf[4];
-        const int key = n2 * 16 + (lane & 7) + ((lane >> 4) << 3);
-        const int col = kk * 16 + ((lane >> 3) & 1) * 8;
-        ldmatrix_x4(kf, smem_u32(&kt[key * LD + col]));
-        mma_bf16(s[2 * n2], qf[kk], kf[0], kf[1]);
-        mma_bf16(s[2 * n2 + 1], qf[kk], kf[2], kf[3]);
-      }
-    }
-
-    // Mask only a tile that straddles the key length or the diagonal.
-    const int t0 = tile * BN;
-    if (t0 + BN > len || (causal && t0 + BN - 1 > q0)) {
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = t0 + n * 8 + (lane & 3) * 2 + (e & 1);
-          if (key >= len || (causal && key > row0 + (e >> 1) * 8)) s[n][e] = -INFINITY;
-        }
-      }
-    }
-
-    // Online softmax, rows row0 (e = 0, 1) and row0 + 8 (e = 2, 3). The
-    // scale (> 0) is applied in f32: max(scale * s) = scale * max(s), and
-    // p = 2^(s * scale * log2(e) - m) is one FMA into the exponent.
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int n = 0; n < NB; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[i], mx * scale_log2);
-      const float base = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
-      const float corr = fast_exp2(m[i] - base);
-      m[i] = m_new;
-      l[i] *= corr;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        acc[n][2 * i] *= corr;
-        acc[n][2 * i + 1] *= corr;
-      }
-      float sum = 0.f;
-#pragma unroll
-      for (int n = 0; n < NB; ++n) {
-        s[n][2 * i] = fast_exp2(fmaf(s[n][2 * i], scale_log2, -base));
-        s[n][2 * i + 1] = fast_exp2(fmaf(s[n][2 * i + 1], scale_log2, -base));
-        sum += s[n][2 * i] + s[n][2 * i + 1];
-      }
-      l[i] += sum;
-    }
-
-    // O += P V: P's C fragments of two 8-key blocks are one A fragment (hi,
-    // then lo); one ldmatrix.x4.trans gives the B fragments of two 8-wide
-    // output blocks.
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      const uint32_t ph[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const uint32_t pl[4] = {pack_bf16_rest(s[2 * kk][0], s[2 * kk][1], ph[0]),
-                              pack_bf16_rest(s[2 * kk][2], s[2 * kk][3], ph[1]),
-                              pack_bf16_rest(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2]),
-                              pack_bf16_rest(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3])};
-      uint32_t vf[ND / 2][4];
-#pragma unroll
-      for (int n2 = 0; n2 < ND / 2; ++n2) {
-        const int key = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = n2 * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(vf[n2], smem_u32(&vt[key * LD + col]));
-        mma_bf16(acc[2 * n2], ph, vf[n2][0], vf[n2][1]);
-        mma_bf16(acc[2 * n2 + 1], ph, vf[n2][2], vf[n2][3]);
-      }
-#pragma unroll
-      for (int n2 = 0; n2 < ND / 2; ++n2) {
-        mma_bf16(acc[2 * n2], pl, vf[n2][0], vf[n2][1]);
-        mma_bf16(acc[2 * n2 + 1], pl, vf[n2][2], vf[n2][3]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float sum = l[i];
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float inv = 1.f / fmaxf(sum, 1e-30f);
-    const int row = row0 + i * 8;
-    if (row < Sq) {
-      bf16* op = o + ((static_cast<long long>(b) * Sq + row) * H + h) * D + (lane & 3) * 2;
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        *reinterpret_cast<uint32_t*>(op + n * 8) = pack_bf16(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
-      }
-      // m is in log2 units: lse = (m + log2(sum)) ln 2.
-      if (lse && (lane & 3) == 0) {
-        lse[(static_cast<long long>(b) * H + h) * Sq + row] = sum > 0.f ? (m[i] + log2f(sum)) * LN2 : INFINITY;
-      }
-    }
-  }
-}
-
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int device = 0;
-    if (cudaGetDevice(&device) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess) {
-      sms = 132;
-    }
-  }
-  return sms;
-}
-
-// Above 48 KB of dynamic shared memory a kernel must be opted in, once per
-// device (the attribute is per function and per device context). `device`
-// is the current device at the call. Races between threads only repeat the
-// same call.
-template <int D, int WARPS>
-cudaError_t allow_smem(int device, int bytes) {
-  static std::atomic<unsigned long long> done{0};  // bit i: opted in on device i
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  const unsigned long long bit = device >= 0 && device < 64 ? 1ull << device : 0ull;
-  if (bit && (done.load() & bit)) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<D, WARPS>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit);
-  return err;
-}
-
-template <int D, int WARPS>
-cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* kv_len, void* o, float* lse,
-                      int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
-                      Strides qs, Strides ks, Strides vs, int device, cudaStream_t stream) {
-  constexpr int BM = 16 * WARPS;
-  constexpr int smem = tc_smem_bytes<D, WARPS>();
-  static_assert(smem <= 227 * 1024, "more shared memory than a Hopper block can have");
-  const cudaError_t err = allow_smem<D, WARPS>(device, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Sq + BM - 1) / BM);
-  flash_fwd_tc_kernel<D, WARPS><<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_len,
-      static_cast<bf16*>(o), lse, H, Hkv, Sq, Sk, scale * LOG2E, causal, qs, ks, vs);
-  return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_tc_d(const void* q, const void* k, const void* v, const int* kv_len, void* o, float* lse,
-                        int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
-                        Strides qs, Strides ks, Strides vs, int device, cudaStream_t stream) {
-  // Most rows per block that still gives every SM a block. The K/V tiles
-  // dominate a block's shared memory (256 of its 272-320 rows), so fewer
-  // warps save little of it: at D = 128 a 4-warp block takes 87 KB and two
-  // fit an SM, a 1-warp block 74 KB and three fit. The rule therefore
-  // counts blocks, not shared memory, at every D.
-  const long long heads = static_cast<long long>(B) * H;
-  const long long sms = sm_count();
-  if (heads * ((Sq + 63) / 64) >= sms) {
-    return launch_tc<D, 4>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, stream);
+__global__ void __launch_bounds__(THREADS, 1) flash_fwd_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const int* __restrict__ kv_len, bf16* __restrict__ o,
+    float* __restrict__ lse, int B, int H, int Hkv, int Sq, int Sk, float scale_log2, int causal) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t q_empty = q_full + 8 * Q_STAGES;
+  const uint32_t full = q_empty + 8 * Q_STAGES;
+  const uint32_t empty = full + 8 * STAGES;
+
+  const int group = H / Hkv;
+  const int nbh = B * H;
+  const int nqb = (Sq + QB - 1) / QB;
+  const int nwork = nbh * nqb;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Q_STAGES; ++s) {
+      mbar_init(q_full + 8 * s, 1);
+      mbar_init(q_empty + 8 * s, CONSUMER_WARPS);
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMER_WARPS);
+    }
+    mbar_init_fence();
   }
-  if (heads * ((Sq + 31) / 32) >= sms) {
-    return launch_tc<D, 2>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, stream);
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer
+    regs_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS) return;
+    Ring qs, ring;
+    for (int r = 0, w = snake(0); w < nwork; w = snake(++r)) {
+      const FwdItem it(w, nbh, nqb, H, Sk, causal, kv_len);
+      const int ntiles = (it.kend + KT - 1) / KT;
+      if (ntiles == 0) continue;
+      const int hk = it.h / group;
+      mbar_wait(q_empty + 8 * qs.slot, qs.phase ^ 1);
+      mbar_expect_tx(q_full + 8 * qs.slot, tile_bytes<QB, D>());
+      load_tile<QB, D>(&tq, base + L::Q + qs.slot * tile_bytes<QB, D>(), q_full + 8 * qs.slot, it.q0, it.h, it.b);
+      qs.next<Q_STAGES>();
+      for (int t = 0; t < ntiles; ++t) {
+        mbar_wait(empty + 8 * ring.slot, ring.phase ^ 1);
+        const uint32_t bar = full + 8 * ring.slot;
+        mbar_expect_tx(bar, 2 * tile_bytes<KT, D>());
+        load_tile<KT, D>(&tk, base + L::K + ring.slot * tile_bytes<KT, D>(), bar, t * KT, hk, it.b);
+        load_tile<KT, D>(&tv, base + L::V + ring.slot * tile_bytes<KT, D>(), bar, t * KT, hk, it.b);
+        ring.next<STAGES>();
+      }
+    }
+    return;
   }
-  return launch_tc<D, 1>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, stream);
+
+  // Two consumer warpgroups, 64 query rows each.
+  regs_inc<CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int col0 = (lane & 3) * 2;  // this thread's columns in each 8-wide block: col0, col0 + 1
+  Ring qs, ring;
+  for (int r = 0, w = snake(0); w < nwork; w = snake(++r)) {
+    const FwdItem it(w, nbh, nqb, H, Sk, causal, kv_len);
+    const int ntiles = (it.kend + KT - 1) / KT;
+    const int qw = it.q0 + wg * 64;                   // the warpgroup's first row
+    const int row0 = qw + warp * 16 + (lane >> 2);    // this thread's rows: row0, row0 + 8
+    // The warpgroup's key end and tiles: none for rows that start past Sq.
+    const int wkend = qw >= Sq ? 0 : causal ? min(it.len, qw + 64) : it.len;
+    const int wtiles = (wkend + KT - 1) / KT;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY};  // running max of this thread's two rows, scaled, log2 units
+    float l[2] = {0.f, 0.f};              // this thread's part of the running sums
+
+    if (ntiles > 0) {
+      const uint32_t qb = base + L::Q + qs.slot * tile_bytes<QB, D>();
+      mbar_wait(q_full + 8 * qs.slot, qs.phase);
+      uint32_t ph[KT / 16][4], pl[KT / 16][4];  // P of the last tile: hi and lo A fragments
+
+      // S = Q K^T of tile t into s (64 rows x KT keys) is issued and
+      // committed; then the softmax of s: the keys past kv_len or Sk and
+      // (causal) right of the row masked, in a tile that straddles either
+      // for some row of the warpgroup; online softmax, rows row0 (e = 0, 1)
+      // and row0 + 8 (e = 2, 3). The scale (> 0) is applied in f32:
+      // max(scale * s) = scale * max(s), and p = 2^(s * scale * log2(e) - m)
+      // is one FMA into the exponent. corr: what O and l are scaled by.
+      auto issue_s = [&](float (&s)[KT / 2], int slot) {
+        const uint64_t qd = opaque(make_desc(qb + wg * 64 * 64, 16, 512));
+        const uint64_t kd = make_desc(base + L::K + slot * tile_bytes<KT, D>(), 16, 512);
+        wgmma_fence();
+        wgmma_ss_init(s, qd, kd);
+#pragma unroll
+        for (int kk = 1; kk < D / 16; ++kk) wgmma_ss(s, qd + k_step<QB>(kk), kd + k_step<KT>(kk));
+        wgmma_commit();
+      };
+      auto softmax = [&](float (&s)[KT / 2], float (&corr)[2], int t) {
+        const int t0 = t * KT;
+        if (t0 + KT > it.len || (causal && t0 + KT - 1 > qw)) {
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = t0 + 8 * j + col0 + (e & 1);
+              if (key >= it.len || (causal && key > row0 + (e >> 1) * 8)) s[4 * j + e] = -INFINITY;
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * i], s[4 * j + 2 * i + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[i], mx * scale_log2);
+          const float top = m_new == -INFINITY ? 0.f : m_new;  // a row with no key yet
+          corr[i] = fast_exp2(m[i] - top);
+          m[i] = m_new;
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < KT / 8; ++j) {
+            s[4 * j + 2 * i] = fast_exp2(fmaf(s[4 * j + 2 * i], scale_log2, -top));
+            s[4 * j + 2 * i + 1] = fast_exp2(fmaf(s[4 * j + 2 * i + 1], scale_log2, -top));
+            sum += s[4 * j + 2 * i] + s[4 * j + 2 * i + 1];
+          }
+          l[i] = l[i] * corr[i] + sum;
+        }
+      };
+      auto pack_p = [&](const float (&s)[KT / 2]) {
+#pragma unroll
+        for (int j = 0; j < KT / 8; ++j) {
+          const float p[4] = {s[4 * j], s[4 * j + 1], s[4 * j + 2], s[4 * j + 3]};
+          put_a_split(ph, pl, j, p);
+        }
+      };
+
+      // The first tile alone, then every later one with the previous
+      // tile's P V issued behind its S: the softmax runs while P V does.
+      // Each step starts and ends with no product in flight, so that the
+      // compiler keeps the products asynchronous.
+      int t = 0;
+      if (wtiles > 0) {
+        mbar_wait(full + 8 * ring.slot, ring.phase);
+        float s[KT / 2], corr[2];
+        issue_s(s, ring.slot);
+        wgmma_wait<0>();
+        keep(s);
+        softmax(s, corr, 0);
+        pack_p(s);
+        int pending = ring.slot;  // the slot whose P V is still to run
+        ring.next<STAGES>();
+        for (t = 1; t < wtiles; ++t) {
+          mbar_wait(full + 8 * ring.slot, ring.phase);
+          issue_s(s, ring.slot);
+          pv_product(acc, ph, pl, base + L::V + pending * tile_bytes<KT, D>());
+          wgmma_commit();
+          wgmma_wait<1>();
+          keep(s);
+          softmax(s, corr, t);
+          wgmma_wait<0>();  // the previous P V: its slot is free, O and P may change
+          keep(acc);
+          keep(ph);
+          keep(pl);
+          release(empty, pending, lane);
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            acc[4 * j] *= corr[0];
+            acc[4 * j + 1] *= corr[0];
+            acc[4 * j + 2] *= corr[1];
+            acc[4 * j + 3] *= corr[1];
+          }
+          pack_p(s);
+          pending = ring.slot;
+          ring.next<STAGES>();
+        }
+        wgmma_fence();  // the last tile's P V
+        pv_product(acc, ph, pl, base + L::V + pending * tile_bytes<KT, D>());
+        wgmma_commit();
+        wgmma_wait<0>();
+        keep(acc);
+        keep(ph);
+        keep(pl);
+        release(empty, pending, lane);
+      }
+      for (; t < ntiles; ++t) {  // past this warpgroup's key end: released unread
+        mbar_wait(full + 8 * ring.slot, ring.phase);
+        release(empty, ring.slot, lane);
+        ring.next<STAGES>();
+      }
+      release(q_empty, qs.slot, lane);
+      qs.next<Q_STAGES>();
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sum = l[i];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int row = row0 + 8 * i;
+      if (row >= Sq) continue;
+      const float inv = 1.f / fmaxf(sum, 1e-30f);
+      bf16* op = o + ((static_cast<long long>(it.b) * Sq + row) * H + it.h) * D + col0;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(op + 8 * j) = pack_bf16(acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+      }
+      // m is in log2 units: lse = (m + log2(sum)) ln 2.
+      if (lse && (lane & 3) == 0) {
+        lse[(static_cast<long long>(it.b) * H + it.h) * Sq + row] = sum > 0.f ? (m[i] + log2f(sum)) * LN2 : INFINITY;
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, const int* kv_len, void* o, float* lse,
+                      int B, int H, int Hkv, int Sq, int Sk, float scale, int causal,
+                      Strides qs, Strides ks, Strides vs, int device, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  cudaError_t err;
+  if ((err = encode_rows(&tq, q, B, H, Sq, D, qs)) != cudaSuccess ||
+      (err = encode_rows(&tk, k, B, Hkv, Sk, D, ks)) != cudaSuccess ||
+      (err = encode_rows(&tv, v, B, Hkv, Sk, D, vs)) != cudaSuccess) {
+    return err;
+  }
+  constexpr int smem = FwdSmem<D>::BYTES;
+  static_assert(smem <= 227 * 1024, "more shared memory than a Hopper block can have");
+  static std::atomic<unsigned long long> opted{0};
+  err = allow_smem(flash_fwd_kernel<D>, opted, device, smem);
+  if (err != cudaSuccess) return err;
+  const long long work = static_cast<long long>(B) * H * ((Sq + QB - 1) / QB);
+  flash_fwd_kernel<D><<<static_cast<unsigned>(std::min<long long>(work, sm_count())), THREADS, smem, stream>>>(
+      tq, tk, tv, kv_len, static_cast<bf16*>(o), lse, B, H, Hkv, Sq, Sk, scale * LOG2E, causal);
+  return cudaGetLastError();
 }
 
 template <int D>
@@ -528,7 +497,7 @@ extern "C" {
 // stream, and lse (the device address of a contiguous (B, H, Sq) f32 tensor
 // for the row log-sum-exp, or 0 for "do not write"). q: (B, H, Sq, D), k and v: (B, Hkv, Sk, D), each with its last
 // dimension contiguous; for bf16 the strides are multiples of 8 and the bases
-// 16-byte aligned. kv_len: (B,) int32. o: a contiguous (B, Sq, H, D) tensor.
+// 16-byte aligned (TMA). kv_len: (B,) int32. o: a contiguous (B, Sq, H, D) tensor.
 // dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor cores). D: 32, 64, 96
 // or 128; anything else returns cudaErrorInvalidValue. The kernel
 // runs on `stream` of `device` (the current device is switched for the launch
@@ -558,10 +527,10 @@ int vcp_flash_attention_fwd(const long long* p, float scale) {
     case 64: err = launch_scalar<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s); break;
     case 96: err = launch_scalar<96>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s); break;
     case 128: err = launch_scalar<128>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, s); break;
-    case 1032: err = launch_tc_d<32>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
-    case 1064: err = launch_tc_d<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
-    case 1096: err = launch_tc_d<96>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
-    case 1128: err = launch_tc_d<128>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
+    case 1032: err = launch_tc<32>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
+    case 1064: err = launch_tc<64>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
+    case 1096: err = launch_tc<96>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
+    case 1128: err = launch_tc<128>(q, k, v, kv_len, o, lse, B, H, Hkv, Sq, Sk, scale, causal, qs, ks, vs, device, s); break;
     default: err = cudaErrorInvalidValue;
   }
   if (prev != device) cudaSetDevice(prev);

@@ -1,23 +1,32 @@
-"""Time K1's backward kernel of several checkouts on one card, in turns.
+"""Time K1's forward and backward kernels of several checkouts on one card, in turns.
 
-    python -m vision_compression_project_tpu_torch.scripts.compare_flash_bwd \\
+    python -m vision_compression_project_tpu_torch.scripts.compare_flash \\
         --roots OLD,NEW,NEW,OLD [--seed N] [--json PATH]
 
 Each root is a directory holding a `vision_compression_project_tpu_torch`
 package (a checkout, or `git archive` of a commit unpacked). For each root in
 the order given, a fresh process puts that root first on the import path,
-builds its K1 and K1 backward kernels, and runs `chip_smoke.py`'s
-`train_kernel_phase` of this checkout at the training shapes `[train]` uses
-(ocr_real at mixC, the embedder, ocr_bpe's answer step, prod_train): every
-check of that phase holds (the gradients against autograd and the plain
-backward, bit-identical reruns), and in bf16 the backward's time eager and
-from a CUDA graph, SDPA's backward eager and from a graph, and the bound;
-then, at the bf16 shapes of ocr_real's mixC step and prod_train's step, the
-device time of each of the backward's launches (its Delta, dK/dV and dQ
-passes) from `torch.profiler`. One `[compare]` line per root and path (per
-training step) and one per root and shape, then, with --json, every record
-in one file. Running the roots in turns (old, new, new, old) in one process
-tree keeps them on one card.
+builds its K1 forward and backward kernels, and runs this checkout's
+`chip_smoke.py` phases with them:
+
+* `train_kernel_phase` at the training shapes `[train]` uses (ocr_real at
+  mixC, the embedder, ocr_bpe's answer step, prod_train) and at the pipeline's
+  microbatch call: every check of that phase holds (output and gradients
+  against autograd and the plain backward, the log-sum-exp, bit-identical
+  reruns), and in bf16 the lse-writing forward and the backward are timed
+  eager and from CUDA graphs beside SDPA's forward and backward and the
+  bounds;
+* `kernel_phase` at the serving shapes (an ocr_real page batch, the first
+  `/chat` question, a neural embed call, a prod page batch): K1 against
+  mha_reference, timed eager and from graphs beside SDPA;
+* at the bf16 shapes of ocr_real's mixC step and prod_train's step, the
+  device time of one forward call (lse-writing) and of each of the
+  backward's launches (its Delta, dK/dV and dQ passes) from `torch.profiler`.
+
+One `[compare]` line per root and training step, per root and shape, and per
+root and serving unit, then, with --json, every record in one file. Running
+the roots in turns (old, new, new, old) in one process tree keeps them on one
+card.
 """
 
 from __future__ import annotations
@@ -31,9 +40,11 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[2]
-STEP_KEYS = ("bwd_launches_per_step", "bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms",
+STEP_KEYS = ("launches_per_step", "ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms",
+             "bwd_launches_per_step", "bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms",
              "bwd_bound_ms", "bwd_bound_by")
-CALL_KEYS = ("bwd_ms", "bwd_graph_ms", "library_bwd_ms", "library_bwd_graph_ms", "bwd_bound_ms", "bwd_host_us")
+SERVING_KEYS = ("ms", "graph_ms", "library_ms", "library_graph_ms", "bound_ms")
+PASSES = (("forward", "flash_fwd"), ("delta", "delta_kernel"), ("dkdv", "dkdv"), ("dq", "dq_"))
 
 
 def child(root: str, seed: int) -> dict:
@@ -47,21 +58,24 @@ def child(root: str, seed: int) -> dict:
         raise RuntimeError(f"kernels imported from {smoke.kernels.__file__}, not from {root}")
     for name in ("flash_attention", "flash_attention_bwd"):
         smoke.kernels.build(name)
+    cfg, chat_cfg, prod_cfg = (smoke.get_preset(p) for p in (smoke.PRESET, smoke.CHAT_PRESET, smoke.PROD_PRESET))
     pair = next(smoke.synthetic_pair_batches(smoke.EMBED_BATCH, seed=seed))
-    shapes = smoke.train_shapes(smoke.get_preset("ocr_real"), [int(n) for n in pair["d_len"]],
-                                smoke.get_preset(smoke.CHAT_PRESET),
-                                smoke.prod_train_config(smoke.get_preset(smoke.PROD_PRESET)))
+    shapes = smoke.train_shapes(cfg, [int(n) for n in pair["d_len"]], chat_cfg, smoke.prod_train_config(prod_cfg))
+    shapes.append(smoke.pp_microbatch_shape(cfg))
     rec = smoke.train_kernel_phase(shapes, seed)
-    rec["passes_ms"] = {sh.name: pass_times(smoke, sh, seed) for sh in shapes if sh.path in ("train", "prod_train")}
+    rec["device_ms"] = {sh.name: device_times(smoke, sh, seed) for sh in shapes if sh.path in ("train", "prod_train")}
+    serving = smoke.kernel_phase(smoke.path_shapes(cfg, chat_cfg, smoke.embed_texts(seed)) + smoke.prod_shapes(prod_cfg),
+                                 seed)
+    rec["serving"] = {"extract_batch": {k: serving[k] for k in SERVING_KEYS},
+                      **{unit: {k: serving[unit][k] for k in SERVING_KEYS}
+                         for unit in ("chat_first_question", "embed_call", "prod_batch")}}
     return rec
 
 
-PASSES = (("delta", "delta_kernel"), ("dkdv", "dkdv"), ("dq", "dq_"))
-
-
-def pass_times(smoke, sh, seed: int, calls: int = 5) -> dict:
-    """Device ms of each pass of one bf16 backward call at `sh`, from the
-    profiler's kernel records (averaged over `calls` calls)."""
+def device_times(smoke, sh, seed: int, calls: int = 5) -> dict:
+    """Device ms of one bf16 forward call (writing lse) at `sh` and of each
+    pass of one backward call, from the profiler's kernel records (averaged
+    over `calls` calls of each)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -79,6 +93,7 @@ def pass_times(smoke, sh, seed: int, calls: int = 5) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            smoke.kernels.flash_attention_fwd(q, k, v, kv_len, sh.causal, scale, lse=lse)
             smoke.kernels.flash_attention_bwd(q, k, v, o, g, lse, kv_len, sh.causal, scale)
         torch.cuda.synchronize()
     out = {name: 0.0 for name, _ in PASSES}
@@ -115,12 +130,12 @@ def main(argv=None) -> int:
         for path in ("train", "train_embedder", "train_answer", "prod_train"):
             step = {k: rec[path][k] for k in STEP_KEYS}
             print(f"[compare] run={i} root={root} path={path} " + json.dumps(step), flush=True)
-            for shape in rec[path]["bwd_ms_per_call"]:
-                call = {k: rec[path][f"{k}_per_call"][shape] for k in CALL_KEYS
-                        if f"{k}_per_call" in rec[path]}
-                if shape in rec["passes_ms"]:
-                    call["passes_ms"] = rec["passes_ms"][shape]
-                print(f"[compare] run={i} root={root} shape={shape} " + json.dumps(call), flush=True)
+        for shape, call in rec["per_shape"].items():
+            if shape in rec["device_ms"]:
+                call = dict(call, device_ms=rec["device_ms"][shape])
+            print(f"[compare] run={i} root={root} shape={shape} " + json.dumps(call), flush=True)
+        for unit, times in rec["serving"].items():
+            print(f"[compare] run={i} root={root} serving={unit} " + json.dumps(times), flush=True)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(runs, indent=1))
