@@ -1,0 +1,9 @@
+"""device_idle.train: the share of the traced training steps' window in
+which no operation ran on the device (the union of the profiler's device
+intervals), in %."""
+
+from portbench.metrics._common import idle_percent
+
+
+def read(ctx):
+    return idle_percent(ctx)
