@@ -207,7 +207,8 @@ def test_config_reads_the_env_file_at_import(tmp_path):
     assert proc.stdout.split() == [values.get("VCP_EXTRACT_ENGINE", "auto"), values.get("VCP_TMP_DIR", "tmp")]
 
 
-_STEP_LINE = re.compile(r"^step +\d+  loss \d+\.\d{4}  pages/s \d+\.\d  \(inst \d+\.\d\)$")
+_STEP_LINE = re.compile(r"^step +\d+  loss \d+\.\d{4}  pages/s \d+\.\d  \(inst \d+\.\d\)  host enqueue ms/step "
+                        r"feed (\d+\.\d\d|-) forward (\d+\.\d\d|-) backward (\d+\.\d\d|-) optimizer (\d+\.\d\d|-)$")
 
 
 def test_train_vlm_two_steps_on_the_cpu(tmp_path):
@@ -221,6 +222,7 @@ def test_train_vlm_two_steps_on_the_cpu(tmp_path):
                              "--text_len", "64", "--ckpt_dir", "ck"], tmp_path).splitlines()
     assert out[0] == "device: cpu (cpu)"
     assert len(out) == 4 and all(_STEP_LINE.match(line) for line in out[1:3]), out
+    assert all("-" not in _STEP_LINE.match(line).groups() for line in out[1:3]), out
     assert out[3] == f"final checkpoint: {(tmp_path / 'ck' / 'step_00000002').resolve()}"
     runner = tckpt.load_runner(get_preset("tiny"), tmp_path / "ck", device="cpu")
     fresh = tckpt.load_runner(get_preset("tiny"), tmp_path / "none", device="cpu")
@@ -241,6 +243,8 @@ def test_train_vlm_pipeline_parallel_on_the_cpu(tmp_path):
                              "--pp_microbatches", "2", "--log_every", "1", "--ckpt_dir", "ck"], tmp_path).splitlines()
     assert out[:2] == ["device: cpu (cpu)", "PP training: 2 microbatches over 1 pipeline stage(s)"]
     assert len(out) == 5 and all(_STEP_LINE.match(line) for line in out[2:4]), out
+    # The pipelined step times the feed and the optimizer, not train_step's forward and backward.
+    assert all(_STEP_LINE.match(line).groups()[1:3] == ("-", "-") for line in out[2:4]), out
     assert out[4] == f"final checkpoint: {(tmp_path / 'ck' / 'step_00000002').resolve()}"
     runner = tckpt.load_runner(get_preset("tiny"), tmp_path / "ck", device="cpu")
     assert sorted(runner.model.state_dict()) == sorted(tckpt.load_runner(get_preset("tiny"), tmp_path / "none",

@@ -63,7 +63,8 @@ LR = 1e-3
 STEPS = 3
 EXPERT_WEIGHTS = ("w_gate", "w_up", "w_down")
 REPO = Path(__file__).resolve().parents[1]
-STEP_LINE = re.compile(r"^step +\d+  loss \d+\.\d{4}  pages/s \d+\.\d  \(inst \d+\.\d\)$")
+STEP_LINE = re.compile(r"^step +\d+  loss \d+\.\d{4}  pages/s \d+\.\d  \(inst \d+\.\d\)  host enqueue ms/step "
+                       r"feed (\d+\.\d\d|-) forward (\d+\.\d\d|-) backward (\d+\.\d\d|-) optimizer (\d+\.\d\d|-)$")
 
 
 @pytest.fixture(autouse=True)

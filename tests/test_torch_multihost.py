@@ -33,7 +33,8 @@ REPO = Path(__file__).resolve().parents[1]
 SPAWN_TIMEOUT_S = 300
 VLM_ARGS = ["--preset", "tiny_moe", "--steps", "2", "--batch", "4", "--text_len", "32", "--log_every", "1"]
 ANSWER_ARGS = ["--preset", "tiny", "--steps", "2", "--batch", "2", "--text_len", "64", "--log_every", "1"]
-STEP_LINE = re.compile(r"^step +\d+  loss \d+\.\d{4}  pages/s \d+\.\d  \(inst \d+\.\d\)$")
+STEP_LINE = re.compile(r"^step +\d+  loss \d+\.\d{4}  pages/s \d+\.\d  \(inst \d+\.\d\)  host enqueue ms/step "
+                       r"feed (\d+\.\d\d|-) forward (\d+\.\d\d|-) backward (\d+\.\d\d|-) optimizer (\d+\.\d\d|-)$")
 
 
 def _rank_main(script, argv, env):

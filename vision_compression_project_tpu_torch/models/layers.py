@@ -55,6 +55,7 @@ from ..ops import ring_attention as ring
 from ..parallel.mesh import AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_SEQ, axis_size
 from ..parallel.sharding import active_mesh, use_mesh
 from ..parallel.tensor_parallel import copy_to, gather_cat, gather_from, group_size, reduce_from
+from ..utils.metrics import Range, profiling
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -442,6 +443,40 @@ def route_offsets(counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return before, order.sum(dim=0)
 
 
+class _BackwardStart(torch.autograd.Function):
+    """Identity on a module's output; its backward opens the profiler range
+    `rng`. It keeps its input only to unpack it there first: under remat
+    that runs the block's recompute, so the recompute stays out of the
+    range."""
+
+    @staticmethod
+    def forward(ctx, y, rng):
+        ctx.rng = rng
+        ctx.save_for_backward(y)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        _ = ctx.saved_tensors
+        ctx.rng.__enter__()
+        return grad, None
+
+
+class _BackwardEnd(torch.autograd.Function):
+    """Identity on a module's input; its backward, the module's last, closes
+    the profiler range `rng`."""
+
+    @staticmethod
+    def forward(ctx, x, rng):
+        ctx.rng = rng
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.rng.__exit__(None, None, None)
+        return grad, None
+
+
 class SwitchMoE(nn.Module):
     """Top-1 (Switch) mixture of SwiGLU experts with capacity dispatch: the
     port of vision_compression_project_tpu/models/layers.py::SwitchMoE.
@@ -547,6 +582,18 @@ class SwitchMoE(nn.Module):
         return out.index_select(0, slot)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(y, aux). While a profiler records, the call is the range
+        `moe.forward` (the remat recompute's too) and its backward the range
+        `moe.backward`, between two identity nodes on x and y; with none,
+        the autograd graph is as it was."""
+        if not profiling():
+            return self._forward(x)
+        rng = Range("moe.backward")
+        with Range("moe.forward"):
+            y, aux = self._forward(_BackwardEnd.apply(x, rng))
+        return _BackwardStart.apply(y, rng), aux
+
+    def _forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         b, s, d = x.shape
         e_local, hidden_local = self.w_gate.shape[0], self.w_gate.shape[2]
         ep_axes = tuple(a for a, sharded in ((AXIS_EXPERT, e_local != self.num_experts),

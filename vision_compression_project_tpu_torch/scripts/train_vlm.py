@@ -21,6 +21,29 @@ a launcher; rank 0 saves the whole state, gathered from the stages.
 import argparse
 import time
 
+# The training step's timers (utils/metrics.py), as the log line names them.
+PHASES = ("feed", "forward", "backward", "optimizer")
+
+
+def _host_totals() -> dict:
+    """{phase: (seconds, calls)} of the `train.<phase>` timers so far."""
+    from ..utils.metrics import METRICS
+
+    timers = METRICS.snapshot()["timers"]
+    return {p: (timers.get(f"train.{p}", {}).get("total", 0.0), timers.get(f"train.{p}", {}).get("count", 0))
+            for p in PHASES}
+
+
+def _host_ms(now: dict, last: dict) -> str:
+    """Each phase's host milliseconds a call between two `_host_totals()`: the
+    time the host took to enqueue its work, not the device's; '-' where it
+    did not run (the pipelined step times no forward or backward)."""
+    parts = []
+    for p in PHASES:
+        calls = now[p][1] - last[p][1]
+        parts.append(f"{p} {1e3 * (now[p][0] - last[p][0]) / calls:.2f}" if calls else f"{p} -")
+    return " ".join(parts)
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Train the OpticalVLM.")
@@ -125,6 +148,7 @@ def main(argv=None):
     )
     t_start = time.time()
     t_last, step_last = t_start, 0
+    host_last = _host_totals()
     for step in range(1, args.steps + 1):
         batch = device_batch(cfg, next(data), device=device)
         if pp:
@@ -139,8 +163,10 @@ def main(argv=None):
             rate = step * args.batch / (now - t_start)
             # The rate since the last log line: the steady-state number.
             inst = (step - step_last) * args.batch / max(now - t_last, 1e-9)
-            t_last, step_last = now, step
-            log(f"step {step:5d}  loss {loss_v:.4f}  pages/s {rate:.1f}  (inst {inst:.1f})", flush=True)
+            host = _host_totals()
+            log(f"step {step:5d}  loss {loss_v:.4f}  pages/s {rate:.1f}  (inst {inst:.1f})  "
+                f"host enqueue ms/step {_host_ms(host, host_last)}", flush=True)
+            t_last, step_last, host_last = now, step, host
         if args.ckpt_every and step % args.ckpt_every == 0:
             path = save()
             log(f"checkpoint: {path}")

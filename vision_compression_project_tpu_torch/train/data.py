@@ -32,6 +32,7 @@ from ..models.tokenizer import (
 from ..models.vlm import UNIT_SEP
 from ..ops.preprocess import preprocess_pages
 from ..pipeline.textmd import structure_page
+from ..utils.metrics import METRICS
 
 _WORDS = (
     "model data page table figure result method train loss token image "
@@ -209,7 +210,8 @@ def device_batch(runner_or_cfg, batch: Dict[str, np.ndarray], device=None) -> Di
     else RUNTIME.device): bf16 patch tokens, int64 token ids and a loss mask
     (all ones when the batch has none: extraction supervises every non-pad
     target). Gray pages ship one channel to the device; preprocessing
-    broadcasts it to RGB after the resize."""
+    broadcasts it to RGB after the resize. Timed as `train.feed`, with its
+    rows counted in `train.pages` (utils/metrics.py)."""
     from .train_step import resolve_device
 
     dev = resolve_device(device or getattr(runner_or_cfg, "device", None))
@@ -217,19 +219,21 @@ def device_batch(runner_or_cfg, batch: Dict[str, np.ndarray], device=None) -> Di
     pages = batch["pages_u8"]
     if pages.ndim == 4 and pages.shape[-1] == 3:
         pages = pages[..., 0]
-    patches = preprocess_pages(
-        torch.from_numpy(np.ascontiguousarray(pages)).to(dev),
-        target_h=vision.image_size, target_w=vision.image_size, patch=vision.patch,
-    )
     token_ids = batch["token_ids"]
     loss_mask = batch.get("loss_mask")
     if loss_mask is None:
         loss_mask = np.ones_like(token_ids)
-    return {
-        "patch_tokens": patches,
-        "token_ids": torch.from_numpy(np.asarray(token_ids)).to(dev, torch.long),
-        "loss_mask": torch.from_numpy(np.asarray(loss_mask)).to(dev),
-    }
+    with METRICS.timer("train.feed"):
+        out = {
+            "patch_tokens": preprocess_pages(
+                torch.from_numpy(np.ascontiguousarray(pages)).to(dev),
+                target_h=vision.image_size, target_w=vision.image_size, patch=vision.patch,
+            ),
+            "token_ids": torch.from_numpy(np.asarray(token_ids)).to(dev, torch.long),
+            "loss_mask": torch.from_numpy(np.asarray(loss_mask)).to(dev),
+        }
+    METRICS.count("train.pages", len(pages))
+    return out
 
 
 # ---------------------------------------------------------------------------

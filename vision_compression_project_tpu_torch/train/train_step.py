@@ -37,6 +37,7 @@ and counts a replicated leaf once. A mesh of 1 changes no number.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -53,6 +54,7 @@ from ..models.vlm import OpticalVLM, init_params
 from ..parallel.mesh import AXIS_DATA, AXIS_SEQ, axis_size, initialize_multihost, local_mesh
 from ..parallel.sharding import active_mesh, gather_params, keep_shards, param_mesh_axes, shard_params, use_mesh
 from ..parallel.tensor_parallel import sum_over
+from ..utils.metrics import METRICS
 
 Schedule = Callable[[int], float]
 Params = Dict[str, torch.Tensor]
@@ -90,7 +92,13 @@ class AdamW:
         moments and count after it. The whole update stays on the device:
         no value is read back to the host. `reduce_sq(names, sq)` turns the
         leaves' f32 sums of squares into those of the whole leaves when each
-        holds a shard (the sharded step's)."""
+        holds a shard (the sharded step's). Timed as `train.optimizer`,
+        whose profiler range carries the count of updates before this one:
+        the train state's step in `train_step`."""
+        with METRICS.timer("train.optimizer", state.count):
+            return self._update(params, state, reduce_sq)
+
+    def _update(self, params: Params, state: OptState, reduce_sq) -> OptState:
         names = list(params)
         missing = [k for k in names if params[k].grad is None]
         if missing:
@@ -299,19 +307,22 @@ def train_step(model: OpticalVLM, opt: AdamW, state: TrainState, batch: Dict[str
     gradients afterwards, before the clip. With a `mesh`, the counterpart of
     the reference's `make_jitted_train_step`: `batch` is this rank's `data`
     rows (`parallel.sharding.shard_batch`), and the loss returned is the
-    whole batch's, the same on every rank."""
-    for p in state.params.values():
-        p.grad = None
-    if mesh is None:
-        loss = vlm_loss(model, batch)
-        loss.backward()
-        state.opt_state = opt.update(state.params, state.opt_state)
-    else:
-        with use_mesh(mesh):
+    whole batch's, the same on every rank. Timed as `train.forward` (from
+    the gradients' reset through the loss), `train.backward` (with the
+    gradients' sum over the mesh) and `train.optimizer`, each range
+    carrying the step (utils/metrics.py)."""
+    with contextlib.nullcontext() if mesh is None else use_mesh(mesh):
+        with METRICS.timer("train.forward", state.step):
+            for p in state.params.values():
+                p.grad = None
             loss = vlm_loss(model, batch)
+        with METRICS.timer("train.backward", state.step):
             loss.backward()
-        sum_gradients(state.params, mesh)
-        state.opt_state = opt.update(state.params, state.opt_state, reduce_sq=sharded_sq(state.params, mesh))
+            if mesh is not None:
+                sum_gradients(state.params, mesh)
+    reduce_sq = None if mesh is None else sharded_sq(state.params, mesh)
+    state.opt_state = opt.update(state.params, state.opt_state, reduce_sq=reduce_sq)
+    if mesh is not None:
         loss = sum_over(loss.detach(), (AXIS_DATA, AXIS_SEQ), mesh)
     state.step += 1
     return state, loss.detach()

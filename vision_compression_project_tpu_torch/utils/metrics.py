@@ -1,6 +1,17 @@
 """Per-stage wall-clock timers and counters: the port's copy of
 vision_compression_project_tpu/utils/metrics.py (MetricsRegistry, METRICS),
-without its profiler helpers."""
+with ranges on the torch profiler's clock in place of its jax.profiler
+helpers.
+
+`METRICS.timer(name)` keeps a wall-clock stat, which `/metrics` serves;
+`span(name)` keeps none, for work inside the model, where the host's time
+of asynchronous device work means little. While a torch profiler records,
+both open a range of that name on the profiler's host clock, which kineto
+aligns with the CUDA device's timestamps, so a trace sets device work and
+idle gaps against it; otherwise they open none, and the check costs a read
+of a module attribute. `args`, a number, is recorded as the range's input
+(a trace made with `record_shapes=True` shows it): the training step passes
+its step count, which the ranges of one step share."""
 
 from __future__ import annotations
 
@@ -8,7 +19,46 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
+
+
+def profiling() -> bool:
+    """Whether a torch profiler records now, in any thread."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class Range:
+    """One profiler range: `__enter__` opens it and `__exit__` closes it,
+    which may happen in two different calls (the Switch-MoE's backward
+    range opens in one autograd node and closes in another); closing a
+    range that never opened does nothing."""
+
+    __slots__ = ("name", "args", "_handle")
+
+    def __init__(self, name: str, args: Optional[float] = None):
+        self.name, self.args, self._handle = name, args, None
+
+    def __enter__(self):
+        inputs = () if self.args is None else (self.args,)
+        self._handle = torch._C._autograd._record_function_with_args_enter(self.name, *inputs)
+        return self
+
+    def __exit__(self, *exc):
+        if self._handle is not None:
+            torch._C._autograd._record_function_with_args_exit(self._handle)
+            self._handle = None
+        return False
+
+
+def span(name: str, args: Optional[float] = None):
+    """A profiler range named `name` around the block while a profiler
+    records; nothing otherwise."""
+    return Range(name, args) if profiling() else _OFF
 
 
 class _Stat:
@@ -46,10 +96,13 @@ class MetricsRegistry:
         self._started = time.time()
 
     @contextlib.contextmanager
-    def timer(self, name: str):
+    def timer(self, name: str, args: Optional[float] = None):
+        """The block's wall-clock time into the stat `name`, and, while a
+        profiler records, a range of that name around it (`span`)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name, args):
+                yield
         finally:
             elapsed = time.perf_counter() - t0
             with self._lock:
