@@ -30,6 +30,18 @@ with the port's own reader. One flushed line per phase, with seconds:
   weights  read both shipped checkpoints (ocr_real, ocr_bpe): tensors, MB and
            seconds; every tensor's SHA-256 equal to the committed digests
            (train/shipped_digests.json); a strict load into its model;
+  adamw    AdamW's kernels at ocr_real's and prod_train's leaf sets, with
+           gradients the clip scales: each leaf's sum of squares within its
+           bound of a float64 sum; one update bit-equal to the plain version
+           on the CPU from the same start and sums of squares (every
+           element at ocr_real's, each leaf's first, last and three interior
+           chunks at prod_train's); its launches and the peak memory it
+           adds; the whole update eager and from a CUDA graph, each kernel
+           alone, the plain version on the card, clip_grad_norm_ with
+           torch._fused_adamw_ (a yardstick the port never calls) and the
+           bound (the bytes at 3.35 TB/s); every training phase below also
+           checks AdamW's launches a step against `adamw_launches` at its
+           leaves (the embedder's has no sums of squares: no clip);
   kernel   hold each kernel against its plain PyTorch version on the card at
            the shapes its paths give it (prod's page batch among them: K1 at
            head_dim 64, 96 and 128), and ragged cases (K1 with key
@@ -316,7 +328,7 @@ from vision_compression_project_tpu_torch.train.embedder_train import (
 from vision_compression_project_tpu_torch.train.pages import ingest_texts, prose_pages
 from vision_compression_project_tpu_torch.train.pp_train import make_pp_train_state, make_pp_vlm_train_step, pp_vlm_loss
 from vision_compression_project_tpu_torch.train.train_step import (
-    MOE_AUX_WEIGHT, cosine_lr, make_train_state, train_step, vlm_loss,
+    MOE_AUX_WEIGHT, OptState, cosine_lr, make_optimizer, make_train_state, train_step, vlm_loss,
 )
 from vision_compression_project_tpu_torch.weights import params_from_jax, params_to_jax
 
@@ -371,6 +383,28 @@ def log(phase: str, seconds: float, **fields) -> None:
 def fail(msg: str) -> None:
     print(f"FAILED: {msg}", flush=True)
     sys.exit(1)
+
+
+def launch_counts(**counts) -> dict:
+    """Every kernel's launch count as `kernels.launches` keys them: `counts`,
+    0 for the rest."""
+    return {name: counts.get(name, 0) for name in kernels.launches}
+
+
+def adamw_launches(numels, clip: bool = True, steps: int = 1) -> dict:
+    """AdamW's launches in `steps` updates of leaves of these sizes, as
+    `kernels.launches` keys them, from the chunks `kernels.adamw_chunks`
+    plans: with the clip, the partial sums of squares (where a leaf has
+    elements) and the leaves' sums; the update where a leaf has elements."""
+    chunks = kernels.adamw_chunks(tuple(int(n) for n in numels))[-1]
+    return {"adamw_sumsq": steps * int(clip) * (int(chunks > 0) + 1), "adamw_update": steps * int(chunks > 0)}
+
+
+ADAMW_KEYS = ("adamw_sumsq", "adamw_update")
+
+
+def numels(tensors) -> list:
+    return [t.numel() for t in tensors]
 
 
 def graph_ms(fn, iters: int = 20, replays: int = 5, stream=None) -> float:
@@ -792,8 +826,8 @@ def chat_phase(chat_cfg, seed: int, shapes: list):
             got = dict(kernels.launches)
             for name, n in got.items():
                 launches[name] += n
-            want = {"masked_similarity": 1, "flash_attention_bwd": 0,
-                    "flash_attention": 0 if engine != "lm" else (first_k1 if i == 0 else later_k1)}
+            want = launch_counts(masked_similarity=1,
+                                 flash_attention=0 if engine != "lm" else (first_k1 if i == 0 else later_k1))
             log("chat.question", seconds, engine=engine, launches=json.dumps(got),
                 answer=json.dumps(result["answer_md"][:80]))
             if got != want:
@@ -1006,7 +1040,7 @@ def build_phase() -> dict:
     """Every library the paths run, built at once: one nvcc per kernel, one
     g++ per host library (the checkpoint reader's zstd, the PDF engine).
     Returns {name: (library path, seconds)}."""
-    jobs = {name: functools.partial(kernels.build, name) for name in sorted(kernels.launches)}
+    jobs = {name: functools.partial(kernels.build, name) for name in kernels.SOURCES}
     jobs["zstd_decode"] = native.build_zstd
     jobs["vcpraster"] = build_raster
 
@@ -1107,7 +1141,7 @@ def ingest_phase(seed: int, workdir: Path, k1_per_batch: int) -> dict:
     log("ingest_pdf.runner", sync_s(t0), preset="ocr_real", render=json.dumps(
         {k: meta[k] for k in ("lines", "font_size", "dpi")}), pages=INGEST_PAGES, batch=INGEST_BATCH)
     n_batches = -(-INGEST_PAGES // INGEST_BATCH)
-    want_launches = {"flash_attention": n_batches * k1_per_batch, "flash_attention_bwd": 0, "masked_similarity": 0}
+    want_launches = launch_counts(flash_attention=n_batches * k1_per_batch)
     out = {}
     routes = (("glyph", {"save_images": False}),
               ("pixel", {"save_images": True, "images_dir": workdir / "png"}))
@@ -1209,7 +1243,7 @@ def chat_shipped_phase(seed: int, workdir: Path, first_k1: int) -> dict:
     finally:
         VLMRunner.answer, VLMRunner.generate = orig_answer, orig_generate
     runner = qa._ANSWER_RUNNER_CACHE.get(resolved)
-    want = {"flash_attention": first_k1, "flash_attention_bwd": 0, "masked_similarity": 1}
+    want = launch_counts(flash_attention=first_k1, masked_similarity=1)
     log("chat.shipped", seconds, preset=resolved[0], launches=json.dumps(launches), decode_steps=json.dumps(steps),
         retrieved=len(result["retrieved"]), answer=json.dumps(result["answer_md"][:200]))
     if runner is None or calls != [runner]:
@@ -1394,7 +1428,7 @@ def serve_phase(ingest: dict, workdir: Path, k1_per_batch: int, chat_k1: tuple) 
             expect(f"/ingest ({route}) pages", (resp["pages_total"], resp["pages_ingested"], resp["failed_pages"]),
                    (INGEST_PAGES, INGEST_PAGES, []))
             expect(f"/ingest ({route}) launches", launches,
-                   {"flash_attention": k1_ingest, "flash_attention_bwd": 0, "masked_similarity": 0})
+                   launch_counts(flash_attention=k1_ingest))
             pages = base_tmp / resp["doc_id"] / "pages"
             recs = [json.loads((pages / f"page_{i:03d}.json").read_text()) for i in range(1, INGEST_PAGES + 1)]
             sims = [markdown_similarity(g, r) for g, r in zip(ingest["gold"], recs)]
@@ -1439,8 +1473,7 @@ def serve_phase(ingest: dict, workdir: Path, k1_per_batch: int, chat_k1: tuple) 
             for name, n in launches.items():
                 total[name] += n
             expect(f"/chat {i} launches", launches,
-                   {"flash_attention": chat_k1[0] if i == 0 else chat_k1[1], "flash_attention_bwd": 0,
-                    "masked_similarity": 1})
+                   launch_counts(flash_attention=chat_k1[0] if i == 0 else chat_k1[1], masked_similarity=1))
             if i < len(SERVE_QUESTIONS):
                 sequential[question] = resp
                 out.setdefault("chat_s", []).append(seconds)
@@ -1570,7 +1603,7 @@ def embedder_check(embedder, texts: list) -> dict:
            "max_abs_err": err, "atol": EMBED_ATOL, "embed_s": median_s(lambda: embedder.embed(texts)),
            "plain_embed_s": plain_s, "empty_batch_launches": empty_launches}
     log("retrieval.embedder", out["embed_s"][0], **{k: json.dumps(v) for k, v in out.items()})
-    if launches != {"flash_attention": depth, "flash_attention_bwd": 0, "masked_similarity": 0}:
+    if launches != launch_counts(flash_attention=depth):
         fail(f"retrieval.embedder: launches {launches}, expected {depth} flash_attention")
     if not (np.isfinite(got).all() and err <= EMBED_ATOL):
         fail(f"retrieval.embedder: vectors differ from the plain attention's by {err} > {EMBED_ATOL}")
@@ -1622,7 +1655,7 @@ def build_multivector_index(seed: int, embedder):
     index.add(sets, records, memory_ids=[f"target{p:03d}" for p in range(1, TARGET_PAGES + 1)])
     target_s = sync_s(t0)
     launches = dict(kernels.launches)
-    want = {"flash_attention": TARGET_PAGES * embedder.cfg.depth, "flash_attention_bwd": 0, "masked_similarity": 0}
+    want = launch_counts(flash_attention=TARGET_PAGES * embedder.cfg.depth)
     if launches != want:
         fail(f"retrieval.index: the target's page_vector_set calls launched {launches}, expected {want}")
     return index, target_s, launches["flash_attention"]
@@ -1720,7 +1753,7 @@ def retrieval_serve_phase(ingest: dict, workdir: Path, depth: int) -> dict:
         expect("/ingest pages", (resp["pages_total"], resp["pages_ingested"], resp["failed_pages"]),
                (INGEST_PAGES, INGEST_PAGES, []))
         expect("/ingest launches", launches,
-               {"flash_attention": depth * INGEST_PAGES, "flash_attention_bwd": 0, "masked_similarity": 0})
+               launch_counts(flash_attention=depth * INGEST_PAGES))
         for name, n in launches.items():
             total[name] += n
         doc_id = resp["doc_id"]
@@ -1744,7 +1777,7 @@ def retrieval_serve_phase(ingest: dict, workdir: Path, depth: int) -> dict:
             for name, n in launches.items():
                 total[name] += n
             expect(f"/chat {i} launches", launches,
-                   {"flash_attention": depth, "flash_attention_bwd": 0, "masked_similarity": 0})
+                   launch_counts(flash_attention=depth))
             if i < len(SERVE_QUESTIONS):
                 sequential[question] = resp
                 out.setdefault("chat_s", []).append(seconds)
@@ -1803,9 +1836,10 @@ def retrieval_phase(seed: int, workdir: Path, ingest: dict, sim_rows: int) -> di
     del index
     torch.cuda.empty_cache()
     out["serve"] = retrieval_serve_phase(ingest, workdir, embedder.cfg.depth)
-    out["launches"] = {"flash_attention": launches + out["serve"]["launches"]["flash_attention"],
-                       "flash_attention_bwd": out["serve"]["launches"]["flash_attention_bwd"],
-                       "masked_similarity": out["serve"]["launches"]["masked_similarity"]}
+    served = out["serve"]["launches"]
+    out["launches"] = launch_counts(flash_attention=launches + served["flash_attention"],
+                                    flash_attention_bwd=served["flash_attention_bwd"],
+                                    masked_similarity=served["masked_similarity"])
     return out
 
 
@@ -1962,7 +1996,7 @@ def train_kernel_phase(shapes: list, seed: int) -> dict:
     their bounds, timed eager and (but the plain versions) from CUDA graphs."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed + 1)
     rows = []
-    want_launches = {"flash_attention": 1, "flash_attention_bwd": 1, "masked_similarity": 0}
+    want_launches = launch_counts(flash_attention=1, flash_attention_bwd=1)
     for sh in shapes:
         kv_len = torch.tensor(sh.kv_len, dtype=torch.int32, device=DEVICE)
         scale = sh.d ** -0.5
@@ -2155,19 +2189,23 @@ def check_gradients(model) -> None:
         fail(f"attention projections with an all-zero gradient: {zero[:6]}")
 
 
-def step_launches(total: dict) -> tuple:
-    """K1's forward and backward launches since the last reset, added to
-    `total`."""
-    fwd, bwd = kernels.launches["flash_attention"], kernels.launches["flash_attention_bwd"]
-    total["flash_attention"] += fwd
-    total["flash_attention_bwd"] += bwd
-    return fwd, bwd
+def step_launches(total: dict, params, clip: bool = True) -> tuple:
+    """K1's forward and backward launches since the last reset; every
+    kernel's added to `total`. Fails unless AdamW's kernels launched as one
+    update of `params` launches them (`adamw_launches`)."""
+    want = adamw_launches(numels(params), clip)
+    got = {name: kernels.launches[name] for name in want}
+    if got != want:
+        fail(f"AdamW's launches in one training step: {got}, expected {want}")
+    for name, n in kernels.launches.items():
+        total[name] += n
+    return kernels.launches["flash_attention"], kernels.launches["flash_attention_bwd"]
 
 
 def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int, bwd_per_step: int) -> dict:
     """(b) the shipped ocr_real warm-started and trained at mixC; (c) ocr_real
     from the seed overfitting one fixed batch."""
-    out = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0}}
+    out = {"launches": launch_counts()}
     shipped = params_from_jax(load_params(config.shipped_checkpoint_dir("ocr_real")))
     fixed = fixed_pages(seed, LOSS_PAGES, workdir, MIXC["text_len"], get_tokenizer(cfg))
     t0 = time.perf_counter()
@@ -2194,7 +2232,7 @@ def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int, bwd_per_ste
         else:
             t = timed_step(model, opt, state, data, cfg)
             t["step_s"] = t["data_s"] + t["forward_s"] + t["backward_s"] + t["optimizer_s"]
-        launched, bwd = step_launches(out["launches"])
+        launched, bwd = step_launches(out["launches"], model.parameters())
         log("train.mixc_step", t["step_s"], step=step, flash_launches=launched, flash_bwd_launches=bwd, **t)
         if launched != k1_per_step or bwd != bwd_per_step:
             fail(f"ocr_real training step {step}: {launched} flash-attention and {bwd} backward launches, "
@@ -2226,7 +2264,7 @@ def vlm_train_phase(cfg, seed: int, workdir: Path, k1_per_step: int, bwd_per_ste
         kernels.reset_launch_counts()
         state_s, loss = train_step(model_s, opt_s, state_s, batch)
         loss_v = float(loss)
-        launched, bwd = step_launches(out["launches"])
+        launched, bwd = step_launches(out["launches"], model_s.parameters())
         if launched != k1_per_step or bwd != bwd_per_step or not np.isfinite(loss_v):
             fail(f"overfit step {step}: {launched} flash-attention and {bwd} backward launches, loss {loss_v}")
         first = loss_v if first is None else first
@@ -2249,7 +2287,7 @@ def embedder_train_phase(seed: int, k1_per_step: int) -> dict:
     model, opt, params, opt_state = make_embedder_train_state(cfg, lr=EMBED_LR, seed=seed, device=DEVICE)
     batch = pair_batch(next(synthetic_pair_batches(EMBED_BATCH, seed=seed)), DEVICE)
     losses, t_steady = [], None
-    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    launches = launch_counts()
     for step in range(1, EMBED_STEPS + 1):
         if step == 2:
             torch.cuda.synchronize()
@@ -2257,7 +2295,7 @@ def embedder_train_phase(seed: int, k1_per_step: int) -> dict:
         kernels.reset_launch_counts()
         params, opt_state, loss = embedder_train_step(model, opt, params, opt_state, batch)
         losses.append(float(loss))
-        launched, bwd = step_launches(launches)
+        launched, bwd = step_launches(launches, params.values(), clip=False)  # the embedder's AdamW has no clip
         if launched != k1_per_step or bwd != k1_per_step:
             fail(f"embedder step {step}: {launched} flash-attention and {bwd} backward launches, "
                  f"expected {k1_per_step} each")
@@ -2424,7 +2462,7 @@ def answer_train_steps(chat_cfg, seed: int, shipped: dict, workdir: Path, k1_per
         "answer": prefetch_batches(qa_batches(chat_cfg, ANSWER_BATCH, text_len=ANSWER_TEXT_LEN, seed=seed + 7,
                                               agg_frac=0.5, data_kind="mixed")),
     }
-    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    launches = launch_counts()
     steps = []
     for step in range(1, ANSWER_STEPS + 1):
         task = "answer" if step % 2 == 0 else "extract"
@@ -2433,7 +2471,7 @@ def answer_train_steps(chat_cfg, seed: int, shipped: dict, workdir: Path, k1_per
         t["step_s"] = t["data_s"] + t["forward_s"] + t["backward_s"] + t["optimizer_s"]
         if step == 1:
             check_gradients(model)
-        fwd, bwd = step_launches(launches)
+        fwd, bwd = step_launches(launches, model.parameters())
         log("answer.train_step", t["step_s"], step=step, task=task, flash_launches=fwd, flash_bwd_launches=bwd, **t)
         if fwd != k1_per_step or bwd != bwd_per_step or not np.isfinite(t["loss"]):
             fail(f"train_answer step {step} ({task}): {fwd} flash-attention and {bwd} backward launches "
@@ -2531,7 +2569,7 @@ def answer_phase(seed: int, workdir: Path, train_kernel: dict) -> dict:
     from vision_compression_project_tpu_torch.scripts import eval_answer, eval_extract
 
     chat_cfg = get_preset(CHAT_PRESET)
-    out = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0}}
+    out = {"launches": launch_counts()}
     shipped = params_from_jax(load_params(config.shipped_checkpoint_dir(CHAT_PRESET)))
     fixed = next(qa_batches(chat_cfg, ANSWER_LOSS_BATCH, text_len=ANSWER_TEXT_LEN, seed=ANSWER_LOSS_SEED,
                             data_kind="words"))
@@ -2660,7 +2698,7 @@ def prod_phase(cfg, seed: int, expected_launches: int):
     first_s = sync_s(t0)
     launches = dict(kernels.launches)
     log("prod.extract_batch", first_s, launches=json.dumps(launches))
-    want = {"flash_attention": expected_launches, "flash_attention_bwd": 0, "masked_similarity": 0}
+    want = launch_counts(flash_attention=expected_launches)
     if launches != want:
         fail(f"prod extract_batch launched {launches}, expected {want}")
     check_pages(result, page_numbers)
@@ -2761,7 +2799,7 @@ def prod_serve_phase(seed: int, workdir: Path, k1_per_batch: int) -> dict:
         if list(resp) != ["doc_id", "pages_total", "pages_ingested", "failed_pages", "manifest_path"] or (
                 resp["pages_total"], resp["pages_ingested"], resp["failed_pages"]) != (N_PAGES, N_PAGES, []):
             child.fail(f"/ingest response {resp}")
-        want = {"flash_attention": k1_per_batch, "flash_attention_bwd": 0, "masked_similarity": 0}
+        want = launch_counts(flash_attention=k1_per_batch)
         if out["launches"] != want:
             child.fail(f"/ingest launched {out['launches']}, expected {want}")
         pages = tmp / resp["doc_id"] / "pages"
@@ -2833,7 +2871,7 @@ def tiny_moe_phase(seed: int, workdir: Path) -> dict:
     data = synthetic_batches(cfg, MOE_BATCH, seed=seed, workdir=workdir / "tiny_moe_data", text_len=MOE_TEXT_LEN)
     host = [next(data) for _ in range(MOE_STEPS)]
     want_k1 = step_k1(cfg, MOE_BATCH, MOE_TEXT_LEN)
-    runs, launches = {}, {"flash_attention": 0, "flash_attention_bwd": 0}
+    runs, launches = {}, launch_counts()
     for device in (DEVICE, "cpu"):
         model, opt, state = make_train_state(cfg, device=device, seed=seed, lr=PROD_TRAIN_LR)
         losses, routers = [], None
@@ -2844,7 +2882,7 @@ def tiny_moe_phase(seed: int, workdir: Path) -> dict:
             if routers is None:
                 routers = {n: p.grad.float().cpu() for n, p in model.named_parameters() if n.endswith("router.weight")}
             if device == DEVICE:
-                got = step_launches(launches)
+                got = step_launches(launches, model.parameters())
                 if got != want_k1:
                     fail(f"tiny_moe step on the card: K1 {got[0]} forward and {got[1]} backward launches, "
                          f"expected {want_k1}")
@@ -2947,7 +2985,7 @@ def prod_train_phase(cfg, seed: int, workdir: Path, kernel_rec: dict) -> dict:
            "reckoned_state_gb": (16 * n_f32 + 8 * n_bf16) / GB}
     out["capacity"] = max(1, int(cfg.decoder.capacity_factor * out["routed_tokens"] / cfg.decoder.num_experts))
     want = (kernel_rec["launches_per_step"], kernel_rec["bwd_launches_per_step"])
-    launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+    launches = launch_counts()
     steps = []
     for step in range(1, PROD_TRAIN_STEPS + 1):
         kernels.reset_launch_counts()
@@ -2967,7 +3005,7 @@ def prod_train_phase(cfg, seed: int, workdir: Path, kernel_rec: dict) -> dict:
         else:
             t = timed_step(model, opt, state, itertools.repeat(fixed), cfg)
             t["step_s"] = t["data_s"] + t["forward_s"] + t["backward_s"] + t["optimizer_s"]
-        got = step_launches(launches)
+        got = step_launches(launches, model.parameters())
         log("moe_train.prod_step", t["step_s"], step=step, flash_launches=got[0], flash_bwd_launches=got[1], **t)
         if got != want:
             fail(f"prod_train step {step}: K1 {got[0]} forward and {got[1]} backward launches, expected {want}")
@@ -3038,7 +3076,7 @@ def prod_f32_step_phase(cfg, seed: int, workdir: Path) -> dict:
 def moe_train_phase(cfg, seed: int, workdir: Path, kernel_rec: dict) -> dict:
     """[moe_train]: (b) tiny_moe, (c) prod_train, (d) prod's f32 step; (a),
     the backward kernel at prod_train's shapes, runs in [train.kernel]."""
-    out = {"launches": {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 0}}
+    out = {"launches": launch_counts()}
     for name, fn in (("tiny_moe", lambda: tiny_moe_phase(seed, workdir)),
                      ("prod_train", lambda: prod_train_phase(prod_train_config(cfg), seed, workdir, kernel_rec)),
                      ("prod_f32_step", lambda: prod_f32_step_phase(cfg, seed, workdir))):
@@ -3047,6 +3085,198 @@ def moe_train_phase(cfg, seed: int, workdir: Path, kernel_rec: dict) -> dict:
         for key, n in out[name].pop("launches", {}).items():
             out["launches"][key] += n
         log(f"moe_train.{name}", sync_s(t0), **{k: json.dumps(v) for k, v in out[name].items()})
+    return out
+
+
+# ---------------------------------------------------------------- [adamw]
+# AdamW's kernels (kernels/adamw.cu) at the leaf sets of the benchmark's two
+# training configurations: ocr_real (136 f32 leaves, 29.3M elements) and
+# prod_train (78 f32 leaves, 0.28B, and 6 bf16 expert leaves, 1.61B), with
+# gradients whose global norm is clipped, as in training. Timed: the whole
+# `opt.update` (eager, and from a CUDA graph: the device's time alone), each
+# kernel alone, the plain version on the card, and one library yardstick the
+# port never calls: `clip_grad_norm_(foreach=True)` and `torch._fused_adamw_`
+# per dtype (PyTorch's own arithmetic, not bit-equal to optax's on bf16).
+ADAMW_LR = 8e-4  # mixC's peak learning rate
+ADAMW_ITERS = {"ocr_real": 20, "prod_train": 5}
+ADAMW_INTERIOR_CHUNKS = 3  # chunks of a leaf between its first and last held against the CPU at prod_train
+
+
+def adamw_leaf_shapes(cfg) -> list:
+    """(shape, dtype) of each parameter of OpticalVLM(cfg) in order, from a
+    model on the meta device."""
+    with torch.device("meta"):
+        model = OpticalVLM(cfg)
+    return [(tuple(p.shape), p.dtype) for p in model.parameters()]
+
+
+def leaf_numels(cfg) -> list:
+    return [int(np.prod(shape)) for shape, _ in adamw_leaf_shapes(cfg)]
+
+
+def adamw_bound_ms(leaves: list) -> tuple:
+    """(sums of squares, update) in ms at HBM_BYTES_PER_S: each gradient
+    read once for the norm; p, g, mu and nu read and p, mu and nu written
+    once by the update."""
+    size = [int(np.prod(shape)) * torch.finfo(dtype).bits // 8 for shape, dtype in leaves]
+    return 1e3 * sum(size) / HBM_BYTES_PER_S, 1e3 * 7 * sum(size) / HBM_BYTES_PER_S
+
+
+def adamw_library_step(params: list, grads: list, mu: list, nu: list, steps: list, opt) -> None:
+    torch.nn.utils.clip_grad_norm_(params, opt.max_norm, foreach=True)
+    for dtype in dict.fromkeys(p.dtype for p in params):
+        idx = [i for i, p in enumerate(params) if p.dtype == dtype]
+        torch._fused_adamw_([params[i] for i in idx], [grads[i] for i in idx], [mu[i] for i in idx],
+                            [nu[i] for i in idx], [], [steps[i] for i in idx], lr=ADAMW_LR, beta1=opt.b1,
+                            beta2=opt.b2, weight_decay=opt.weight_decay, eps=opt.eps, amsgrad=False,
+                            maximize=False)
+
+
+def adamw_windows(numel: int, whole: bool) -> list:
+    """(begin, end) element ranges of a leaf held against the CPU: the whole
+    leaf, or its first and last chunk and ADAMW_INTERIOR_CHUNKS interior
+    chunks at an even stride (kernels.ADAMW_CHUNK elements each)."""
+    if whole or numel == 0:
+        return [(0, numel)]
+    chunk = kernels.ADAMW_CHUNK
+    chunks = -(-numel // chunk)
+    picked = {0, chunks - 1, *(chunks * k // (ADAMW_INTERIOR_CHUNKS + 1) for k in range(1, ADAMW_INTERIOR_CHUNKS + 1))}
+    return [(c * chunk, min((c + 1) * chunk, numel)) for c in sorted(picked)]
+
+
+def sumsq_check(grads: list, sq: torch.Tensor) -> dict:
+    """Each leaf's sum of squares from adamw_sumsq against a float64 sum on
+    the card, at tests/test_torch_adamw_kernel.py's bound: relative error
+    at most max(that of vector_norm(dtype=float32).square(), 2**-22) and at
+    most the kernel's order's worst case, d * 2**-24 for the longest chain
+    d of roundings. Returns the worst leaf's errors and the leaves over."""
+    exact = torch.stack([g.double().square().sum() for g in grads]).cpu().tolist()
+    lib = torch.stack([torch.linalg.vector_norm(g, dtype=torch.float32).square() for g in grads]).cpu().tolist()
+    worst, over = (0.0, 0.0), []
+    per_thread = -(-kernels.ADAMW_CHUNK // 256)
+    for i, (g, got, want, torch_sq) in enumerate(zip(grads, sq.cpu().tolist(), exact, lib)):
+        err, torch_err = abs(got - want) / want, abs(torch_sq - want) / want
+        depth = per_thread + 5 + 8 + -(-(-(-g.numel() // kernels.ADAMW_CHUNK)) // 256) + 5 + 8
+        if not (err <= max(torch_err, 2.0**-22) and err <= depth * 2.0**-24):
+            over.append(i)
+        worst = max(worst, (err, torch_err))
+    return {"sumsq_max_rel_err": worst[0], "sumsq_torch_rel_err": worst[1], "sumsq_leaves_over": over}
+
+
+def adamw_leaf_set(name: str, leaves: list, seed: int) -> dict:
+    gen = torch.Generator(device=DEVICE).manual_seed(seed + 29)
+    params = {}
+    for i, (shape, dtype) in enumerate(leaves):
+        p = (torch.randn(shape, generator=gen, device=DEVICE) * 0.02).to(dtype)
+        p.grad = (torch.randn(shape, generator=gen, device=DEVICE) * 1e-3).to(dtype)
+        params[f"leaf{i}"] = p
+    opt = make_optimizer(ADAMW_LR)
+    state = opt.init(params)
+    p, g = list(params.values()), [t.grad for t in params.values()]
+    mu, nu = list(state.mu.values()), list(state.nu.values())
+    # Moments as some steps leave them, so that every term of the update counts.
+    for m, v in zip(mu, nu):
+        m.copy_(torch.randn(m.shape, generator=gen, device=DEVICE) * 1e-3)
+        v.copy_(torch.randn(v.shape, generator=gen, device=DEVICE).square() * 1e-6)
+    elements = {str(d).replace("torch.", ""): sum(int(np.prod(s)) for s, dt in leaves if dt == d)
+                for d in dict.fromkeys(dt for _, dt in leaves)}
+    sumsq_bound, update_bound = adamw_bound_ms(leaves)
+    iters = ADAMW_ITERS[name]
+    rec = {"leaves": len(leaves), "elements": elements, "bound_ms": sumsq_bound + update_bound,
+           "sumsq_bound_ms": sumsq_bound, "update_bound_ms": update_bound}
+
+    # The sums of squares against float64; then one update on the card held
+    # bit for bit against the plain version on the CPU from the same start
+    # and the same sums of squares: every leaf whole at ocr_real's set, the
+    # chunks of adamw_windows at prod_train's.
+    sq = kernels.adamw_sumsq(g).clone()
+    rec.update(sumsq_check(g, sq))
+    windows = [adamw_windows(t.numel(), name == "ocr_real") for t in p]
+
+    def take(tensors):
+        return [torch.cat([t.view(-1)[a:b] for a, b in w]).cpu() for t, w in zip(tensors, windows)]
+
+    cpu = {k: take(ts) for k, ts in (("p", p), ("g", g), ("mu", mu), ("nu", nu))}
+    rec["checked_elements"] = sum(t.numel() for t in cpu["p"])
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt.update(params, state, reduce_sq=lambda names, _: sq)
+    torch.cuda.synchronize()
+    rec["peak_extra_gb"] = (torch.cuda.max_memory_allocated() - allocated) / GB
+    rec["launches"] = dict(kernels.launches)
+    norm = float(sum(s.to(t.dtype).float() for s, t in zip(sq, g)).sqrt())
+    rec["grad_norm"], rec["clipped"] = norm, norm >= opt.max_norm
+    card = {"p": take(p), "mu": take(mu), "nu": take(nu)}
+    lr, count = ADAMW_LR, state.count + 1
+    bc1 = float(1 - np.float32(opt.b1) ** np.float32(count))
+    bc2 = float(1 - np.float32(opt.b2) ** np.float32(count))
+    names = list(params)
+    cpu_params = {}
+    for k, t, grad in zip(names, cpu["p"], cpu["g"]):
+        t.grad = grad
+        cpu_params[k] = t
+    cpu_state = OptState(dict(zip(names, cpu["mu"])), dict(zip(names, cpu["nu"])), state.count)
+    sq_cpu = sq.cpu()
+    opt._plain_update(cpu_params, cpu_state, lambda names, _: sq_cpu, lr, bc1, bc2)
+    differ = 0
+    for i, k in enumerate(names):
+        same = torch.ones(cpu["p"][i].shape, dtype=torch.bool)
+        for a, b in ((card["p"][i], cpu_params[k]), (card["mu"][i], cpu_state.mu[k]), (card["nu"][i], cpu_state.nu[k])):
+            bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+            same &= a.view(bits) == b.view(bits)
+        differ += int((~same).sum())
+    rec["differing_from_cpu_elements"] = differ
+    del cpu, card, cpu_params, cpu_state
+
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    opt._plain_update(params, state, lambda names, _: sq, lr, bc1, bc2)
+    torch.cuda.synchronize()
+    rec["plain_peak_extra_gb"] = (torch.cuda.max_memory_allocated() - allocated) / GB
+
+    constants = {dtype: opt._constants(dtype, lr, bc1, bc2) for dtype in kernels.ADAMW_DTYPES}
+    rec["ms"] = cuda_ms(lambda: opt.update(params, state), iters)
+    rec["graph_ms"] = graph_ms(lambda: opt.update(params, state), iters=iters)
+    rec["host_us"] = host_us(lambda: opt.update(params, state), iters=iters)
+    rec["sumsq_ms"] = cuda_ms(lambda: kernels.adamw_sumsq(g), iters)
+    rec["sumsq_graph_ms"] = graph_ms(lambda: kernels.adamw_sumsq(g), iters=iters)
+    rec["update_ms"] = cuda_ms(lambda: kernels.adamw_update(p, g, mu, nu, constants, opt.max_norm, True, sq), iters)
+    rec["update_graph_ms"] = graph_ms(
+        lambda: kernels.adamw_update(p, g, mu, nu, constants, opt.max_norm, True, sq), iters=iters)
+    rec["share_of_bound"] = rec["bound_ms"] / rec["graph_ms"]
+    rec["plain_ms"] = cuda_ms(lambda: opt._plain_update(params, state, None, lr, bc1, bc2), 3, warmup=1)
+    if name == "ocr_real":
+        rec["plain_graph_ms"] = graph_ms(lambda: opt._plain_update(params, state, None, lr, bc1, bc2), iters=5)
+    steps = [torch.ones((), dtype=torch.float32, device=DEVICE) for _ in p]
+    rec["library_ms"] = cuda_ms(lambda: adamw_library_step(p, g, mu, nu, steps, opt), 3, warmup=1)
+    rec["library_graph_ms"] = graph_ms(lambda: adamw_library_step(p, g, mu, nu, steps, opt), iters=3)
+    rec["finite"] = all(bool(torch.isfinite(t).all()) for t in p)
+    rec["want_launches"] = launch_counts(**adamw_launches(numels(p)))
+    del params, state, p, g, mu, nu, steps, sq
+    free_card()
+    return rec
+
+
+def adamw_phase(cfg, prod_cfg, seed: int) -> dict:
+    """[adamw]: one update checked and timed at each leaf set; fails unless
+    the sums of squares are within their bound of a float64 sum, the update
+    is bit-equal to the plain version on the CPU, each kernel launched as
+    `adamw_launches` plans, and every parameter stayed finite."""
+    out = {}
+    for name, c in (("ocr_real", cfg), ("prod_train", prod_train_config(prod_cfg))):
+        t0 = time.perf_counter()
+        out[name] = adamw_leaf_set(name, adamw_leaf_shapes(c), seed)
+        log(f"adamw.{name}", sync_s(t0), **{k: json.dumps(v) for k, v in out[name].items()})
+        rec = out[name]
+        if not (rec["finite"] and rec["launches"] == rec["want_launches"] and not rec["sumsq_leaves_over"]
+                and rec["differing_from_cpu_elements"] == 0 and rec["clipped"]):
+            fail(f"AdamW at {name}'s leaves: launches {rec['launches']} (expected {rec['want_launches']}), "
+                 f"sums of squares over their bound at leaves {rec['sumsq_leaves_over']}, "
+                 f"{rec['differing_from_cpu_elements']} of {rec['checked_elements']} elements not bit-equal to "
+                 f"the CPU, clipped {rec['clipped']}, parameters finite {rec['finite']}")
     return out
 
 
@@ -3159,7 +3389,7 @@ def ring_phase(shapes: list, seed: int) -> dict:
             rec["plain_max_abs_err"][name] = max(rec["plain_max_abs_err"].get(name, 0.0), plain_err)
             rec["hops"][f"{sh.name}.{name}"] = hops
             log("parallel.ring", 0.0, **{key: json.dumps(val) for key, val in row.items()})
-            if got != {"flash_attention": want_k1, "flash_attention_bwd": 0, "masked_similarity": 0}:
+            if got != launch_counts(flash_attention=want_k1):
                 fail(f"ring {sh.name} {dtype}: launches {got}, expected {want_k1} flash_attention")
             if hops["hops"] != want_k1:
                 fail(f"ring {sh.name} {dtype}: {hops['hops']} hops checked, expected {want_k1}")
@@ -3245,7 +3475,7 @@ def virtual_search_phase(index, seed: int) -> dict:
         same_results(got, index.search(queries, top_k=TOP_K, doc_id=doc), f"{SEARCH_SHARDS} virtual shards, doc {doc}")
         log("parallel.search", 0.0, shards=SEARCH_SHARDS, rows_per_shard=per, doc=json.dumps(doc),
             queries=SEARCH_QUERIES, launches=json.dumps(launches), equal_to_search=True)
-        if launches != {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": SEARCH_SHARDS}:
+        if launches != launch_counts(masked_similarity=SEARCH_SHARDS):
             fail(f"virtual sharded search: launches {launches}, expected {SEARCH_SHARDS} masked_similarity")
         errs = [similarity_check(index._rows[s * per:(s + 1) * per], q, mask[s * per:(s + 1) * per],
                                  f"virtual shard {s}, doc {doc}") for s in range(SEARCH_SHARDS)]
@@ -3290,7 +3520,7 @@ def nccl_phase(index, seed: int, workdir: Path, ring_shape: AttnShape) -> dict:
             rec["plain_max_abs_err"] = max(rec["plain_max_abs_err"], similarity_check(
                 index._rows, torch.from_numpy(queries).to(DEVICE), index._mask_for(doc),
                 f"search_sharded's shard (nccl, 1 rank), doc {doc}"))
-            if launches != {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 1}:
+            if launches != launch_counts(masked_similarity=1):
                 fail(f"search_sharded: launches {launches}, expected 1 masked_similarity")
         rows = index._rows[:4096]
         gathered = ring_all_gather_rows(mesh, rows)
@@ -3299,7 +3529,7 @@ def nccl_phase(index, seed: int, workdir: Path, ring_shape: AttnShape) -> dict:
         scores = masked_similarity(index._rows, q1, mask)[0]
         score_launches = dict(kernels.launches)
         rec["launches"]["masked_similarity"] += score_launches["masked_similarity"]
-        if score_launches != {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 1}:
+        if score_launches != launch_counts(masked_similarity=1):
             fail(f"distributed_topk's scores: launches {score_launches}, expected 1 masked_similarity")
         scores_err = similarity_check(index._rows, q1, mask, "distributed_topk's scores")
         vals, idx = distributed_topk(mesh, scores, TOP_K)
@@ -3344,7 +3574,7 @@ def nccl_phase(index, seed: int, workdir: Path, ring_shape: AttnShape) -> dict:
         log("parallel.bench_index", time.perf_counter() - t0, n_rows=rec["bench_index"]["n_rows"],
             shard_rebuilds=rec["bench_index"]["shard_rebuilds"], launches=json.dumps(bench_launches),
             expected_masked_similarity=want_k2)
-        if bench_launches != {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": want_k2}:
+        if bench_launches != launch_counts(masked_similarity=want_k2):
             fail(f"bench_index: launches {bench_launches}, expected {want_k2} masked_similarity")
     finally:
         dist.destroy_process_group()
@@ -3417,7 +3647,8 @@ def sharded_step_phase(cfg, seed: int, workdir: Path) -> dict:
     torch.cuda.empty_cache()
     log("sharded_train.mesh1", rec["steps_s"], **{k: json.dumps(v) for k, v in rec.items() if k != "steps_s"})
     if not (rec["losses_bit_equal"] and equal and rec["launches"] == rec["plain_launches"]
-            and rec["launches"]["flash_attention"] > 0 and rec["launches"]["flash_attention_bwd"] > 0):
+            and rec["launches"]["flash_attention"] > 0 and rec["launches"]["flash_attention_bwd"] > 0
+            and {k: rec["launches"][k] for k in ADAMW_KEYS} == adamw_launches(leaf_numels(cfg), steps=SHARDED_STEPS)):
         fail(f"sharded train step on a mesh of 1 is not the unsharded step: {rec}")
     return rec
 
@@ -3498,7 +3729,7 @@ def ring_backward_phase(shapes: list, seed: int) -> dict:
                     "hop_bwd_ms", "whole_bwd_ms", "ring_bwd_ms", "plain_bwd_ms", "library_bwd_ms", "bwd_bound_ms",
                     "bwd_bound_by")}
             log("sharded_train.ring_bwd", 0.0, **{k: json.dumps(v) for k, v in row.items()})
-            if got != {"flash_attention": want, "flash_attention_bwd": want, "masked_similarity": 0}:
+            if got != launch_counts(flash_attention=want, flash_attention_bwd=want):
                 fail(f"ring backward {sh.name} {dtype}: launches {got}, expected {want} forward and backward")
             if not (finite and zero_dead and max(errs) <= GRAD_RTOL[dtype] and max(plain_errs) <= GRAD_RTOL[dtype]):
                 fail(f"ring backward {sh.name} {dtype}: rel err {errs} against K1's whole backward, {plain_errs} "
@@ -3616,7 +3847,7 @@ def tp_ep_block_phase(prod_cfg, seed: int) -> dict:
     rec["rtol"] = GRAD_RTOL[dt]
     log("sharded_train.tp_ep_block", 0.0, virtual_ranks=json.dumps({"expert": ex, "model": mo}),
         tokens=b * s, launches=json.dumps(attn_launches), **{k: f"{v:.3e}" for k, v in errs.items()})
-    if attn_launches != {"flash_attention": ex * mo, "flash_attention_bwd": ex * mo, "masked_similarity": 0}:
+    if attn_launches != launch_counts(flash_attention=ex * mo, flash_attention_bwd=ex * mo):
         fail(f"tp/ep block: launches {attn_launches}, expected {ex * mo} K1 forward and backward (one a rank)")
     bad = {k: v for k, v in errs.items() if not v <= GRAD_RTOL[dt]}
     if bad:
@@ -3746,9 +3977,10 @@ def pp_stage_phase(cfg, seed: int, workdir: Path) -> dict:
     host = next(synthetic_batches(cfg, TRAIN_BATCH, seed=seed, workdir=workdir / "pp_data", **MIXC))
     batch = device_batch(cfg, host, device=DEVICE)
     fwd, bwd = pp_launches_per_step(cfg, PP_MICROBATCHES, MIXC["text_len"])
-    want = {"flash_attention": PP_STEPS * fwd, "flash_attention_bwd": PP_STEPS * bwd, "masked_similarity": 0}
     plain = pp_run(cfg, batch, seed, pipelined=False)
     one = pp_run(cfg, batch, seed)
+    want = launch_counts(flash_attention=PP_STEPS * fwd, flash_attention_bwd=PP_STEPS * bwd,
+                         **adamw_launches(numels(one["params"].values()), steps=PP_STEPS))
     initialize_multihost(f"file://{workdir / 'pp_nccl_store'}", 1, 0, DEVICE)
     try:
         meshed = pp_run(cfg, batch, seed, mesh=build_mesh(MeshConfig(1, 1, 1, 1), DEVICE))
@@ -3860,11 +4092,14 @@ def pp_cli_phase(workdir: Path) -> dict:
     print("-- train_vlm " + " ".join(PP_CLI_ARGS) + "\n" + "\n".join(lines), flush=True)
     tiny = get_preset("tiny")
     want = 2 * tiny.decoder.depth * 2  # 2 steps, 2 blocks, 2 microbatches
+    adamw_want = adamw_launches(leaf_numels(tiny), steps=2)
     rec = {"seconds": seconds, "launches": dict(kernels.launches), "lines": len(lines)}
     if not (lines[1:2] == ["PP training: 2 microbatches over 1 pipeline stage(s)"]
             and lines[-1] == f"final checkpoint: {(ckpt_dir / 'step_00000002').resolve()}"
-            and rec["launches"]["flash_attention"] == want and rec["launches"]["flash_attention_bwd"] == want):
-        fail(f"train_vlm {' '.join(PP_CLI_ARGS)}: {lines}, launches {rec['launches']} (expected {want} each)")
+            and rec["launches"]["flash_attention"] == want and rec["launches"]["flash_attention_bwd"] == want
+            and {k: rec["launches"][k] for k in ADAMW_KEYS} == adamw_want):
+        fail(f"train_vlm {' '.join(PP_CLI_ARGS)}: {lines}, launches {rec['launches']} (expected {want} each of "
+             f"K1's, AdamW's {adamw_want})")
     return rec
 
 
@@ -4001,12 +4236,16 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build_phase()
     log("build", time.perf_counter() - t0, **{name: f"{lib.name}:{sec:.1f}s" for name, (lib, sec) in libs.items()})
-    for name in sorted(kernels.launches):
+    for name in kernels.SOURCES:
         print(f"-- {name}: nvcc -Xptxas -v\n" + libs[name][0].with_suffix(".log").read_text().strip(), flush=True)
 
     t0 = time.perf_counter()
     weights_phase()
     log("weights.all", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    adamw = adamw_phase(cfg, prod_cfg, args.seed)
+    log("adamw", time.perf_counter() - t0)
 
     shapes = path_shapes(cfg, chat_cfg, embed_texts(args.seed)) + prod_shapes(prod_cfg)
     t0 = time.perf_counter()
@@ -4190,6 +4429,16 @@ def main() -> int:
               pp_microbatch={k: pp_rec[k] for k in ("q", "kv", "bwd_launches_per_step", "bwd_rel_err", "bwd_ms",
                                                     "bwd_graph_ms", "bwd_plain_ms", "library_bwd_ms",
                                                     "library_bwd_graph_ms", "bwd_bound_ms", "bwd_bound_by")}),
+        # Per update at each leaf set, and the two kernels' calls on each
+        # training path.
+        {"name": "adamw", "route": "cuda", "source": "vision_compression_project_tpu_torch/kernels/adamw.cu",
+         "replaces": "none: the JAX package leaves optax's update to XLA",
+         "launches_by_path": {path: {k: got.get(k, 0) for k in ("adamw_sumsq", "adamw_update")} for path, got in (
+             ("train", trained["launches"]), ("answer", answered["launches"]), ("moe_train", moe["launches"]),
+             ("sharded_train", sharded["launches"]), ("pp_train", piped["launches"]))},
+         **{name: {k: rec[k] for k in ("ms", "graph_ms", "sumsq_graph_ms", "update_graph_ms", "plain_ms",
+                                        "library_ms", "library_graph_ms", "bound_ms", "share_of_bound")}
+            for name, rec in adamw.items()}},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -428,7 +428,7 @@ def test_extract_pdf_on_the_card(cuda, tmp_path):
     stats = extract_pdf_to_page_jsons(pdf, tmp_path / "pages", dpi=93, engine="vlm", batch_size=4,
                                       runner=runner, save_images=False)
     torch.cuda.synchronize()
-    assert kernels.launches == {"flash_attention": 14, "flash_attention_bwd": 0, "masked_similarity": 0}
+    assert kernels.launches == {name: 14 if name == "flash_attention" else 0 for name in kernels.launches}
     assert stats == {"pages_total": 4, "processed_pages": [1, 2, 3, 4], "failed_pages": []}
     for i in range(1, 5):
         rec = json.loads((tmp_path / "pages" / f"page_{i:03d}.json").read_text())
@@ -1184,7 +1184,7 @@ def test_four_card_sharded_steps_match_one_card(cuda):
 
     if torch.cuda.device_count() < 4:
         pytest.skip("needs 4 CUDA devices")
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "adamw"):
         kernels.build(name)  # once, before the ranks load it
     cases = {"prod_train": ((1, 1, 2, 2), _prod_train_cfg(), 511), "ocr_real": ((1, 4, 1, 1), get_preset("ocr_real"), 513)}
     for name, (shape, cfg, text_len) in cases.items():
@@ -1266,7 +1266,7 @@ def _pp_cards_match_one_card(n, mesh_shape):
 
     if torch.cuda.device_count() < n:
         pytest.skip(f"needs {n} CUDA devices")
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in ("flash_attention", "flash_attention_bwd", "adamw"):
         kernels.build(name)  # once, before the ranks load it
     batch = _four_card_batch(get_preset("ocr_real"), 511, 4, 0)
     want, _ = _pp_card_steps(None, batch)

@@ -9,6 +9,9 @@ can import the package.
 
 `launches` counts, per kernel, the launches made since the last
 `reset_launch_counts()`: a run can show which kernels its path went through.
+`adamw_sumsq` counts both of AdamW's sums-of-squares kernels (two launches
+an update), as the C entry point reports them. `SOURCES` names the sources
+(`<name>.cu`) that `build` compiles.
 """
 
 from __future__ import annotations
@@ -17,12 +20,13 @@ import array
 import ctypes
 import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -33,10 +37,12 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-launches = {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 0}
+SOURCES = ("flash_attention", "flash_attention_bwd", "masked_similarity", "adamw")
+launches = {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 0, "adamw_sumsq": 0,
+            "adamw_update": 0}
 # One build of a kernel at a time within the process: threads of one process
 # share the temporary file name, which carries the pid.
-_build_locks = {name: threading.Lock() for name in launches}
+_build_locks = {name: threading.Lock() for name in SOURCES}
 
 
 def reset_launch_counts() -> None:
@@ -129,6 +135,22 @@ def _flash_bwd_lib() -> ctypes.CDLL:
     lib = _load("flash_attention_bwd")
     fn = lib.vcp_flash_attention_bwd
     fn.argtypes = [ctypes.c_void_p, ctypes.c_float]  # 45 packed int64 (see the source), scale
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _adamw_lib() -> ctypes.CDLL:
+    lib = _load("adamw")
+    fn = lib.vcp_adamw_sumsq
+    # table, leaves, partials, sq, device, stream, launches made
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    fn = lib.vcp_adamw_update
+    # table, leaves, constants, sq, max_norm, has_wd, device, stream, launches made
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     return lib
 
@@ -311,3 +333,121 @@ def masked_similarity(emb: torch.Tensor, queries: torch.Tensor, mask: torch.Tens
     _raise_on(lib, "masked_similarity", err)
     launches["masked_similarity"] += 1
     return out
+
+
+# AdamW (kernels/adamw.cu): the chunks, the checks, the calls.
+ADAMW_CHUNK = 8192  # elements of a chunk (adamw.cu's CHUNK)
+ADAMW_MAX_LEAVES = 700  # leaves of an update: its table fills CUDA's 32,764 bytes of kernel arguments (adamw.cu)
+ADAMW_DTYPES = (torch.float32, torch.bfloat16)
+ADAMW_CONSTANTS = ("b1", "1 - b1", "b2", "1 - b2", "bc1", "bc2", "eps", "weight_decay", "-lr", "max_norm")
+_ADAMW_KIND_BF16, _ADAMW_KIND_ALIGNED = 1, 2
+_INT32_MAX = 2**31 - 1
+
+
+@functools.lru_cache(maxsize=64)
+def adamw_chunks(numels: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Each leaf's first chunk in an update of leaves of these sizes, and
+    one more entry, the update's chunks: a leaf is cut into
+    ceil(numel / ADAMW_CHUNK) chunks (none for an empty leaf). Raises
+    ValueError on no leaves, on more than ADAMW_MAX_LEAVES, or on more
+    chunks than an int32 counts."""
+    if not numels:
+        raise ValueError("an update of no leaves")
+    if len(numels) > ADAMW_MAX_LEAVES:
+        raise ValueError(f"an update of {len(numels)} leaves: the kernels take at most {ADAMW_MAX_LEAVES}")
+    starts = (0, *itertools.accumulate(-(-n // ADAMW_CHUNK) for n in numels))
+    if starts[-1] > _INT32_MAX:
+        raise ValueError(f"the leaves make {starts[-1]} chunks, over the kernels' int32 count")
+    return starts
+
+
+def adamw_device(params: List[torch.Tensor], grads: List[torch.Tensor], mu: List[torch.Tensor],
+                 nu: List[torch.Tensor]) -> Optional[torch.device]:
+    """None where every tensor of the update is on the CPU (the plain
+    version's case). Otherwise the CUDA device of an update the kernels
+    take: at most ADAMW_MAX_LEAVES leaves, each f32 or bf16 with its
+    gradient and moments of its dtype and shape, all contiguous, all on one
+    CUDA device; raises ValueError on anything else. One pass of cheap attributes: it runs every step."""
+    if not (len(params) == len(grads) == len(mu) == len(nu)) or not params:
+        raise ValueError("params, grads, mu and nu must be equal, non-empty lists")
+    leaves = list(zip(params, grads, mu, nu))
+    if all(t.is_cpu for leaf in leaves for t in leaf):
+        return None
+    if len(leaves) > ADAMW_MAX_LEAVES:
+        raise ValueError(f"an update of {len(leaves)} leaves: the kernels take at most {ADAMW_MAX_LEAVES}")
+    index, one_device = params[0].get_device(), True
+    for i, leaf in enumerate(leaves):
+        dtype, shape = leaf[0].dtype, leaf[0].shape
+        for t in leaf:
+            if t.dtype is not dtype or dtype not in ADAMW_DTYPES:
+                raise ValueError(f"leaf {i}: dtypes {[t.dtype for t in leaf]}: the kernel takes float32 or "
+                                 "bfloat16 leaves with gradient and moments of their dtype")
+            if t.shape != shape:
+                raise ValueError(f"leaf {i}: shapes {[tuple(t.shape) for t in leaf]} differ")
+            if not t.is_contiguous():
+                raise ValueError(f"leaf {i}: the kernel takes contiguous tensors")
+            one_device = one_device and t.is_cuda and t.get_device() == index
+    if not one_device:
+        raise ValueError(f"all tensors must be on one CUDA device: found "
+                         f"{sorted({str(t.device) for leaf in leaves for t in leaf})}")
+    return params[0].device
+
+
+def _adamw_table(starts: Tuple[int, ...], grads, params=None, mu=None, nu=None) -> array.array:
+    """adamw.cu's table as int64 words: chunk starts (`adamw_chunks`),
+    sizes, kinds (bf16; every pointer 16-byte aligned), then the addresses
+    of g, p, mu and nu (0 where not given: the sums of squares read g
+    alone)."""
+    cols = [[t.data_ptr() for t in ts] if ts is not None else [0] * len(grads) for ts in (grads, params, mu, nu)]
+    words = array.array("q", starts)
+    words.extend(g.numel() for g in grads)
+    words.extend((_ADAMW_KIND_BF16 if g.dtype is torch.bfloat16 else 0)
+                 | (0 if (a | b | c | d) & 15 else _ADAMW_KIND_ALIGNED)
+                 for g, a, b, c, d in zip(grads, *cols))
+    for col in cols:
+        words.extend(col)
+    return words
+
+
+def adamw_sumsq(grads: List[torch.Tensor]) -> torch.Tensor:
+    """Each gradient's f32 sum of squares, a new (n,) float32 tensor on the
+    gradients' device (kernels/adamw.cu's two sums-of-squares kernels: the
+    chunks' partial sums, then each leaf's). The order of every sum is
+    fixed: the same gradients give the same bits. The gradients must have
+    passed adamw_device with their leaves. Counts each launch made."""
+    starts = adamw_chunks(tuple(g.numel() for g in grads))
+    dev, n, chunks = grads[0].device, len(grads), starts[-1]
+    scratch = torch.empty(chunks + n, dtype=torch.float32, device=dev)
+    lib, launched = _adamw_lib(), ctypes.c_int(0)
+    table = _adamw_table(starts, grads)
+    err = lib.vcp_adamw_sumsq(table.buffer_info()[0], n, scratch.data_ptr(), scratch.data_ptr() + 4 * chunks,
+                              dev.index, _raw_stream(dev.index), ctypes.byref(launched))
+    launches["adamw_sumsq"] += launched.value
+    _raise_on(lib, "adamw_sumsq", err)
+    return scratch[chunks:]
+
+
+def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor], mu: List[torch.Tensor],
+                 nu: List[torch.Tensor], constants: dict, max_norm: float, has_wd: bool,
+                 sq: Optional[torch.Tensor] = None) -> None:
+    """AdamW on every leaf in place (kernels/adamw.cu's update kernel, one
+    launch): p, mu and nu written, the gradients read. `constants` maps
+    float32 and bfloat16 to the ADAMW_CONSTANTS' values, each rounded to
+    that dtype. With `sq` (the leaves' f32 sums of squares, as adamw_sumsq
+    and the step's reduction left them) the gradients are first clipped to
+    the global norm `max_norm`, which the kernel works out on the card;
+    without, not. The leaves must have passed adamw_device. Counts the
+    launch where one was made."""
+    dev, n = params[0].device, len(params)
+    if sq is not None and (sq.dtype != torch.float32 or sq.shape != (n,) or not sq.is_contiguous()
+                           or sq.device != dev):
+        raise ValueError(f"sq must be a contiguous float32 ({n},) tensor on {dev}")
+    starts = adamw_chunks(tuple(p.numel() for p in params))
+    consts = array.array("f", (constants[dtype][k] for dtype in ADAMW_DTYPES for k in ADAMW_CONSTANTS))
+    lib, launched = _adamw_lib(), ctypes.c_int(0)
+    table = _adamw_table(starts, grads, params, mu, nu)
+    err = lib.vcp_adamw_update(table.buffer_info()[0], n, consts.buffer_info()[0],
+                               0 if sq is None else sq.data_ptr(), max_norm, int(has_wd), dev.index,
+                               _raw_stream(dev.index), ctypes.byref(launched))
+    launches["adamw_update"] += launched.value
+    _raise_on(lib, "adamw_update", err)

@@ -412,7 +412,7 @@ def create_server(host: str = "0.0.0.0", port: int = 8080, base_tmp=None):
 
 def warmup(state: ServiceState) -> None:
     """Pay the first-use costs before taking traffic: on the card, compile
-    both kernels (nvcc); build the PDF engine (g++); embed once on the
+    the kernels (nvcc); build the PDF engine (g++); embed once on the
     batcher's single-query path, so the first /ingest and /chat do not pay
     them inside a user's request."""
     import time
@@ -422,7 +422,7 @@ def warmup(state: ServiceState) -> None:
     if state.embedder.device.type == "cuda":
         from .. import kernels
 
-        for name in kernels.launches:
+        for name in kernels.SOURCES:
             kernels.build(name)
     from ..raster.rasterizer import build_library
 

@@ -16,8 +16,13 @@ operation, with every constant (b1, 1 - b1, the bias corrections, eps, the
 decay, the learning rate) first rounded to that dtype, and its moments are
 kept in it: what optax does to a bf16 leaf (mu and nu bf16, `(1 - b1) * g +
 b1 * mu` as two bf16 products and a bf16 sum). The global norm is optax's
-too: each leaf's sum of squares in f32, rounded to the leaf's dtype, summed
-in f32.
+up to the order of the sum over leaves: each leaf's sum of squares in f32,
+rounded to the leaf's dtype, added in f32 one leaf at a time in the
+parameters' order, which is the kernel's (optax adds in jax.tree.leaves'
+order, dict keys sorted). Leaves on the card take kernels/adamw.cu (the
+sums of squares, then one pass that updates every leaf, with no value read
+back to the host); leaves on the CPU take the plain `_foreach` version. The
+two give the same bits from the same sums of squares.
 
 On a mesh (`make_train_state(..., mesh=)`, `train_step(..., mesh=)`), the
 reference's sharded step in the local view: each rank builds the whole
@@ -39,6 +44,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import os
 from typing import Callable, Dict, List, Optional, Union
@@ -47,7 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import config
+from .. import config, kernels
 from ..models.configs import VLMConfig
 from ..models.tokenizer import PAD_ID
 from ..models.vlm import OpticalVLM, init_params
@@ -74,7 +80,9 @@ class AdamW:
     `.grad`: optax's `adamw(lr, b1, b2, eps, weight_decay)`, preceded by
     `clip_by_global_norm(max_norm)` unless max_norm is None. `lr` is a float
     or a schedule (step count -> float). The moments take each parameter's
-    dtype, as optax's do."""
+    dtype, as optax's do. Leaves all on the CPU take `_plain_update`; any
+    other leaves take the kernels (`_kernel_update`), and
+    `kernels.adamw_device` raises ValueError on what they do not take."""
 
     def __init__(self, lr: Union[float, Schedule], b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 1e-4, max_norm: Optional[float] = None):
@@ -103,23 +111,61 @@ class AdamW:
         missing = [k for k in names if params[k].grad is None]
         if missing:
             raise RuntimeError(f"no gradient for {len(missing)} parameters, e.g. {missing[:3]}")
-        norm = None
-        if self.max_norm is not None:
-            sq = torch.stack([torch.linalg.vector_norm(params[k].grad, dtype=torch.float32).square() for k in names])
-            if reduce_sq is not None:
-                sq = reduce_sq(names, sq)
-            norm = torch.stack([sq[i].to(params[k].grad.dtype).float() for i, k in enumerate(names)]).sum().sqrt()
         count = state.count + 1
         lr = self.lr(state.count) if callable(self.lr) else self.lr
         # optax's bias corrections: 1 - decay ** count in f32, then in the leaf's dtype.
         bc1 = float(1 - np.float32(self.b1) ** np.float32(count))
         bc2 = float(1 - np.float32(self.b2) ** np.float32(count))
+        p = [params[k] for k in names]
+        g = [t.grad for t in p]
+        mu, nu = [state.mu[k] for k in names], [state.nu[k] for k in names]
+        if kernels.adamw_device(p, g, mu, nu) is None:
+            self._plain_update(params, state, reduce_sq, lr, bc1, bc2)
+        else:
+            self._kernel_update(names, p, g, mu, nu, reduce_sq, lr, bc1, bc2)
+        return OptState(mu=state.mu, nu=state.nu, count=count)
+
+    def _constants(self, dtype: torch.dtype, lr: float, bc1: float, bc2: float) -> Dict[str, float]:
+        """kernels.ADAMW_CONSTANTS, each rounded to `dtype` as `_round_to` does."""
+        values = (self.b1, 1 - self.b1, self.b2, 1 - self.b2, bc1, bc2, self.eps, self.weight_decay, -float(lr),
+                  0.0 if self.max_norm is None else self.max_norm)
+        return {k: _round_to(x, dtype) for k, x in zip(kernels.ADAMW_CONSTANTS, values)}
+
+    def _kernel_update(self, names: List[str], p: List[torch.Tensor], g: List[torch.Tensor],
+                       mu: List[torch.Tensor], nu: List[torch.Tensor], reduce_sq, lr: float, bc1: float,
+                       bc2: float) -> None:
+        """The update on the card: kernels/adamw.cu, the same numbers as
+        `_plain_update` from the same sums of squares, with no value read back
+        to the host. The leaves have passed `kernels.adamw_device`."""
+        sq = None
+        if self.max_norm is not None:
+            sq = kernels.adamw_sumsq(g)
+            if reduce_sq is not None:
+                sq = reduce_sq(names, sq)
+        constants = {dtype: self._constants(dtype, lr, bc1, bc2) for dtype in kernels.ADAMW_DTYPES}
+        max_norm = 0.0 if self.max_norm is None else self.max_norm
+        kernels.adamw_update(p, g, mu, nu, constants, max_norm, bool(self.weight_decay), sq)
+
+    def _plain_update(self, params: Params, state: OptState, reduce_sq, lr: float, bc1: float,
+                      bc2: float) -> None:
+        """The plain version, for leaves on the CPU: the clip's norms, then
+        one `_foreach` pass per operation over each dtype's leaves."""
+        names = list(params)
+        norm = None
+        if self.max_norm is not None:
+            sq = torch.stack([torch.linalg.vector_norm(params[k].grad, dtype=torch.float32).square() for k in names])
+            if reduce_sq is not None:
+                sq = reduce_sq(names, sq)
+            # Added one at a time in `names` order, the kernel's order. optax
+            # adds in jax.tree.leaves' order (dict keys sorted), a running sum
+            # that starts in the first leaf's dtype; neither order is that.
+            norm = _sqrt_rn(functools.reduce(torch.add, [sq[i].to(params[k].grad.dtype).float()
+                                                         for i, k in enumerate(names)]))
         for dtype in dict.fromkeys(params[k].dtype for k in names):
             group = [k for k in names if params[k].dtype == dtype]
 
             def c(x: float) -> float:
-                """x rounded to the group's dtype, as a Python float."""
-                return torch.tensor(x, dtype=dtype).item()
+                return _round_to(x, dtype)
 
             p = [params[k] for k in group]
             g = [params[k].grad for k in group]
@@ -138,8 +184,7 @@ class AdamW:
             torch._foreach_mul_(tmp, c(1 - self.b2))
             torch._foreach_mul_(nu, c(self.b2))
             torch._foreach_add_(nu, tmp)
-            denom = torch._foreach_div(nu, c(bc2))
-            torch._foreach_sqrt_(denom)
+            denom = [_sqrt_rn(d) for d in torch._foreach_div(nu, c(bc2))]
             torch._foreach_add_(denom, c(self.eps))
             step = torch._foreach_div(mu, c(bc1))
             torch._foreach_div_(step, denom)
@@ -150,7 +195,21 @@ class AdamW:
             del tmp
             torch._foreach_mul_(step, c(-float(lr)))
             torch._foreach_add_(p, step)
-        return OptState(mu=state.mu, nu=state.nu, count=count)
+
+
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The square root correctly rounded to f32, then to x's dtype, as IEEE's
+    f32 square root and optax's give it: taken in f64, whose 53 bits are
+    more than the 2 x 24 + 2 that make its rounding to f32 the correct one.
+    (The CPU's vectorised f32 square root is within about an ulp, not
+    correctly rounded.)"""
+    return x.double().sqrt().float().to(x.dtype)
+
+
+@functools.lru_cache(maxsize=1024)
+def _round_to(x: float, dtype: torch.dtype) -> float:
+    """x rounded to `dtype`, as a Python float."""
+    return torch.tensor(x, dtype=dtype).item()
 
 
 def make_optimizer(lr: Union[float, Schedule] = 3e-4, weight_decay: float = 0.01) -> AdamW:
