@@ -43,11 +43,20 @@ CORPUS = [
 
 
 def test_presets_equal():
+    """Every field the JAX package's configs have is equal in every preset;
+    the port's own DecoderConfig fields (hybrid decoders) sit at their
+    defaults, which give the JAX package's blocks."""
     assert sorted(tconfigs.PRESETS) == sorted(jconfigs.PRESETS)
+    jax_fields = {f.name for f in dataclasses.fields(jconfigs.DecoderConfig)}
+    port_only = [f for f in dataclasses.fields(tconfigs.DecoderConfig) if f.name not in jax_fields]
+    assert port_only, "the port's DecoderConfig has fields of its own"
     for name in jconfigs.PRESETS:
-        assert dataclasses.asdict(tconfigs.get_preset(name)) == dataclasses.asdict(
-            jconfigs.get_preset(name)
-        ), name
+        got, want = dataclasses.asdict(tconfigs.get_preset(name)), dataclasses.asdict(jconfigs.get_preset(name))
+        assert {k: v for k, v in got["decoder"].items() if k in jax_fields} == want["decoder"], name
+        assert {**got, "decoder": None} == {**want, "decoder": None}, name
+        decoder = tconfigs.get_preset(name).decoder
+        for f in port_only:
+            assert getattr(decoder, f.name) == f.default, (name, f.name)
         got, want = tconfigs.get_preset(name), jconfigs.get_preset(name)
         assert (got.vision.grid, got.vision.tokens_out, got.decoder.mlp_dim) == (
             want.vision.grid, want.vision.tokens_out, want.decoder.mlp_dim,

@@ -42,9 +42,20 @@ class VisionConfig:
         return side * side
 
 
+LAYER_KINDS = ("full_attention", "conv")
+ROUTERS = ("switch", "sigmoid")
+
+
 @dataclasses.dataclass(frozen=True)
 class DecoderConfig:
-    """Causal LM decoder: RMSNorm + RoPE + GQA + SwiGLU, optional MoE."""
+    """Causal LM decoder: RMSNorm + RoPE + GQA + SwiGLU, optional MoE.
+
+    The fields after `dtype` are the port's own (the JAX package's config
+    has none of them); their defaults give the block above, so every preset
+    is the JAX package's. They describe hybrid decoders such as LFM2's
+    (`lfm2_moe`): per-block kinds, gated short-conv blocks beside attention,
+    QK-norm, leading dense blocks, experts of their own width and a top-k
+    sigmoid router with a selection bias and no capacity."""
 
     vocab: int = VOCAB_SIZE
     tokenizer: str = "byte"       # "byte" | "bpe" (models/bpe_merges.json)
@@ -60,10 +71,42 @@ class DecoderConfig:
     expert_every: int = 2         # MoE every Nth block (when num_experts > 0)
     capacity_factor: float = 1.25
     dtype: str = "bfloat16"
+    layer_types: Tuple[str, ...] = ()  # a kind of LAYER_KINDS per block; () = attention everywhere
+    num_dense_layers: int = 0     # leading blocks that keep the dense MLP
+    moe_dim: int = 0              # an expert's hidden width; 0 = mlp_dim
+    router: str = "switch"        # "switch": softmax top-1 with capacity; "sigmoid": top-k, bias, dropless
+    experts_per_token: int = 1    # k of the "sigmoid" router
+    qk_norm: bool = False         # RMSNorm over head_dim on q and k before RoPE
+    conv_kernel: int = 3          # taps of a "conv" block's causal depthwise filter
+    norm_eps: float = 1e-6        # the decoder's RMSNorms
+
+    def __post_init__(self):
+        object.__setattr__(self, "layer_types", tuple(self.layer_types))
+        if self.layer_types and len(self.layer_types) != self.depth:
+            raise ValueError(f"layer_types has {len(self.layer_types)} kinds for depth {self.depth}")
+        unknown = set(self.layer_types) - set(LAYER_KINDS)
+        if unknown:
+            raise ValueError(f"unknown layer kinds {sorted(unknown)}; have {LAYER_KINDS}")
+        if self.router not in ROUTERS:
+            raise ValueError(f"unknown router {self.router!r}; have {ROUTERS}")
+        if self.router == "switch" and self.experts_per_token != 1:
+            raise ValueError("the switch router routes each token to one expert")
 
     @property
     def mlp_dim(self) -> int:
         return int(self.dim * self.mlp_ratio)
+
+    @property
+    def expert_dim(self) -> int:
+        return self.moe_dim or self.mlp_dim
+
+    def block_kind(self, i: int) -> str:
+        return self.layer_types[i] if self.layer_types else "full_attention"
+
+    def block_moe(self, i: int) -> bool:
+        """Whether block i takes experts for its MLP: every `expert_every`-th
+        block (block 0 first) from `num_dense_layers` on."""
+        return self.num_experts > 0 and i >= self.num_dense_layers and i % max(self.expert_every, 1) == 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,7 +7,16 @@ forward rematerialises every block in training, as the reference's
 
 The MoE's load-balancing term leaves a block through its return value, not
 as module state, so the remat recompute in the backward cannot overwrite or
-repeat it: `forward(..., aux_losses=[])` appends one term per MoE block.
+repeat it: `forward(..., aux_losses=[])` appends one term per Switch-MoE
+block (`TopKMoE` has none).
+
+Hybrid decoders (the port's own, `DecoderConfig.layer_types`, as LFM2's
+`lfm2_moe`): a block's mixing op is attention or a gated short convolution
+(`ShortConv`), each behind its RMSNorm with the residual around it, then
+the MLP behind its own; blocks before `num_dense_layers` keep the dense
+MLP, the rest take experts (`TopKMoE` with the "sigmoid" router). The cache
+of a conv block is its conv state, {"conv": (B, kernel - 1, dim)}, beside
+the attention blocks' {"k", "v"}.
 
 Tensor parallelism: with its `model` shard of the vocab, the token
 embedding is vocab-parallel and the unembed's logits are gathered over
@@ -24,21 +33,29 @@ from torch import nn
 from .configs import DecoderConfig
 from ..parallel.mesh import AXIS_MODEL
 from ..parallel.tensor_parallel import copy_to, gather_from, reduce_from
-from .layers import Attention, Cache, Dense, RMSNorm, SwiGLU, SwitchMoE, mesh_coord, remat, torch_dtype
+from .layers import (Attention, Cache, Dense, RMSNorm, ShortConv, SwiGLU, SwitchMoE, TopKMoE, mesh_coord, remat,
+                     torch_dtype)
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: DecoderConfig, use_moe: bool = False):
+    def __init__(self, cfg: DecoderConfig, use_moe: bool = False, kind: str = "full_attention"):
         super().__init__()
-        self.norm1 = RMSNorm(cfg.dim)
-        self.attn = Attention(
-            cfg.dim, cfg.heads, cfg.kv_heads, cfg.head_dim, causal=True, rope=True,
-            rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype, seq_parallel=True,
-        )
-        self.norm2 = RMSNorm(cfg.dim)
+        self.kind = kind
+        self.norm1 = RMSNorm(cfg.dim, cfg.norm_eps)
+        if kind == "conv":
+            self.conv = ShortConv(cfg.dim, cfg.conv_kernel, dtype=cfg.dtype)
+        else:
+            self.attn = Attention(
+                cfg.dim, cfg.heads, cfg.kv_heads, cfg.head_dim, causal=True, rope=True,
+                rope_theta=cfg.rope_theta, max_seq=cfg.max_seq, dtype=cfg.dtype, seq_parallel=True,
+                qk_norm=cfg.qk_norm, norm_eps=cfg.norm_eps,
+            )
+        self.norm2 = RMSNorm(cfg.dim, cfg.norm_eps)
         self.use_moe = use_moe
-        if use_moe:
-            self.mlp = SwitchMoE(cfg.dim, cfg.num_experts, cfg.mlp_dim, cfg.capacity_factor, dtype=cfg.dtype)
+        if use_moe and cfg.router == "sigmoid":
+            self.mlp = TopKMoE(cfg.dim, cfg.num_experts, cfg.expert_dim, cfg.experts_per_token, dtype=cfg.dtype)
+        elif use_moe:
+            self.mlp = SwitchMoE(cfg.dim, cfg.num_experts, cfg.expert_dim, cfg.capacity_factor, dtype=cfg.dtype)
         else:
             self.mlp = SwiGLU(cfg.dim, cfg.mlp_dim, dtype=cfg.dtype)
 
@@ -50,17 +67,24 @@ class DecoderBlock(nn.Module):
 
     def forward(self, x, kv_len=None):
         """(output, the MoE's aux term or None)."""
-        x = x + self.attn(self.norm1(x), kv_len=kv_len)
+        h = self.norm1(x)
+        x = x + (self.conv(h) if self.kind == "conv" else self.attn(h, kv_len=kv_len))
         h, aux = self._mlp(x)
         return x + h, aux
 
     def prefill(self, x, kv_len=None, cache_len=None):
-        h, cache = self.attn.prefill(self.norm1(x), kv_len=kv_len, cache_len=cache_len)
+        if self.kind == "conv":
+            h, cache = self.conv.prefill(self.norm1(x), kv_len=kv_len)
+        else:
+            h, cache = self.attn.prefill(self.norm1(x), kv_len=kv_len, cache_len=cache_len)
         x = x + h
         return x + self._mlp(x)[0], cache
 
     def decode(self, x, cache, pos):
-        h, cache = self.attn.decode(self.norm1(x), cache, pos)
+        if self.kind == "conv":
+            h, cache = self.conv.decode(self.norm1(x), cache)
+        else:
+            h, cache = self.attn.decode(self.norm1(x), cache, pos)
         x = x + h
         return x + self._mlp(x)[0], cache
 
@@ -72,10 +96,9 @@ class Decoder(nn.Module):
         self.dt = torch_dtype(cfg.dtype)
         self.embed = nn.Embedding(cfg.vocab, cfg.dim)
         self.blocks = nn.ModuleList(
-            DecoderBlock(cfg, use_moe=cfg.num_experts > 0 and i % max(cfg.expert_every, 1) == 0)
-            for i in range(cfg.depth)
+            DecoderBlock(cfg, use_moe=cfg.block_moe(i), kind=cfg.block_kind(i)) for i in range(cfg.depth)
         )
-        self.norm_f = RMSNorm(cfg.dim)
+        self.norm_f = RMSNorm(cfg.dim, cfg.norm_eps)
         self.unembed = Dense(cfg.dim, cfg.vocab, False, torch.float32)
 
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
@@ -144,10 +167,13 @@ class Decoder(nn.Module):
 def init_cache(
     cfg: DecoderConfig, batch: int, dtype: torch.dtype = torch.bfloat16, device="cuda"
 ) -> List[Cache]:
-    """Zero KV caches for `batch` sequences (used when skipping prefill)."""
+    """Zero caches for `batch` sequences (used when skipping prefill): KV
+    for an attention block, the conv state for a conv block."""
     shape = (batch, cfg.kv_heads, cfg.max_seq, cfg.head_dim)
     return [
+        {"conv": torch.zeros((batch, cfg.conv_kernel - 1, cfg.dim), dtype=dtype, device=device)}
+        if cfg.block_kind(i) == "conv" else
         {"k": torch.zeros(shape, dtype=dtype, device=device),
          "v": torch.zeros(shape, dtype=dtype, device=device)}
-        for _ in range(cfg.depth)
+        for i in range(cfg.depth)
     ]

@@ -1,6 +1,11 @@
 """Transformer building blocks: RMSNorm, RoPE, attention with GQA and a KV
 cache, SwiGLU, the Switch mixture of SwiGLU experts. The port of
-vision_compression_project_tpu/models/layers.py.
+vision_compression_project_tpu/models/layers.py. Beside them, the port's own
+blocks of hybrid decoders (LFM2's `lfm2_moe`), which the JAX package lacks:
+QK-norm in `Attention`, the gated short convolution `ShortConv` with its
+conv-state cache, and `TopKMoE`, a dropless top-k mixture with a sigmoid
+router whose selection bias does not weigh the outputs. These run on one
+device (`single_device_only`).
 
 Numeric contract, as in the reference: parameters are stored in f32 and cast
 to the compute dtype at use (flax's `Dense(dtype=...)`), RMSNorm computes in
@@ -55,7 +60,7 @@ from ..ops import ring_attention as ring
 from ..parallel.mesh import AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_SEQ, axis_size
 from ..parallel.sharding import active_mesh, use_mesh
 from ..parallel.tensor_parallel import copy_to, gather_cat, gather_from, group_size, reduce_from
-from ..utils.metrics import Range, profiling
+from ..utils.metrics import Range, profiling, span
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -117,6 +122,17 @@ def mesh_coord(axis: str) -> int:
     if mesh is None:
         raise RuntimeError(f"a module sharded over `{axis}` needs the active mesh (use_mesh) to know its shard")
     return mesh.get_local_rank(axis)
+
+
+def single_device_only(what: str) -> None:
+    """Raise NotImplementedError under a mesh that shards `model`, `expert`
+    or `seq`: `what` has no sharded form (a mesh of `data` alone is fine)."""
+    mesh = active_mesh()
+    if mesh is None:
+        return
+    sharded = [a for a in (AXIS_MODEL, AXIS_EXPERT, AXIS_SEQ) if axis_size(mesh, a) > 1]
+    if sharded:
+        raise NotImplementedError(f"{what} runs on one device: the active mesh shards {', '.join(sharded)}")
 
 
 def whole_sequence_only(what: str) -> None:
@@ -204,8 +220,10 @@ def init_weights_(model: nn.Module, g: torch.Generator) -> None:
             module.bias.zero_()
         elif isinstance(module, nn.Embedding):
             normal_(module.weight, 0.02, g)
-        elif isinstance(module, SwitchMoE):
+        elif isinstance(module, (SwitchMoE, TopKMoE)):
             module.init_experts_(g)
+        elif isinstance(module, ShortConv):
+            _lecun_normal_(module.taps, module.taps.shape[1], g)
 
 
 class Dense(nn.Linear):
@@ -276,6 +294,8 @@ class Attention(nn.Module):
         max_seq: int = 4096,
         dtype: str = "bfloat16",
         seq_parallel: bool = False,
+        qk_norm: bool = False,
+        norm_eps: float = 1e-6,
     ):
         super().__init__()
         dt = torch_dtype(dtype)
@@ -286,6 +306,12 @@ class Attention(nn.Module):
         self.wk = Dense(dim, kv_heads * head_dim, False, dt)
         self.wv = Dense(dim, kv_heads * head_dim, False, dt)
         self.wo = Dense(heads * head_dim, dim, False, dt)
+        # QK-norm (LFM2's q_layernorm / k_layernorm): RMSNorm over head_dim
+        # of every query and key head, before RoPE.
+        self.qk_norm = qk_norm
+        if qk_norm:
+            self.q_norm = RMSNorm(head_dim, norm_eps)
+            self.k_norm = RMSNorm(head_dim, norm_eps)
         if rope:
             cos, sin = rope_table(head_dim, max_seq, rope_theta)
             self.register_buffer("rope_cos", cos, persistent=False)
@@ -307,6 +333,9 @@ class Attention(nn.Module):
         q = self.wq(x).view(b, s, h, self.head_dim).transpose(1, 2)
         k = self.wk(x).view(b, s, hkv, self.head_dim).transpose(1, 2)
         v = self.wv(x).view(b, s, hkv, self.head_dim).transpose(1, 2)
+        if self.qk_norm:
+            single_device_only("Attention with QK-norm")
+            q, k = self.q_norm(q), self.k_norm(k)
         return q, k, v
 
     def _out(self, o: torch.Tensor) -> torch.Tensor:
@@ -609,3 +638,219 @@ class SwitchMoE(nn.Module):
         picked = reduce_from(self.expert_partial(copy_to(x, ep_axes), route, first), ep_axes)
         combined = picked * route["gate"][:, None]
         return combined.reshape(b, s, d).to(x.dtype), route["aux"]
+
+
+def _ranged(forward, x: torch.Tensor, fwd_name: str, bwd_name: str):
+    """forward(x) inside the profiler range `fwd_name`, its backward inside
+    `bwd_name` (between `_BackwardStart` on the output and `_BackwardEnd` on
+    x), while a profiler records; a plain call otherwise."""
+    if not profiling():
+        return forward(x)
+    rng = Range(bwd_name)
+    with Range(fwd_name):
+        y = forward(_BackwardEnd.apply(x, rng))
+    return _BackwardStart.apply(y, rng)
+
+
+class ShortConv(nn.Module):
+    """LFM2's gated short convolution (`Lfm2MoeShortConv`): B, C, x' =
+    chunk3(in_proj(x)); y = C * conv(B * x'); out_proj(y), where conv is a
+    causal depthwise filter of `kernel` taps a channel, no bias, left-padded
+    with zeros: position t reads B * x' at t - kernel + 1 .. t, tap j
+    weighing t - kernel + 1 + j. The projections and B * x' run in the
+    compute dtype, the taps sum in f32 and C multiplies in f32 before the
+    cast back.
+
+    The cache of a sequence is the last kernel - 1 values of B * x', a
+    (B, kernel - 1, dim) tensor "conv" in place of attention's k and v: the
+    state `prefill` takes at each row's own length and `decode` shifts by one
+    position a step. Training runs `forward` in the ranges `conv.forward` and
+    `conv.backward` while a profiler records."""
+
+    def __init__(self, dim: int, kernel: int, dtype: str = "bfloat16"):
+        super().__init__()
+        dt = torch_dtype(dtype)
+        self.width = kernel
+        self.in_proj = Dense(dim, 3 * dim, False, dt)
+        self.taps = nn.Parameter(torch.empty(dim, kernel))
+        self.out_proj = Dense(dim, dim, False, dt)
+
+    def _gated(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B * x', C), each (B, S, dim) in the compute dtype."""
+        b, c, xx = self.in_proj(x).chunk(3, dim=-1)
+        return b * xx, c
+
+    def _filter(self, padded: torch.Tensor, s: int) -> torch.Tensor:
+        """(B, s, dim) f32: the taps over (B, s + kernel - 1, dim) B * x'
+        whose first kernel - 1 positions come before the s outputs'."""
+        w = self.taps.to(torch.float32)
+        y = padded[:, :s].to(torch.float32) * w[:, 0]
+        for j in range(1, self.width):
+            y = y + padded[:, j:j + s].to(torch.float32) * w[:, j]
+        return y
+
+    def _out(self, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        return self.out_proj((y * c.to(torch.float32)).to(c.dtype))
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        bx, c = self._gated(x)
+        return self._out(self._filter(F.pad(bx, (0, 0, self.width - 1, 0)), x.shape[1]), c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, S, dim) -> (B, S, dim) over whole sequences."""
+        single_device_only("ShortConv")
+        return _ranged(self._forward, x, "conv.forward", "conv.backward")
+
+    def prefill(self, x: torch.Tensor, kv_len: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
+        """Like forward, and the cache of each row at its true length kv_len
+        (B,) (S where None): B * x' at kv_len - kernel + 1 .. kv_len - 1, zeros
+        before position 0. Positions past kv_len change no output before them."""
+        single_device_only("ShortConv.prefill")
+        b, s, _ = x.shape
+        bx, c = self._gated(x)
+        padded = F.pad(bx, (0, 0, self.width - 1, 0))
+        ends = torch.full((b,), s, dtype=torch.long, device=x.device) if kv_len is None else kv_len.long()
+        # Row r's state: padded positions ends[r] .. ends[r] + kernel - 2.
+        idx = ends[:, None] + torch.arange(self.width - 1, device=x.device)[None, :]
+        state = padded.gather(1, idx[..., None].expand(-1, -1, padded.shape[2]))
+        return self._out(self._filter(padded, s), c), {"conv": state}
+
+    def decode(self, x: torch.Tensor, cache: Cache) -> Tuple[torch.Tensor, Cache]:
+        """x: (B, 1, dim), one position a row, each row after its own cache;
+        the cache's state moves on by one position in place."""
+        single_device_only("ShortConv.decode")
+        bx, c = self._gated(x)
+        state = cache["conv"]
+        window = torch.cat([state, bx.to(state.dtype)], dim=1)
+        state.copy_(window[:, 1:])
+        return self._out(self._filter(window, 1), c), cache
+
+
+# The loads of the top-k routings of a profiled training step, on the device
+# until `flush_route_loads`.
+_ROUTE_LOADS = []
+
+
+def flush_route_loads() -> None:
+    """Record each top-k routing's load gathered since the last call as a
+    range `moe.route.load` whose args are the largest expert's token count
+    and the number of experts without a token: one read-back, which
+    `train_step` makes after the step's optimizer is enqueued, so no sync
+    falls inside the forward or the backward. A no-op when nothing ran."""
+    if not _ROUTE_LOADS:
+        return
+    loads = torch.stack(_ROUTE_LOADS).tolist()
+    _ROUTE_LOADS.clear()
+    for load in loads:
+        with Range("moe.route.load", tuple(float(v) for v in load)):
+            pass
+
+
+class _GroupedMM(torch.autograd.Function):
+    """(T, k) rows in expert segments @ (E, k, n) expert weights -> (T, n):
+    rows offs[e - 1] .. offs[e] - 1 take expert e's weights (offs: (E,)
+    int32 running ends), one grouped product over segments of any size,
+    empty ones included. Its backward is two grouped products: dx over the
+    same segments against the weights transposed, dw as the segments' x^T dy."""
+
+    @staticmethod
+    def forward(ctx, x, w, offs):
+        ctx.save_for_backward(x, w, offs)
+        return torch._grouped_mm(x, w, offs=offs)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, offs = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = torch._grouped_mm(dy, w.transpose(1, 2), offs=offs) if ctx.needs_input_grad[0] else None
+        dw = torch._grouped_mm(x.t(), dy, offs=offs) if ctx.needs_input_grad[1] else None
+        return dx, dw, None
+
+
+def grouped_mm(x: torch.Tensor, w: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+    return _GroupedMM.apply(x, w, offs)
+
+
+class TopKMoE(nn.Module):
+    """A dropless top-k mixture of SwiGLU experts with a sigmoid router and a
+    selection bias: LFM2's `Lfm2MoeSparseMoeBlock` (`use_expert_bias`,
+    `norm_topk_prob`, `routed_scaling_factor` 1).
+
+    Routing, in f32: s = sigmoid(router(x)); each token takes the k experts
+    of the largest s + expert_bias (ties to the lower index), weighted by
+    their s, not by the biased score, over (the k weights' sum + 1e-6).
+    `expert_bias` is a buffer (no gradient, not a leaf of the optimizer):
+    the published model moves it between steps to balance the load, so it
+    has no loss term, and `forward` returns None for one.
+
+    Dispatch: the T * k (token, expert) pairs are sorted by expert, stably,
+    so each expert's tokens form one segment in token order; every pair is
+    computed (no capacity, no padding), the three products as grouped
+    products over the uneven segments (`grouped_mm`). Combine: the pairs'
+    outputs back in token order, weighed and summed over k in f32, cast to
+    x's dtype. Expert weights are stored in the compute dtype.
+
+    While a profiler records, the call is the range `moe.forward` (the remat
+    recompute's too) with `moe.route`, `moe.experts` and `moe.combine` inside
+    it, and its backward is `moe.backward` with the expert products' backward
+    in `moe.experts.backward`. In training, the route's load (the largest
+    expert's token count and the number of experts without a token) stays on
+    the device until `flush_route_loads` records it after the step."""
+
+    def __init__(self, dim: int, num_experts: int, hidden: int, k: int, dtype: str = "bfloat16"):
+        super().__init__()
+        dt = torch_dtype(dtype)
+        self.num_experts, self.k, self.compute_dtype = num_experts, k, dt
+        self.router = Dense(dim, num_experts, False, torch.float32)
+        self.register_buffer("expert_bias", torch.zeros(num_experts))
+        self.w_gate = nn.Parameter(torch.empty(num_experts, dim, hidden, dtype=dt))
+        self.w_up = nn.Parameter(torch.empty(num_experts, dim, hidden, dtype=dt))
+        self.w_down = nn.Parameter(torch.empty(num_experts, hidden, dim, dtype=dt))
+
+    @torch.no_grad()
+    def init_experts_(self, g: torch.Generator) -> None:
+        """Lecun-normal expert weights, each expert's product with its own
+        fan-in, one expert at a time (`fill_`); the bias starts at 0, as the
+        published model's does."""
+        for w in (self.w_gate, self.w_up, self.w_down):
+            for e in range(w.shape[0]):
+                _lecun_normal_(w[e], w.shape[1], g)
+        self.expert_bias.zero_()
+
+    def routing(self, x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(T, dim) f32 -> (the chosen experts (T, k), their weights (T, k) f32)."""
+        scores = torch.sigmoid(self.router(x32))
+        biased = scores.detach() + self.expert_bias
+        choice = torch.sort(biased, dim=-1, descending=True, stable=True).indices[:, : self.k]
+        w = scores.gather(1, choice)
+        return choice, w / (w.sum(dim=-1, keepdim=True) + 1e-6)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        """(y, None): no load-balancing term."""
+        single_device_only("TopKMoE")
+        return _ranged(self._forward, x, "moe.forward", "moe.backward"), None
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, s, d = x.shape
+        t, k = b * s, self.k
+        with span("moe.route"):
+            choice, weights = self.routing(x.reshape(t, d).to(torch.float32))
+            flat = choice.reshape(t * k)
+            order = torch.argsort(flat, stable=True)          # pair ids (token * k + slot) by expert
+            counts = torch.bincount(flat, minlength=self.num_experts)
+            offs = torch.cumsum(counts, 0).to(torch.int32)
+            if profiling() and torch.is_grad_enabled():
+                _ROUTE_LOADS.append(torch.stack([counts.max(), (counts == 0).sum()]))
+            # Each pair's token row; the backward sums a token's k rows in f32.
+            xs = x.reshape(t, d).to(self.compute_dtype)[order // k]
+        ys = _ranged(lambda xi: self._experts(xi, offs), xs, "moe.experts", "moe.experts.backward")
+        with span("moe.combine"):
+            back = torch.empty_like(order)
+            back[order] = torch.arange(t * k, device=order.device)
+            out = ys.index_select(0, back).view(t, k, d).to(torch.float32)
+            y = (out * weights[..., None]).sum(dim=1)
+        return y.reshape(b, s, d).to(x.dtype)
+
+    def _experts(self, xs: torch.Tensor, offs: torch.Tensor) -> torch.Tensor:
+        h = F.silu(grouped_mm(xs, self.w_gate, offs)) * grouped_mm(xs, self.w_up, offs)
+        return grouped_mm(h, self.w_down, offs)

@@ -253,7 +253,10 @@ class BPETokenizer:
 def get_tokenizer(cfg=None, merges_path=None):
     """Tokenizer for a model config: DecoderConfig.tokenizer selects 'byte',
     'bpe' (the default merges) or 'bpe:<file>.json' (a merges file in this
-    directory); the vocab size is checked against the config."""
+    directory); the vocab size is checked against the config's: equal, or,
+    for a decoder built from `layer_types` (a published architecture with a
+    vocabulary of its own), at least the tokenizer's (rows past it are never
+    emitted: the task masks close them)."""
     if isinstance(cfg, str):
         kind = cfg
     else:
@@ -264,8 +267,10 @@ def get_tokenizer(cfg=None, merges_path=None):
         if merges_path is None and ":" in kind:
             merges_path = Path(__file__).parent / kind.split(":", 1)[1]
         tok = BPETokenizer.load(merges_path)
-        want = getattr(getattr(cfg, "decoder", cfg), "vocab", tok.vocab_size)
-        if tok.vocab_size != want:
+        dec = getattr(cfg, "decoder", cfg)
+        want = getattr(dec, "vocab", tok.vocab_size)
+        wider = bool(getattr(dec, "layer_types", ())) and tok.vocab_size < want
+        if tok.vocab_size != want and not wider:
             raise ValueError(f"BPE vocab {tok.vocab_size} != model vocab {want}")
         return tok
     raise ValueError(f"unknown tokenizer kind {kind!r}")

@@ -188,9 +188,14 @@ class VLMRunner:
         self._blank_vis: Optional[torch.Tensor] = None
 
     def logit_mask(self, task: str) -> torch.Tensor:
-        """The task's (vocab,) logit mask on the device."""
+        """The task's (vocab,) logit mask on the device; a model vocab past
+        the tokenizer's is closed."""
         if task not in self._masks:
-            self._masks[task] = torch.from_numpy(_task_logit_mask(self.tok, task)).to(self.device)
+            mask = _task_logit_mask(self.tok, task)
+            extra = self.cfg.decoder.vocab - mask.shape[0]
+            if extra:
+                mask = np.concatenate([mask, np.full((extra,), -1e30, np.float32)])
+            self._masks[task] = torch.from_numpy(mask).to(self.device)
         return self._masks[task]
 
     @torch.inference_mode()

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 
 from .. import config, kernels
 from ..models.configs import VLMConfig
+from ..models.layers import flush_route_loads
 from ..models.tokenizer import PAD_ID
 from ..models.vlm import OpticalVLM, init_params
 from ..parallel.mesh import AXIS_DATA, AXIS_SEQ, axis_size, initialize_multihost, local_mesh
@@ -381,6 +382,7 @@ def train_step(model: OpticalVLM, opt: AdamW, state: TrainState, batch: Dict[str
                 sum_gradients(state.params, mesh)
     reduce_sq = None if mesh is None else sharded_sq(state.params, mesh)
     state.opt_state = opt.update(state.params, state.opt_state, reduce_sq=reduce_sq)
+    flush_route_loads()
     if mesh is not None:
         loss = sum_over(loss.detach(), (AXIS_DATA, AXIS_SEQ), mesh)
     state.step += 1

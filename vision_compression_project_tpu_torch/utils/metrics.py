@@ -9,9 +9,10 @@ of asynchronous device work means little. While a torch profiler records,
 both open a range of that name on the profiler's host clock, which kineto
 aligns with the CUDA device's timestamps, so a trace sets device work and
 idle gaps against it; otherwise they open none, and the check costs a read
-of a module attribute. `args`, a number, is recorded as the range's input
-(a trace made with `record_shapes=True` shows it): the training step passes
-its step count, which the ranges of one step share."""
+of a module attribute. `args`, a number or a tuple of numbers, is recorded
+as the range's inputs (a trace made with `record_shapes=True` shows them):
+the training step passes its step count, which the ranges of one step
+share; `TopKMoE` passes its routing's load."""
 
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
@@ -40,11 +41,11 @@ class Range:
 
     __slots__ = ("name", "args", "_handle")
 
-    def __init__(self, name: str, args: Optional[float] = None):
+    def __init__(self, name: str, args: Union[None, float, Tuple[float, ...]] = None):
         self.name, self.args, self._handle = name, args, None
 
     def __enter__(self):
-        inputs = () if self.args is None else (self.args,)
+        inputs = () if self.args is None else self.args if isinstance(self.args, tuple) else (self.args,)
         self._handle = torch._C._autograd._record_function_with_args_enter(self.name, *inputs)
         return self
 
