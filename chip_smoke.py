@@ -42,6 +42,18 @@ with the port's own reader. One flushed line per phase, with seconds:
            bound (the bytes at 3.35 TB/s); every training phase below also
            checks AdamW's launches a step against `adamw_launches` at its
            leaves (the embedder's has no sums of squares: no clip);
+  short_conv  the gated short conv's kernels (kernels/short_conv.cu) at
+           LFM2's cell (32 x 766 positions, dim 2,048, 3 taps, bf16) and
+           small shapes (1-5 and 70 positions, widths 12, 16 and 2,048, 2-4
+           taps, bf16 and f32): the forward and the gradient of h bit-equal
+           to ShortConv's plain path, the taps' gradient within the plain
+           path's gap to an f64 sum plus 1e-6 and bit-identical twice; a tiny
+           LFM2 train_step's launches (two forward and one backward a conv
+           block); the wrapper's refusals; then at the cell the forward and
+           the backward, kernel and plain path, eager and from a CUDA graph,
+           against the bytes bound (3.35 TB/s), and a whole layer's remat'd
+           step (projections included) by either path with the peak memory
+           it adds;
   kernel   hold each kernel against its plain PyTorch version on the card at
            the shapes its paths give it (prod's page batch among them: K1 at
            head_dim 64, 96 and 128), and ragged cases (K1 with key
@@ -243,8 +255,9 @@ with the port's own reader. One flushed line per phase, with seconds:
            lfm2_24b_a2b.json: every published width, the first 10 of 40
            layers, 64 experts top-4, vocab 8,192) with the benchmark's seeded
            weights: 2 train_steps at mixC batch 32 (losses finite, every
-           grouped expert product over exactly T * k rows, seconds and peak
-           memory), VLMRunner.extract_batch on 2 pages with 16 decode steps,
+           grouped expert product over exactly T * k rows, the short conv's
+           kernels launched twice forward and once backward a conv layer,
+           seconds and peak memory), VLMRunner.extract_batch on 2 pages with 16 decode steps,
            then prefill and 16 greedy decode steps through the conv and KV
            caches with prompts of two lengths in one bucket, their logits
            against the plain reference's full forward
@@ -293,7 +306,7 @@ from vision_compression_project_tpu_torch import config, kernels, native
 from vision_compression_project_tpu_torch.index import IndexStore, MultiVectorIndex, VectorIndex
 from vision_compression_project_tpu_torch.index.multivector import maxsim_scores, maxsim_topk
 from vision_compression_project_tpu_torch.models import VLMRunner, get_preset, layers
-from vision_compression_project_tpu_torch.models.configs import EmbedderConfig
+from vision_compression_project_tpu_torch.models.configs import DecoderConfig, EmbedderConfig
 from vision_compression_project_tpu_torch.models.embedder import HashNGramEmbedder, NeuralEmbedder
 from vision_compression_project_tpu_torch.models.decoder import DecoderBlock
 from vision_compression_project_tpu_torch.models.layers import init_weights_, torch_dtype, use_flash
@@ -3292,6 +3305,198 @@ def adamw_phase(cfg, prod_cfg, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- [short_conv]
+# The gated short conv's kernels (kernels/short_conv.cu) at LFM2's cell, 32
+# rows of 766 positions (the vision tokens and the text), dim 2,048, 3 taps
+# in bf16: each held bit for bit against ShortConv's plain path, and timed
+# against it, forward and backward apart, eager and from a CUDA graph; then
+# one whole layer (in_proj, the gated conv, out_proj) as a remat'd training
+# step runs it, forward twice and backward once, by either path. The checks
+# of tests/test_torch_gpu.py (-k short_conv) run at small shapes too.
+SHORT_CONV_CELL = (32, 766, 2048, 3)  # batch, positions, dim, taps
+SHORT_CONV_SMALL = [(b, s, dim, k, dtype) for dtype in (torch.bfloat16, torch.float32) for k in kernels.SHORT_CONV_TAPS
+                    for b, s, dim in ((1, 1, 16), (2, 2, 2048), (3, 3, 16), (2, 5, 2048), (3, 5, 16), (2, 70, 12))]
+SHORT_CONV_ITERS = 20
+# A tiny LFM2 decoder (4 conv blocks of 6) for the launches of a train_step.
+SHORT_CONV_TINY_LAYERS = ["conv", "conv", "full_attention", "conv", "full_attention", "conv"]
+
+
+def short_conv_inputs(b: int, s: int, dim: int, k: int, dtype: torch.dtype, seed: int):
+    """A ShortConv with identity projections (its plain path from h to the
+    gated product), h and dout, seeded."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed + b * 1000 + s * 10 + k)
+    conv = layers.ShortConv(dim, k, dtype=str(dtype).split(".")[-1]).to(DEVICE)
+    conv.in_proj, conv.out_proj = torch.nn.Identity(), torch.nn.Identity()
+    with torch.no_grad():
+        conv.taps.copy_(torch.randn(dim, k, generator=g, device=DEVICE))
+    h = torch.randn(b, s, 3 * dim, generator=g, device=DEVICE).to(dtype).requires_grad_()
+    dout = torch.randn(b, s, dim, generator=g, device=DEVICE).to(dtype)
+    return conv, h, dout
+
+
+def short_conv_check(b: int, s: int, dim: int, k: int, dtype: torch.dtype, seed: int) -> dict:
+    """The kernels against the plain path at one shape: the forward and the
+    gradient of h bit-equal; the taps' gradient's relative L2 gap to an f64
+    sum of the same products, and the plain path's; the backward twice,
+    bit-identical."""
+    conv, h, dout = short_conv_inputs(b, s, dim, k, dtype, seed)
+    taps = conv.taps.detach()
+    want = conv._plain(h)
+    dh_want, dtaps_want = torch.autograd.grad(want, (h, conv.taps), dout)
+    h = h.detach()
+    got = kernels.short_conv_fwd(h, taps)
+    (dh, dtaps), (dh2, dtaps2) = (kernels.short_conv_bwd(h, taps, dout) for _ in range(2))
+    x, c, xx = h.float().split(dim, dim=-1)
+    pp = F.pad((x * xx).to(dtype).double(), (0, 0, k - 1, 0))
+    dy = (dout.float() * c).double()
+    exact = torch.stack([(dy * pp[:, j:j + s]).sum(dim=(0, 1)) for j in range(k)], dim=1)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    return {"forward_equal": torch.equal(got, want.detach()), "dh_equal": torch.equal(dh, dh_want),
+            "taps_gap": float((dtaps.double() - exact).norm() / exact.norm()),
+            "plain_taps_gap": float((dtaps_want.double() - exact).norm() / exact.norm()),
+            "repeat_equal": torch.equal(dh.view(bits), dh2.view(bits))
+            and torch.equal(dtaps.view(torch.int32), dtaps2.view(torch.int32))}
+
+
+def short_conv_refusals() -> list:
+    """The inputs the wrapper must refuse, each as a call; none may launch."""
+    h, taps = torch.zeros((2, 5, 48), dtype=torch.bfloat16, device=DEVICE), torch.zeros((16, 3), device=DEVICE)
+    dout = torch.zeros((2, 5, 16), dtype=torch.bfloat16, device=DEVICE)
+    fwd, bwd = kernels.short_conv_fwd, kernels.short_conv_bwd
+    return [lambda: fwd(h[0], taps), lambda: fwd(h[..., 1:], taps[1:]), lambda: fwd(h.half(), taps),
+            lambda: fwd(h, taps.bfloat16()), lambda: fwd(h, taps[:, :1].contiguous()),
+            lambda: fwd(h, torch.zeros((16, 5), device=DEVICE)), lambda: fwd(h.transpose(0, 1), taps),
+            lambda: fwd(h, torch.zeros((3, 16), device=DEVICE).t()), lambda: fwd(h, taps.cpu()),
+            lambda: fwd(h.cpu(), taps), lambda: bwd(h, taps, dout[..., 1:]), lambda: bwd(h, taps, dout.float()),
+            lambda: bwd(h, taps, dout.cpu())]
+
+
+def short_conv_tiny_step(seed: int) -> dict:
+    """A tiny LFM2 train_step in bf16: its short-conv launches and whether
+    the loss and the gradients are finite."""
+    cfg = dataclasses.replace(get_preset("tiny"), decoder=DecoderConfig(
+        vocab=512, tokenizer="byte", dim=64, depth=6, heads=4, kv_heads=2, head_dim=16, mlp_ratio=2.0, max_seq=512,
+        rope_theta=1e6, num_experts=8, expert_every=1, capacity_factor=1.25, dtype="bfloat16",
+        layer_types=SHORT_CONV_TINY_LAYERS, num_dense_layers=2, moe_dim=32, router="sigmoid", experts_per_token=2,
+        qk_norm=True, conv_kernel=3, norm_eps=1e-5))
+    rng = np.random.default_rng(seed)
+    v = cfg.vision
+    batch = {"patch_tokens": torch.tensor(rng.standard_normal((2, v.grid * v.grid, v.patch * v.patch * 3)),
+                                          dtype=torch.float32, device=DEVICE),
+             "token_ids": torch.tensor(rng.integers(0, cfg.decoder.vocab, size=(2, 40)), device=DEVICE)}
+    batch["token_ids"][:, 0] = BOS_ID
+    model, opt, state = make_train_state(cfg, device=DEVICE, seed=seed, lr=1e-4)
+    kernels.reset_launch_counts()
+    state, loss = train_step(model, opt, state, batch)
+    torch.cuda.synchronize()
+    convs = SHORT_CONV_TINY_LAYERS.count("conv")
+    return {"launches": [kernels.launches["short_conv"], kernels.launches["short_conv_bwd"]],
+            "want_launches": [2 * convs, convs],
+            "finite": bool(np.isfinite(float(loss))) and all(bool(torch.isfinite(p.grad).all())
+                                                              for p in state.params.values())}
+
+
+def short_conv_timing(seed: int) -> dict:
+    """At the cell: the kernels and the plain path, forward (no grad) and
+    backward (autograd.grad of one kept plain forward graph) apart, eager and
+    from a CUDA graph, against their bytes bound; then a whole layer's
+    remat'd step (forward, then forward and backward) by either path, and
+    the peak memory that step adds."""
+    b, s, dim, k = SHORT_CONV_CELL
+    dtype = torch.bfloat16
+    conv, h, dout = short_conv_inputs(b, s, dim, k, dtype, seed)
+    taps, hd = conv.taps.detach(), h.detach()
+    unit = b * s * dim * 2 / HBM_BYTES_PER_S * 1e3  # ms to move one (b, s, dim) bf16 tensor
+    rec = {"shape": list(SHORT_CONV_CELL), "fwd_bound_ms": 4 * unit, "bwd_bound_ms": 7 * unit,
+           "layer_bound_ms": 15 * unit, "layer_bytes_gb": 15 * b * s * dim * 2 / GB}
+
+    def plain_fwd():
+        with torch.no_grad():
+            return conv._plain(h)
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        kept = conv._plain(h)
+    torch.cuda.current_stream().wait_stream(stream)
+    calls = {"fwd": lambda: kernels.short_conv_fwd(hd, taps), "plain_fwd": plain_fwd,
+             "bwd": lambda: kernels.short_conv_bwd(hd, taps, dout),
+             "plain_bwd": lambda: torch.autograd.grad(kept, (h, conv.taps), dout, retain_graph=True)}
+    for name, fn in calls.items():
+        rec[f"{name}_ms"] = cuda_ms(fn, SHORT_CONV_ITERS)
+        rec[f"{name}_graph_ms"] = graph_ms(fn, iters=SHORT_CONV_ITERS // 2,
+                                           stream=stream if name == "plain_bwd" else None)
+    rec["fwd_host_us"] = host_us(calls["fwd"])
+    rec["bwd_host_us"] = host_us(calls["bwd"])
+    rec["fwd_share_of_bound"] = rec["fwd_bound_ms"] / rec["fwd_graph_ms"]
+    rec["bwd_share_of_bound"] = rec["bwd_bound_ms"] / rec["bwd_graph_ms"]
+    rec["layer_kernels_graph_ms"] = 2 * rec["fwd_graph_ms"] + rec["bwd_graph_ms"]
+    rec["layer_share_of_bound"] = rec["layer_bound_ms"] / rec["layer_kernels_graph_ms"]
+    del kept, calls, conv, h, dout, taps, hd
+    free_card()
+
+    # One whole layer with its projections, seeded, as the training step runs it.
+    layer = layers.ShortConv(dim, k, dtype="bfloat16").to(DEVICE)
+    init_weights_(layer, torch.Generator().manual_seed(seed))
+    g = torch.Generator(device=DEVICE).manual_seed(seed + 1)
+    x = torch.randn(b, s, dim, generator=g, device=DEVICE).to(dtype).requires_grad_()
+    dy = torch.randn(b, s, dim, generator=g, device=DEVICE).to(dtype)
+    leaves = [x, *layer.parameters()]
+
+    def step(fn):
+        with torch.no_grad():
+            fn(x)
+        return torch.autograd.grad(fn(x), leaves, dy)
+
+    for name, fn in (("layer", layer), ("layer_plain", layer._plain)):
+        rec[f"{name}_ms"] = cuda_ms(lambda: step(fn), 5)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(fn)
+        torch.cuda.synchronize()
+        rec[f"{name}_peak_extra_gb"] = (torch.cuda.max_memory_allocated() - allocated) / GB
+    del layer, x, dy, leaves
+    free_card()
+    return rec
+
+
+def short_conv_phase(seed: int) -> dict:
+    """[short_conv]: the checks at the cell and the small shapes, the tiny
+    LFM2 step's launches, the refusals, then the timings; fails unless the
+    forward and h's gradient are bit-equal to the plain path, the taps'
+    gradient is within the plain path's gap of f64 plus 1e-6 and repeats
+    bit for bit, the launches are as planned and every refusal raises."""
+    out = {"checks": {}}
+    for case in [(*SHORT_CONV_CELL, torch.bfloat16)] + SHORT_CONV_SMALL:
+        rec = short_conv_check(*case, seed)
+        out["checks"][str(case)] = rec
+        if not (rec["forward_equal"] and rec["dh_equal"] and rec["repeat_equal"]
+                and rec["taps_gap"] <= rec["plain_taps_gap"] + 1e-6):
+            fail(f"short conv at {case}: {rec}")
+    free_card()
+    log("short_conv.checks", 0.0, cases=len(out["checks"]),
+        cell=json.dumps(out["checks"][str((*SHORT_CONV_CELL, torch.bfloat16))]),
+        worst_taps_gap=max(r["taps_gap"] for r in out["checks"].values()),
+        worst_plain_taps_gap=max(r["plain_taps_gap"] for r in out["checks"].values()))
+    out["tiny_step"] = short_conv_tiny_step(seed)
+    before, calls, refused = dict(kernels.launches), short_conv_refusals(), 0
+    for call in calls:
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    out["refused"] = refused
+    log("short_conv.tiny_step", 0.0, refused=refused, **{k: json.dumps(v) for k, v in out["tiny_step"].items()})
+    if (out["tiny_step"]["launches"] != out["tiny_step"]["want_launches"] or not out["tiny_step"]["finite"]
+            or refused != len(calls) or kernels.launches != before):
+        fail(f"short conv: tiny step {out['tiny_step']}, {refused} refusals of {len(calls)}")
+    t0 = time.perf_counter()
+    out["timing"] = short_conv_timing(seed)
+    log("short_conv.timing", sync_s(t0), **{k: json.dumps(v) for k, v in out["timing"].items()})
+    return out
+
+
 # [parallel]: the mesh layer at world size 1 over NCCL, the ring's per-rank
 # steps and the sharded search's local step and merge for virtual ranks at
 # full width, bench_index.
@@ -4250,6 +4455,7 @@ def lfm2_phase(seed: int) -> dict:
 
     layers.grouped_mm = counted
     losses, step_s = [], []
+    kernels.reset_launch_counts()
     try:
         for batch in pb_traffic.host_batches(mix, cfg, seed)[:2]:
             t0 = time.perf_counter()
@@ -4260,11 +4466,16 @@ def lfm2_phase(seed: int) -> dict:
         layers.grouped_mm = real
     pairs = mix["batch"] * (vcfg.vision.tokens_out + mix["text_len"] - 1) * vcfg.decoder.experts_per_token
     moe_layers = sum(vcfg.decoder.block_moe(i) for i in range(vcfg.decoder.depth))
+    convs = vcfg.decoder.layer_types.count("conv")
     out["train"] = {"losses": losses, "step_s": step_s, "pairs_per_layer": pairs,
-                    "grouped_products": len(rows), "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9}
+                    "grouped_products": len(rows), "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": [kernels.launches["short_conv"], kernels.launches["short_conv_bwd"]],
+                    "want_launches": [len(step_s) * 2 * convs, len(step_s) * convs]}
     log("lfm2.train", sum(step_s), **{k: json.dumps(v) for k, v in out["train"].items()})
     if not np.isfinite(losses).all():
         fail(f"lfm2: losses {losses}")
+    if out["train"]["launches"] != out["train"]["want_launches"]:
+        fail(f"lfm2: short-conv launches {out['train']['launches']}, want {out['train']['want_launches']}")
     # Forward and remat recompute: 3 products a MoE layer, twice a step.
     if len(rows) != 2 * 2 * 3 * moe_layers or any(n != pairs or int(end) != pairs for n, end in rows):
         fail(f"lfm2: grouped products {len(rows)}, rows {sorted(set(n for n, _ in rows))}, want {pairs} each")
@@ -4368,6 +4579,10 @@ def main() -> int:
     t0 = time.perf_counter()
     adamw = adamw_phase(cfg, prod_cfg, args.seed)
     log("adamw", time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    conv = short_conv_phase(args.seed)
+    log("short_conv", time.perf_counter() - t0)
 
     shapes = path_shapes(cfg, chat_cfg, embed_texts(args.seed)) + prod_shapes(prod_cfg)
     t0 = time.perf_counter()
@@ -4479,7 +4694,7 @@ def main() -> int:
                 piped["stages"]["unpipelined_step_s"]), bubble=json.dumps(piped["bubble"]), smi=json.dumps(smi))
         free_card()
         t0 = time.perf_counter()
-        lfm2_phase(args.seed)
+        lfm2 = lfm2_phase(args.seed)
         log("lfm2", time.perf_counter() - t0, smi=json.dumps(smi))
 
     train_rec = trained["kernel"]["train"]
@@ -4565,6 +4780,12 @@ def main() -> int:
          **{name: {k: rec[k] for k in ("ms", "graph_ms", "sumsq_graph_ms", "update_graph_ms", "plain_ms",
                                         "library_ms", "library_graph_ms", "bound_ms", "share_of_bound")}
             for name, rec in adamw.items()}},
+        # At LFM2's cell, per layer call; and the calls of the lfm2 phase's
+        # two training steps and of the tiny LFM2 step.
+        {"name": "short_conv", "route": "cuda", "source": "vision_compression_project_tpu_torch/kernels/short_conv.cu",
+         "replaces": "none: the JAX package has no short-conv block",
+         "launches_by_path": {"lfm2": lfm2["train"]["launches"], "tiny_lfm2": conv["tiny_step"]["launches"]},
+         **conv["timing"]},
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,8 +12,9 @@ one-rank NCCL mesh, a prod MoE block's TP/EP virtual ranks; on 4 cards the
 sharded steps against one card's, which skips on fewer), and pipeline-
 parallel training (the pipelined f32 step on the card against the CPU's; on
 4 cards ocr_real's pipelined steps at data 2 x model 2 against one card's,
-and the dry run over NCCL on 2 and 4 cards, which skip on fewer). They skip
-without a CUDA device.
+and the dry run over NCCL on 2 and 4 cards, which skip on fewer), and the
+gated short conv's kernels against ShortConv's plain path (`-k short_conv`).
+They skip without a CUDA device.
 
 This file imports nothing of JAX, so it also runs where JAX is not
 installed. On the GPU machine, from the repository root:
@@ -28,7 +29,7 @@ import pytest
 import torch
 
 from vision_compression_project_tpu_torch import kernels
-from vision_compression_project_tpu_torch.models import VLMRunner, get_preset
+from vision_compression_project_tpu_torch.models import VLMRunner, get_preset, layers
 from vision_compression_project_tpu_torch.models.tokenizer import BOS_ID, TASK_EXTRACT_ID
 from vision_compression_project_tpu_torch.index.vector_index import VectorIndex
 from vision_compression_project_tpu_torch.ops.attention import (
@@ -1301,3 +1302,142 @@ def test_dryrun_multichip_over_nccl(cuda, n, capsys):
         kernels.build(name)
     lines = dryrun_multichip(n, "cuda")
     assert lines[-1].startswith(f"dryrun_multichip OK: n={n} meshes=2 ") and "pipeline(model)" in lines[-1]
+
+
+# The gated short conv's kernels (kernels/short_conv.cu) against ShortConv's
+# plain path on the card: LFM2's cell, (32, 766, 2048) with 3 taps in bf16,
+# and small shapes: rows of 1, 2, 3 and 5 positions, batches 1-3, widths 16
+# and 2048, 2-4 taps, bf16 and f32; a row past the kernel's run of 32
+# positions, and widths the 16-byte vectors do not fill (one element a
+# thread).
+SHORT_CONV_CASES = [(32, 766, 2048, 3, torch.bfloat16)] + [
+    (b, s, dim, k, dtype) for dtype in (torch.bfloat16, torch.float32) for k in kernels.SHORT_CONV_TAPS
+    for b, s, dim in ((1, 1, 16), (2, 2, 2048), (3, 3, 16), (2, 5, 2048), (3, 5, 16), (2, 70, 12))
+]
+
+
+def _short_conv_inputs(cuda, b, s, dim, k, dtype):
+    """A ShortConv with identity projections (its plain path from h to the
+    gated product), h and dout, seeded."""
+    g = torch.Generator(device=cuda).manual_seed(b * 1000 + s * 10 + k)
+    conv = layers.ShortConv(dim, k, dtype=str(dtype).split(".")[-1]).to(cuda)
+    conv.in_proj, conv.out_proj = torch.nn.Identity(), torch.nn.Identity()
+    with torch.no_grad():
+        conv.taps.copy_(torch.randn(dim, k, generator=g, device=cuda))
+    h = torch.randn(b, s, 3 * dim, generator=g, device=cuda).to(dtype).requires_grad_()
+    dout = torch.randn(b, s, dim, generator=g, device=cuda).to(dtype)
+    return conv, h, dout
+
+
+def _short_conv_taps_f64(h, taps, dout):
+    """The taps' gradient as an f64 sum of the f32 products dY(t) P(t-k+1+j)."""
+    k, s, dim = taps.shape[1], h.shape[1], h.shape[2] // 3
+    b, c, x = h.float().split(dim, dim=-1)
+    pp = torch.nn.functional.pad((b * x).to(h.dtype).double(), (0, 0, k - 1, 0))
+    dy = (dout.float() * c).double()
+    return torch.stack([(dy * pp[:, j:j + s]).sum(dim=(0, 1)) for j in range(k)], dim=1)
+
+
+@pytest.mark.parametrize("b,s,dim,k,dtype", SHORT_CONV_CASES)
+def test_short_conv_forward_equals_plain(cuda, b, s, dim, k, dtype):
+    """The kernel's forward bit-equal to the plain path, one launch."""
+    conv, h, _ = _short_conv_inputs(cuda, b, s, dim, k, dtype)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = kernels.short_conv_fwd(h.detach(), conv.taps.detach())
+        want = conv._plain(h)
+    torch.cuda.synchronize()
+    assert kernels.launches["short_conv"] == 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b,s,dim,k,dtype", SHORT_CONV_CASES)
+def test_short_conv_backward_equals_plain(cuda, b, s, dim, k, dtype):
+    """Through `_ShortConvFn`: the forward and the gradient of h (dB, dC and
+    dx') bit-equal to autograd of the plain path; the taps' gradient no
+    further from an f64 sum of the same products than the plain path's,
+    plus 1e-6 (relative L2); a second backward call gives the same bits."""
+    conv, h, dout = _short_conv_inputs(cuda, b, s, dim, k, dtype)
+    taps = conv.taps.detach().requires_grad_()
+    want = conv._plain(h)
+    dh_want, dtaps_want = torch.autograd.grad(want, (h, conv.taps), dout)
+    kernels.reset_launch_counts()
+    got = layers._ShortConvFn.apply(h, taps)
+    dh, dtaps = torch.autograd.grad(got, (h, taps), dout)
+    again = kernels.short_conv_bwd(h.detach(), taps.detach(), dout)
+    torch.cuda.synchronize()
+    assert (kernels.launches["short_conv"], kernels.launches["short_conv_bwd"]) == (1, 2)
+    assert torch.equal(got, want)
+    assert dh.dtype == dtype and dh.is_contiguous() and torch.equal(dh, dh_want)
+    exact = _short_conv_taps_f64(h.detach(), taps.detach(), dout)
+
+    def gap(t):
+        return float((t.double() - exact).norm() / exact.norm())
+
+    assert dtaps.dtype == torch.float32 and gap(dtaps) <= gap(dtaps_want) + 1e-6
+    assert torch.equal(again[0].view(torch.int16 if dtype == torch.bfloat16 else torch.int32),
+                       dh.view(torch.int16 if dtype == torch.bfloat16 else torch.int32))
+    assert torch.equal(again[1].view(torch.int32), dtaps.view(torch.int32))
+
+
+def test_short_conv_lfm2_step_launches(cuda):
+    """A tiny LFM2 train_step in bf16 on the card: each conv block launches
+    the forward twice (forward and remat recompute) and the backward once;
+    the loss and every gradient are finite."""
+    from vision_compression_project_tpu_torch.models.configs import DecoderConfig
+    from vision_compression_project_tpu_torch.train.train_step import make_train_state, train_step
+
+    layer_types = ["conv", "conv", "full_attention", "conv", "full_attention", "conv"]
+    tiny = get_preset("tiny")
+    cfg = dataclasses.replace(tiny, decoder=DecoderConfig(
+        vocab=512, tokenizer="byte", dim=64, depth=6, heads=4, kv_heads=2, head_dim=16, mlp_ratio=2.0, max_seq=512,
+        rope_theta=1e6, num_experts=8, expert_every=1, capacity_factor=1.25, dtype="bfloat16",
+        layer_types=layer_types, num_dense_layers=2, moe_dim=32, router="sigmoid", experts_per_token=2,
+        qk_norm=True, conv_kernel=3, norm_eps=1e-5))
+    rng = np.random.default_rng(0)
+    v = cfg.vision
+    batch = {"patch_tokens": torch.tensor(rng.standard_normal((2, v.grid * v.grid, v.patch * v.patch * 3)),
+                                          dtype=torch.float32, device=cuda),
+             "token_ids": torch.tensor(rng.integers(0, cfg.decoder.vocab, size=(2, 40)), device=cuda)}
+    batch["token_ids"][:, 0] = BOS_ID
+    model, opt, state = make_train_state(cfg, device=cuda, seed=0, lr=1e-4)
+    kernels.reset_launch_counts()
+    state, loss = train_step(model, opt, state, batch)
+    torch.cuda.synchronize()
+    convs = layer_types.count("conv")
+    assert (kernels.launches["short_conv"], kernels.launches["short_conv_bwd"]) == (2 * convs, convs)
+    assert np.isfinite(float(loss))
+    assert all(bool(torch.isfinite(p.grad).all()) for p in state.params.values())
+
+
+SHORT_CONV_REFUSED = {
+    "h of 2 dimensions": lambda d: ((10, 48), torch.bfloat16, (16, 3), None, d, d),
+    "h not 3 x dim wide": lambda d: ((2, 5, 47), torch.bfloat16, (16, 3), None, d, d),
+    "h in float16": lambda d: ((2, 5, 48), torch.float16, (16, 3), None, d, d),
+    "taps of another width": lambda d: ((2, 5, 48), torch.bfloat16, (15, 3), None, d, d),
+    "one tap": lambda d: ((2, 5, 48), torch.bfloat16, (16, 1), None, d, d),
+    "five taps": lambda d: ((2, 5, 48), torch.bfloat16, (16, 5), None, d, d),
+    "dout of another shape": lambda d: ((2, 5, 48), torch.bfloat16, (16, 3), (2, 5, 15), d, d),
+    "taps on the CPU": lambda d: ((2, 5, 48), torch.bfloat16, (16, 3), None, d, "cpu"),
+    "dout on the CPU": lambda d: ((2, 5, 48), torch.bfloat16, (16, 3), (2, 5, 16), d, "cpu"),
+    "h on the CPU": lambda d: ((2, 5, 48), torch.bfloat16, (16, 3), None, "cpu", d),
+}
+
+
+@pytest.mark.parametrize("case", list(SHORT_CONV_REFUSED))
+def test_short_conv_wrapper_refuses(cuda, case):
+    """Each refused input raises ValueError and launches nothing, as do
+    taps in bf16 and h or taps not contiguous."""
+    shape, dtype, taps_shape, dout_shape, h_dev, other_dev = SHORT_CONV_REFUSED[case](cuda)
+    h = torch.zeros(shape, dtype=dtype, device=h_dev)
+    taps = torch.zeros(taps_shape, device=other_dev if dout_shape is None else cuda)
+    dout = None if dout_shape is None else torch.zeros(dout_shape, dtype=dtype, device=other_dev)
+    good_h, good_taps = torch.zeros((2, 5, 48), dtype=torch.bfloat16, device=cuda), torch.zeros((16, 3), device=cuda)
+    before = dict(kernels.launches)
+    with pytest.raises(ValueError):
+        kernels.short_conv_fwd(h, taps) if dout is None else kernels.short_conv_bwd(h, taps, dout)
+    loose_taps = torch.zeros((3, 16), device=cuda).t()
+    for bad in ((good_h, good_taps.bfloat16()), (good_h.transpose(0, 1), good_taps), (good_h, loose_taps)):
+        with pytest.raises(ValueError):
+            kernels.short_conv_fwd(*bad)
+    assert kernels.launches == before

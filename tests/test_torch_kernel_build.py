@@ -12,7 +12,7 @@ import pytest
 
 from vision_compression_project_tpu_torch import kernels
 
-NAMES = ("flash_attention", "flash_attention_bwd", "masked_similarity", "adamw")
+NAMES = kernels.SOURCES
 HERE = Path(kernels.__file__).resolve().parent
 
 

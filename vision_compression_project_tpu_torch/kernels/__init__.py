@@ -10,7 +10,9 @@ can import the package.
 `launches` counts, per kernel, the launches made since the last
 `reset_launch_counts()`: a run can show which kernels its path went through.
 `adamw_sumsq` counts both of AdamW's sums-of-squares kernels (two launches
-an update), as the C entry point reports them. `SOURCES` names the sources
+an update), as the C entry point reports them; `short_conv` and
+`short_conv_bwd` count calls of the short conv's forward and backward (the
+backward's call is its pass and the taps' sum). `SOURCES` names the sources
 (`<name>.cu`) that `build` compiles.
 """
 
@@ -37,9 +39,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-SOURCES = ("flash_attention", "flash_attention_bwd", "masked_similarity", "adamw")
+SOURCES = ("flash_attention", "flash_attention_bwd", "masked_similarity", "adamw", "short_conv")
 launches = {"flash_attention": 0, "flash_attention_bwd": 0, "masked_similarity": 0, "adamw_sumsq": 0,
-            "adamw_update": 0}
+            "adamw_update": 0, "short_conv": 0, "short_conv_bwd": 0}
 # One build of a kernel at a time within the process: threads of one process
 # share the temporary file name, which carries the pid.
 _build_locks = {name: threading.Lock() for name in SOURCES}
@@ -151,6 +153,21 @@ def _adamw_lib() -> ctypes.CDLL:
     # table, leaves, constants, sq, max_norm, has_wd, device, stream, launches made
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                    ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _short_conv_lib() -> ctypes.CDLL:
+    lib = _load("short_conv")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn = lib.vcp_short_conv_fwd
+    # h, taps, out, batch, seq, dim, k, dtype, vec, device, stream
+    fn.argtypes = [ptr] * 3 + [i32] * 7 + [ptr]
+    fn.restype = ctypes.c_int
+    fn = lib.vcp_short_conv_bwd
+    # h, taps, dout, dh, dtaps, partials, batch, seq, dim, k, dtype, vec, device, stream
+    fn.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
     fn.restype = ctypes.c_int
     return lib
 
@@ -451,3 +468,88 @@ def adamw_update(params: List[torch.Tensor], grads: List[torch.Tensor], mu: List
                                _raw_stream(dev.index), ctypes.byref(launched))
     launches["adamw_update"] += launched.value
     _raise_on(lib, "adamw_update", err)
+
+
+# The gated short conv (kernels/short_conv.cu): the taps it takes, and the
+# runs of positions its threads walk, which size the taps' partial sums.
+SHORT_CONV_TAPS = (2, 3, 4)
+SHORT_CONV_RUN = 32  # positions a thread walks (short_conv.cu's RUN)
+SHORT_CONV_RUNS_PER_BLOCK = 8  # runs a block (short_conv.cu's RUNS): one f64 partial row each block row
+_SHORT_CONV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_GRID_Y_MAX = 65535
+
+
+def _short_conv_shape(h: torch.Tensor, taps: torch.Tensor,
+                      dout: Optional[torch.Tensor] = None) -> Tuple[int, int, int, int, int]:
+    """(batch, seq, dim, k, block rows) of a call the kernels take: h a
+    contiguous (B, S, 3 * dim) float32 or bfloat16 tensor, taps a contiguous
+    (dim, k) float32 tensor with k in SHORT_CONV_TAPS, dout (the backward's)
+    contiguous and shaped and typed as the forward's output, all on one CUDA
+    device (checked last). Raises ValueError on anything else."""
+    if h.dim() != 3 or h.shape[2] == 0 or h.shape[2] % 3:
+        raise ValueError(f"h must be (B, S, 3 * dim) with dim >= 1: got {tuple(h.shape)}")
+    b, s, dim = h.shape[0], h.shape[1], h.shape[2] // 3
+    if h.dtype not in _SHORT_CONV_DTYPES:
+        raise ValueError(f"h is {h.dtype}: the kernels take float32 or bfloat16")
+    if taps.dtype != torch.float32 or taps.dim() != 2 or taps.shape[0] != dim or taps.shape[1] not in SHORT_CONV_TAPS:
+        raise ValueError(f"taps must be float32 ({dim}, k) with k in {SHORT_CONV_TAPS}: got {taps.dtype} "
+                         f"{tuple(taps.shape)}")
+    if dout is not None and (dout.shape != (b, s, dim) or dout.dtype != h.dtype):
+        raise ValueError(f"dout must be {h.dtype} ({b}, {s}, {dim}): got {dout.dtype} {tuple(dout.shape)}")
+    if not all(t.is_contiguous() for t in (h, taps, dout) if t is not None):
+        raise ValueError("h, taps and dout must be contiguous")
+    rows = -(-b * -(-s // SHORT_CONV_RUN) // SHORT_CONV_RUNS_PER_BLOCK)
+    if rows > _GRID_Y_MAX:
+        raise ValueError(f"{b} x {s} positions: the kernels take at most "
+                         f"{_GRID_Y_MAX * SHORT_CONV_RUNS_PER_BLOCK} runs of {SHORT_CONV_RUN}")
+    if h.device.type != "cuda" or any(t.device != h.device for t in (taps, dout) if t is not None):
+        raise ValueError(f"h, taps and dout must be on one CUDA device: got "
+                         f"{[str(t.device) for t in (h, taps, dout) if t is not None]}")
+    return b, s, dim, taps.shape[1], rows
+
+
+def _short_conv_vec(dim: int, *tensors: torch.Tensor) -> int:
+    """1 where the channels go as whole 16-byte vectors: dim fills them and
+    every pointer is 16-byte aligned; else 0 (one element a thread)."""
+    return int(dim * tensors[0].element_size() % 16 == 0 and not any(t.data_ptr() % 16 for t in tensors))
+
+
+def short_conv_fwd(h: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """The gated short conv between LFM2's projections (kernels/short_conv.cu):
+    h = [B | C | x'] (B, S, 3 * dim), taps (dim, k) float32 (`_short_conv_shape`
+    says what it takes) -> C * conv(B * x') (B, S, dim) in h's dtype, bit-equal
+    to ShortConv's plain path. Raises on anything the kernel does not take and
+    on a launch that CUDA refuses."""
+    b, s, dim, k, _ = _short_conv_shape(h, taps)
+    dev = h.device
+    out = torch.empty((b, s, dim), dtype=h.dtype, device=dev)
+    lib = _short_conv_lib()
+    err = lib.vcp_short_conv_fwd(h.data_ptr(), taps.data_ptr(), out.data_ptr(), b, s, dim, k,
+                                 _SHORT_CONV_DTYPES[h.dtype], _short_conv_vec(dim, h, out), dev.index,
+                                 _raw_stream(dev.index))
+    _raise_on(lib, "short_conv", err)
+    launches["short_conv"] += 1
+    return out
+
+
+def short_conv_bwd(h: torch.Tensor, taps: torch.Tensor, dout: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The short conv's backward (kernels/short_conv.cu) from h and taps as the
+    forward took them and dout, the output's gradient (contiguous, shaped and
+    typed like the forward's output): (dh, dtaps), the gradient of h as one
+    contiguous (B, S, 3 * dim) tensor [dB | dC | dx'] bit-equal to autograd's
+    of the plain path, and the taps' (dim, k) float32 gradient, summed in a
+    fixed order (the same inputs give the same bits). One call, one count.
+    Raises on anything the kernel does not take and on a launch that CUDA
+    refuses."""
+    b, s, dim, k, rows = _short_conv_shape(h, taps, dout)
+    dev = h.device
+    dh = torch.empty_like(h)
+    dtaps = torch.empty_like(taps)
+    partials = torch.empty(rows * dim * k, dtype=torch.float64, device=dev)
+    lib = _short_conv_lib()
+    err = lib.vcp_short_conv_bwd(h.data_ptr(), taps.data_ptr(), dout.data_ptr(), dh.data_ptr(), dtaps.data_ptr(),
+                                 partials.data_ptr(), b, s, dim, k, _SHORT_CONV_DTYPES[h.dtype],
+                                 _short_conv_vec(dim, h, dout, dh), dev.index, _raw_stream(dev.index))
+    _raise_on(lib, "short_conv_bwd", err)
+    launches["short_conv_bwd"] += 1
+    return dh, dtaps

@@ -55,6 +55,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
+from .. import kernels
 from ..ops.attention import NEG_INF, flash_attention, mha_reference
 from ..ops import ring_attention as ring
 from ..parallel.mesh import AXIS_DATA, AXIS_EXPERT, AXIS_MODEL, AXIS_SEQ, axis_size
@@ -652,6 +653,24 @@ def _ranged(forward, x: torch.Tensor, fwd_name: str, bwd_name: str):
     return _BackwardStart.apply(y, rng)
 
 
+class _ShortConvFn(torch.autograd.Function):
+    """ShortConv between its projections on the card: h = in_proj(x) =
+    [B | C | x'] (B, S, 3 * dim) and the (dim, kernel) f32 taps -> C *
+    conv(B * x') (B, S, dim) in h's dtype, one kernel each way
+    (kernels.short_conv_fwd / short_conv_bwd). Saves h and the taps; the
+    backward recomputes the filter from h and returns h's gradient whole."""
+
+    @staticmethod
+    def forward(ctx, h, taps):
+        ctx.save_for_backward(h, taps)
+        return kernels.short_conv_fwd(h, taps)
+
+    @staticmethod
+    def backward(ctx, dout):
+        h, taps = ctx.saved_tensors
+        return kernels.short_conv_bwd(h, taps, dout.contiguous())
+
+
 class ShortConv(nn.Module):
     """LFM2's gated short convolution (`Lfm2MoeShortConv`): B, C, x' =
     chunk3(in_proj(x)); y = C * conv(B * x'); out_proj(y), where conv is a
@@ -660,6 +679,12 @@ class ShortConv(nn.Module):
     weighing t - kernel + 1 + j. The projections and B * x' run in the
     compute dtype, the taps sum in f32 and C multiplies in f32 before the
     cast back.
+
+    On a CUDA tensor `forward` computes everything between the projections
+    with one hand-written kernel each way (`_ShortConvFn`,
+    kernels/short_conv.cu), bit-equal to `_gated`, `_filter` and `_out`,
+    which the CPU runs (`_plain`); `prefill` and `decode` run them on any
+    device.
 
     The cache of a sequence is the last kernel - 1 values of B * x', a
     (B, kernel - 1, dim) tensor "conv" in place of attention's k and v: the
@@ -692,9 +717,14 @@ class ShortConv(nn.Module):
     def _out(self, y: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         return self.out_proj((y * c.to(torch.float32)).to(c.dtype))
 
-    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _plain(self, x: torch.Tensor) -> torch.Tensor:
         bx, c = self._gated(x)
         return self._out(self._filter(F.pad(bx, (0, 0, self.width - 1, 0)), x.shape[1]), c)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.is_cuda:
+            return self.out_proj(_ShortConvFn.apply(self.in_proj(x), self.taps))
+        return self._plain(x)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, S, dim) -> (B, S, dim) over whole sequences."""
